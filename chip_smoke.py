@@ -20,9 +20,21 @@ Phases (any failure raises and the script exits non-zero):
               card and the plain CPU path's, ``search_single`` (kernel
               ``bm25_topk``) equals ``search_batch``, and both kernels were
               launched.
-  4. kernels  each kernel against its plain PyTorch version on the card at
+  4. families the same index through ``search_batch``: batches of 32
+              queries of one luceneutil task each (k=10) for boolean
+              (and/or, 2 and 3 terms), phrase, sort (dayOfYear, month,
+              timestamp), range (timestamp, month) and facet (match-all
+              month and dayOfYear, term-filtered month).  Per task: QPS,
+              batch p50/p99 and route.  Checks: fused equals the eager
+              executors on the card and the plain CPU path, ``search_single``
+              equals ``search_batch``, a mixed batch of every task equals the
+              per-task results, the deleted term's docs are in no family's
+              hits, and kernels K3-K6 were launched.
+  5. kernels  each kernel against its plain PyTorch version on the card at
               the main path's shapes (bit-equal), its time from CUDA events,
-              the plain version's time, and its byte bound at 3.35 TB/s.
+              the plain version's time, the time of one PyTorch library call
+              for the selection or histogram half where there is one, and
+              its byte bound at 3.35 TB/s.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the repository
@@ -52,8 +64,13 @@ OPS_PER_SCORE = 10
 REPLACES = {
     "term_topk": "src/repro/kernels/fused_exec.py:108",
     "bm25_topk": "src/repro/kernels/bm25_topk.py:78",
+    "bool_topk": "src/repro/kernels/fused_exec.py:172",
+    "sort_topk": "src/repro/kernels/fused_exec.py:225",
+    "range_topk": "src/repro/kernels/fused_exec.py:279",
+    "facet_hist": "src/repro/kernels/fused_exec.py:340",
 }
 SOURCE = "src/repro_torch/csrc/term_topk.cu"
+DOC_SOURCE = "src/repro_torch/csrc/doc_topk.cu"
 # Document-frequency bands named after luceneutil's HighTerm / MedTerm /
 # LowTerm task categories, as fractions of the collection.  The boundaries
 # are this script's choice, not numbers luceneutil defines.
@@ -63,6 +80,17 @@ K = 10  # hits per query
 SEED = 0  # corpus seed; the traffic draws from SEED + 1
 RARE_FROM = 10_000  # the delete takes the first vocabulary id from here up
 #                     whose term the index already holds (Zipf tail)
+# families phase: timed batches per task after FAMILY_WARM warm-up batches
+# (phrase runs on the host, so fewer); CHECK_BATCHES of each task are held
+# to the eager executors on the card, SINGLE_PER_TASK queries to
+# search_single, CPU_QUERIES queries of one batch to the plain CPU path
+FAMILY_BATCHES = 12
+PHRASE_BATCHES = 3
+FAMILY_WARM = 2
+CHECK_BATCHES = 2
+SINGLE_PER_TASK = 4
+CPU_QUERIES = 8
+PHRASE_DOCS = 2000  # documents the phrase task takes adjacent pairs from
 
 
 def log(tag: str, obj) -> None:
@@ -76,6 +104,9 @@ def same_topdocs(a, b, ctx: str) -> None:
         raise AssertionError(f"{ctx}: doc ids differ")
     if not np.array_equal(a.scores.view(np.int32), b.scores.view(np.int32)):
         raise AssertionError(f"{ctx}: score bits differ")
+    if (a.facets is None) != (b.facets is None) or (
+            a.facets is not None and not np.array_equal(a.facets, b.facets)):
+        raise AssertionError(f"{ctx}: facet counts differ")
 
 
 def check_topdocs(td, k: int, ctx: str) -> None:
@@ -89,6 +120,17 @@ def check_topdocs(td, k: int, ctx: str) -> None:
     key = list(zip((-td.scores).tolist(), td.doc_ids.tolist()))
     if key != sorted(key):
         raise AssertionError(f"{ctx}: results out of order")
+
+
+def check_facets(td, ctx: str) -> None:
+    """A facet result: integer counts that sum to at most the matched docs,
+    bins ordered by count desc then bin asc."""
+    c = td.facets
+    if c is None or (c != np.round(c)).any() or c.min() < 0 or c.sum() > td.total_hits:
+        raise AssertionError(f"{ctx}: bad facet counts")
+    key = list(zip((-td.scores).tolist(), td.doc_ids.tolist()))
+    if key != sorted(key) or not np.array_equal(td.scores, c[td.doc_ids]):
+        raise AssertionError(f"{ctx}: facet bins out of order")
 
 
 SPIN_CYCLES = 200_000_000  # ~0.1 s of the SM clock
@@ -169,23 +211,314 @@ def device_profile(run) -> dict:
     }
 
 
-def draw_batches(df: np.ndarray, words, n_docs: int, n_batches: int, batch: int,
-                 seed: int):
-    """Batches of TermQuery strings, each query from a uniformly chosen df
-    band, each term uniform within its band."""
-    rng = np.random.default_rng(seed)
+def band_ids(df: np.ndarray, n_docs: int) -> dict:
+    """Vocabulary ids per df band."""
     bands = {}
     for name, (lo, hi) in BANDS.items():
         ids = np.nonzero((df >= lo * n_docs) & (df < hi * n_docs))[0]
         if len(ids) == 0:
             raise AssertionError(f"df band {name} is empty")
         bands[name] = ids
+    return bands
+
+
+def draw_batches(bands: dict, words, n_batches: int, batch: int, seed: int):
+    """Batches of TermQuery strings, each query from a uniformly chosen df
+    band, each term uniform within its band."""
+    rng = np.random.default_rng(seed)
     names = list(BANDS)
     out = []
     for _ in range(n_batches):
         pick = rng.integers(0, len(names), size=batch)
         out.append([words[int(rng.choice(bands[names[j]]))] for j in pick])
-    return out, {k: int(len(v)) for k, v in bands.items()}
+    return out
+
+
+def phrase_pairs(cfg, bands: dict, words, deleted: str):
+    """Adjacent body-token pairs of the first PHRASE_DOCS documents whose
+    tokens are both in the med band, so every phrase has hits."""
+    from repro_torch.data.corpus import synthetic_corpus
+
+    med = {words[i] for i in bands["med"]}
+    pairs = set()
+    for fields, _ in itertools.islice(synthetic_corpus(cfg), PHRASE_DOCS):
+        toks = fields["body"].split()
+        pairs.update((a, b) for a, b in zip(toks, toks[1:])
+                     if a in med and b in med and deleted not in (a, b))
+    if not pairs:
+        raise AssertionError("no adjacent med-band pair for the phrase task")
+    return sorted(pairs)
+
+
+def family_tasks(bands: dict, words, pairs, n_batches: int, seed: int) -> dict:
+    """{task: [batch of BATCH queries]}: luceneutil's task names
+    (benchmarks/search_bench.py:65-104 for their shapes), each query drawn
+    with one seeded generator from the df bands; AndHighHighMed and
+    TermTimestampSort are this script's own (a 3-term AND; sort keys that
+    round above 2^24)."""
+    from repro_torch.core.query.types import (
+        BooleanQuery, FacetQuery, PhraseQuery, RangeQuery, SortQuery, TermQuery,
+    )
+
+    rng = np.random.default_rng(seed)
+
+    def terms(*band_names):
+        while True:
+            toks = [words[int(rng.choice(bands[b]))] for b in band_names]
+            if len(set(toks)) == len(toks):
+                return tuple(TermQuery("body", t) for t in toks)
+
+    def ts_window():
+        width = int(rng.integers(1 << 22, 1 << 27))
+        lo = int(rng.integers(0, (1 << 30) - width))
+        return RangeQuery("timestamp", lo, lo + width)
+
+    def month_window():
+        lo = int(rng.integers(0, 12))
+        return RangeQuery("month", lo, min(11, lo + int(rng.integers(0, 4))))
+
+    shapes = {
+        "AndHighHigh": lambda: BooleanQuery(terms("high", "high"), "and"),
+        "AndHighMed": lambda: BooleanQuery(terms("high", "med"), "and"),
+        "OrHighHigh": lambda: BooleanQuery(terms("high", "high"), "or"),
+        "OrHighMed": lambda: BooleanQuery(terms("high", "med"), "or"),
+        "AndHighHighMed": lambda: BooleanQuery(terms("high", "high", "med"), "and"),
+        "Phrase": lambda: PhraseQuery("body", pairs[int(rng.integers(len(pairs)))]),
+        "TermDayOfYearSort": lambda: SortQuery(terms("high")[0], "dayOfYear"),
+        "TermMonthSort": lambda: SortQuery(terms("high")[0], "month"),
+        "TermTimestampSort": lambda: SortQuery(terms("high")[0], "timestamp"),
+        "IntNRQ": ts_window,
+        "IntNRQMonth": month_window,
+        "BrowseMonthSSDVFacets": lambda: FacetQuery(None, "month", 12),
+        "BrowseDayOfYearSSDVFacets": lambda: FacetQuery(None, "dayOfYear", 365),
+        "TermMonthFacets": lambda: FacetQuery(terms("high")[0], "month", 12),
+    }
+    out = {}
+    for name, make in shapes.items():
+        nb = (PHRASE_BATCHES if name == "Phrase" else n_batches) + FAMILY_WARM
+        out[name] = [[make() for _ in range(BATCH)] for _ in range(nb)]
+    return out
+
+
+def families_phase(eng, cfg, bands: dict, words, rare: str, n_batches: int):
+    """Drive every family task through ``search_batch`` on the card and
+    check it (see the module docstring).  Returns (per-task stats, K3-K6
+    launch counts, the tasks' batches and fused results)."""
+    import torch
+
+    from repro_torch.core.query import profile
+    from repro_torch.core.query.types import (
+        BooleanQuery, FacetQuery, PhraseQuery, SortQuery, TermQuery,
+    )
+    from repro_torch.core.search import Searcher
+    from repro_torch.kernels import doc_topk as dk
+    from repro_torch.kernels import term_topk as kt
+
+    s = eng.searcher
+    pairs = phrase_pairs(cfg, bands, words, rare)
+    tasks = family_tasks(bands, words, pairs, n_batches, SEED + 2)
+    stats, results = {}, {}
+    kt.reset_launches()
+    dk.reset_launches()
+    for name, batches in tasks.items():
+        lat, res = [], []
+        with profile.capture() as routes:
+            for i, qs in enumerate(batches):
+                t = time.perf_counter()
+                r = eng.search_batch(qs, k=K)
+                if i >= FAMILY_WARM:
+                    lat.append(time.perf_counter() - t)
+                res.append(r)
+        lat_ms = np.asarray(lat) * 1e3
+        results[name] = res
+        stats[name] = {
+            "qps": BATCH * len(lat) / (lat_ms.sum() / 1e3),
+            "batch_p50_ms": float(np.percentile(lat_ms, 50)),
+            "batch_p99_ms": float(np.percentile(lat_ms, 99)),
+            "timed_batches": len(lat),
+            "routes": dict(routes),
+        }
+    # one mixed batch of every task, through the same entry point
+    mixed = [(name, j) for name in tasks for j in range(3)]
+    got = eng.search_batch([tasks[n][0][j] for n, j in mixed], k=K)
+    launches = dict(dk.launches)
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a family kernel never launched: {launches}")
+    for (name, j), g in zip(mixed, got):
+        same_topdocs(g, results[name][0][j], f"mixed {name}")
+
+    # shape, order and the delete: no deleted doc in any family's hits
+    deleted_ids = np.concatenate(
+        [sg.base_doc + np.nonzero(~sg.live)[0] for sg in s.segments])
+    n_live = s.total_docs - len(deleted_ids)
+    for name, res in results.items():
+        for batch_res in res:
+            for td in batch_res:
+                if td.facets is not None:
+                    check_facets(td, name)
+                    if name.startswith("Browse") and td.total_hits != n_live:
+                        raise AssertionError(f"{name}: {td.total_hits} != {n_live} live docs")
+                else:
+                    check_topdocs(td, K, name)
+                    if np.isin(td.doc_ids, deleted_ids).any():
+                        raise AssertionError(f"{name}: a deleted doc is a hit")
+    high = TermQuery("body", words[int(bands["high"][0])])
+    rare_q = TermQuery("body", rare)
+    for q in (BooleanQuery((rare_q, high), "and"), SortQuery(rare_q, "month"),
+              FacetQuery(rare_q, "month", 12), PhraseQuery("body", (rare, rare))):
+        if eng.search(q, k=K).total_hits != 0:
+            raise AssertionError(f"deleted term {rare!r} hits in {q}")
+
+    # fused == eager on the card == plain on the CPU; single == batch
+    eager = Searcher(eng.manager.infos, fused=False, device_cache=eng.device_cache)
+    cpu = Searcher(eng.manager.infos, fused=False, device="cpu")
+    for name, batches in tasks.items():
+        for qs, want in zip(batches[:CHECK_BATCHES], results[name]):
+            for g, w in zip(eager.search_batch(qs, k=K), want):
+                same_topdocs(g, w, f"eager {name}")
+        qs, want = batches[0][:CPU_QUERIES], results[name][0]
+        for g, w in zip(cpu.search_batch(qs, k=K), want):
+            same_topdocs(g, w, f"cpu {name}")
+        for q, w in zip(batches[0][:SINGLE_PER_TASK], want):
+            same_topdocs(s.search_single(q, k=K), w, f"search_single {name}")
+    prof = device_profile(lambda: [eng.search_batch(qs, k=K)
+                                   for qs in tasks["AndHighMed"][:5]])
+    torch.cuda.synchronize()
+    return stats, launches, tasks, prof
+
+
+def doc_kernel_records(eng, tasks: dict, launches: dict) -> list:
+    """K3-K6 against their plain versions on the card at the main path's
+    shapes: the largest segment and one 32-query group of the busiest task
+    of each kernel's family.  Returns the kernel records."""
+    import torch
+
+    from repro_torch.core.query.plan import stage_bool_meta, stage_term_meta
+    from repro_torch.core.query.types import BooleanQuery, SortQuery
+    from repro_torch.kernels import doc_topk as dk
+    from repro_torch.kernels import term_topk as kt
+
+    s = eng.searcher
+    dev = eng.device
+    seg = max(s.segments, key=lambda sg: sg.n_docs)
+    st = eng.device_cache.ensure_tiled(seg)
+    nd_pad = st["tiled.live"].shape[0]
+    n_tiles = nd_pad // kt.TILE
+    live = st["tiled.live"]
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def group(family):
+        """The busiest task of a family (most postings of its first timed
+        batch in the segment): (name, queries, CSR meta)."""
+        best = None
+        for name, batches in tasks.items():
+            qs = batches[FAMILY_WARM]
+            if not isinstance(qs[0], family):
+                continue
+            meta = (stage_bool_meta(seg, qs, tile=True) if family is BooleanQuery
+                    else stage_term_meta(seg, [q.term for q in qs], tile=True))
+            if best is None or meta.lengths.sum() > best[2].lengths.sum():
+                best = (name, qs, meta)
+        return best
+
+    def rows(meta):
+        docs, freqs = kt.csr_rows(st["csr.docs"], st["csr.freqs"], up(meta.starts),
+                                  up(meta.lengths), max(int(meta.lengths.max()), 1))
+        return docs, freqs
+
+    records = []
+
+    def record(name, fn, plain, args, library, n_bytes, n_ops, shape):
+        got = [x.cpu().numpy() for x in fn(*args)]
+        want = [x.cpu().numpy() for x in plain(*args)]
+        if not all(bits_equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"{name} differs from its plain version")
+        if name != "facet_hist":  # per-tile winners: add what they write
+            n_bytes += int(np.minimum(got[2], K).sum()) * 8
+        ms, q = cuda_ms(lambda: fn(*args), 50)
+        plain_ms, pq = cuda_ms(lambda: plain(*args), 5)
+        lib_ms, lq = cuda_ms(library, 50)
+        b_ms, b_by = bound(n_bytes, n_ops)
+        records.append({
+            "name": name, "route": "cuda", "source": DOC_SOURCE,
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": max_abs_err(got[0], want[0]),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms, "queued_ahead": [q, pq, lq],
+            "shape": dict(shape, segment_docs=seg.n_docs, nd_pad=nd_pad, k=K),
+        })
+
+    rows_b = BATCH
+    counts_b = rows_b * n_tiles * 4  # the per-tile counts every kernel writes
+
+    # K3 bool_topk: term-ordered BM25 sums, AND/OR filter, tile top-k
+    name, qs, meta = group(BooleanQuery)
+    n_terms = len(qs[0].terms)
+    conj = qs[0].mode == "and"
+    idfs = up(np.asarray([[s.idf(t) for t in q.terms] for q in qs], np.float32))
+    args = (st["csr.docs"], st["csr.freqs"], st["tiled.dl_live"], up(meta.starts),
+            up(meta.lengths), idfs, s.avgdl, s.k1, s.b, conj, K)
+    docs, freqs = rows(meta)
+    score, _ = dk.bool_dense(docs, freqs, idfs, st["tiled.dl_live"] >> 1,
+                             (st["tiled.dl_live"] & 1) > 0,
+                             *kt.scalars(dev, s.avgdl, s.k1, s.b), conj, n_terms)
+    postings = int(meta.lengths.sum())
+    # 12 B per posting (doc, freq, doc-length gather), dl_live once, the
+    # (start, length, idf) of each (row, term)
+    record("bool_topk", dk.bool_topk_tiles, dk.bool_topk_tiles_plain, args,
+           lambda: torch.topk(score, K, dim=-1),
+           postings * 12 + nd_pad * 4 + rows_b * n_terms * 12 + counts_b,
+           postings * (OPS_PER_SCORE + 1),
+           {"task": name, "rows": rows_b, "terms": n_terms, "postings": postings})
+
+    # K4 sort_topk: matched live docs, float32 doc-value keys, tile top-k
+    name, qs, meta = group(SortQuery)
+    dv = st[f"tiled.dv.{qs[0].dv_field}"]
+    args = (st["csr.docs"], st["csr.freqs"], live, dv, up(meta.starts),
+            up(meta.lengths), K)
+    docs, freqs = rows(meta)
+    key = dk.sort_keys(dk.matched_docs(docs, freqs, live > 0), dv)
+    postings = int(meta.lengths.sum())
+    record("sort_topk", dk.sort_topk_tiles, dk.sort_topk_tiles_plain, args,
+           lambda: torch.topk(key, K, dim=-1),
+           postings * 8 + nd_pad * 8 + rows_b * 8 + counts_b,
+           rows_b * nd_pad,
+           {"task": name, "rows": rows_b, "postings": postings})
+
+    # K5 range_topk: the doc-values window, the k lowest doc ids
+    qs = tasks["IntNRQ"][FAMILY_WARM]
+    los = up(np.asarray([q.lo for q in qs], np.int32))
+    his = up(np.asarray([q.hi for q in qs], np.int32))
+    dv = st["tiled.dv.timestamp"]
+    args = (dv, live, los, his, K)
+    masked = torch.where(dk.range_ok(dv, live > 0, los, his), 1.0, -torch.inf)
+    record("range_topk", dk.range_topk_tiles, dk.range_topk_tiles_plain, args,
+           lambda: torch.topk(masked, K, dim=-1),
+           nd_pad * 8 + rows_b * 8 + counts_b, 3 * rows_b * nd_pad,
+           {"task": "IntNRQ", "rows": rows_b})
+
+    # K6 facet_hist: the term-filtered month histogram
+    qs = tasks["TermMonthFacets"][FAMILY_WARM]
+    n_bins = qs[0].n_bins
+    meta = stage_term_meta(seg, [q.term for q in qs], tile=True)
+    bins = st[f"tiled.dv.{qs[0].dv_field}"]
+    args = (st["csr.docs"], st["csr.freqs"], live, bins, up(meta.starts),
+            up(meta.lengths), n_bins)
+    docs, freqs = rows(meta)
+    matched = dk.matched_docs(docs, freqs, live > 0)
+    b = bins.long().clamp(min=0)
+    keep = matched & (b < n_bins)
+    flat = (torch.arange(rows_b, device=dev)[:, None] * n_bins + b)[keep]
+    postings = int(meta.lengths.sum())
+    record("facet_hist", dk.facet_hist_tiles, dk.facet_hist_tiles_plain, args,
+           lambda: torch.bincount(flat, minlength=rows_b * n_bins),
+           postings * 8 + nd_pad * 8 + rows_b * 8 + rows_b * n_bins * 4 + counts_b,
+           2 * rows_b * nd_pad,
+           {"task": "TermMonthFacets", "rows": rows_b, "postings": postings,
+            "n_bins": n_bins})
+    return records
 
 
 def main(argv=None) -> int:
@@ -195,6 +528,7 @@ def main(argv=None) -> int:
     ap.add_argument("--batches", type=int, default=60, help="timed batches")
     args = ap.parse_args(argv)
 
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -278,9 +612,9 @@ def main(argv=None) -> int:
         raise AssertionError(f"deleted term {rare!r} still has hits")
     df = np.asarray([s.doc_freq(TermQuery("body", w)) for w in table])
     n_warm = 5
-    batches, band_sizes = draw_batches(
-        df, table, s.total_docs, n_warm + args.batches, BATCH, SEED + 1
-    )
+    bands = band_ids(df, s.total_docs)
+    band_sizes = {name: int(len(ids)) for name, ids in bands.items()}
+    batches = draw_batches(bands, table, n_warm + args.batches, BATCH, SEED + 1)
     queries = [[TermQuery("body", w) for w in b] for b in batches]
     lat, fused_res = [], []
     for i, qs in enumerate(queries):
@@ -344,7 +678,23 @@ def main(argv=None) -> int:
         "fused_eq_plain_cpu": True,
     })
 
-    # 4. kernels against their plain versions at the main path's shapes ---
+    # 4. families through the same engine ------------------------------
+    t = time.perf_counter()
+    fam, fam_launches, tasks, fam_prof = families_phase(
+        eng, cfg, bands, table, rare, FAMILY_BATCHES)
+    for name, st_ in fam.items():
+        log("task", dict(st_, task=name))
+    log("families", {
+        "seconds": time.perf_counter() - t,
+        "launches": fam_launches,
+        "batch": BATCH, "k": K,
+        "profile_5_batches_AndHighMed": fam_prof,
+        "fused_eq_eager_card": True, "fused_eq_plain_cpu": True,
+        "single_eq_batch": True, "mixed_eq_per_task": True,
+        "deleted_docs_absent": True,
+    })
+
+    # 5. kernels against their plain versions at the main path's shapes ---
     records = []
     seg = max(s.segments, key=lambda sg: sg.nnz)
     st = eng.device_cache.ensure_tiled(seg)
@@ -417,12 +767,14 @@ def main(argv=None) -> int:
         "queued_ahead": [k2_q, k2_plain_q],
         "shape": {"p": n_pad, "k": K, "segment_docs": seg.n_docs},
     })
+    records += doc_kernel_records(eng, tasks, fam_launches)
     for r in records:
         log("kernel", dict(r, bit_equal=True))
     print(json.dumps({"kernels": [
         {k: v for k, v in r.items() if k not in ("shape", "queued_ahead")}
         for r in records
     ]}), flush=True)
+    log("done", {"run_s": time.perf_counter() - t_start})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

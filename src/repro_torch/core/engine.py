@@ -5,11 +5,14 @@ add documents, flush, commit, reopen, search.
 
   ``device``  None means the card: CUDA on a Hopper GPU, or a RuntimeError
               that says to pass ``device="cpu"`` (which only the tests do).
-  ``fused``   the reference's ``use_pallas``.  True (the default): term
-              groups run kernel ``term_topk`` and ``search_single`` runs
+  ``fused``   the reference's ``use_pallas``.  True (the default): term,
+              boolean, sort, range and facet groups run their CUDA kernels
+              (``term_topk``, ``bool_topk``, ``sort_topk``, ``range_topk``,
+              ``facet_hist``) and ``search_single``'s term scoring runs
               kernel ``bm25_topk``.  False: the eager PyTorch executors,
               the counterpart of the reference's vmapped ``exec.py`` path,
-              on the same device.  On a CPU device the kernel wrappers run
+              on the same device.  Phrase queries are a positions merge on
+              the host either way.  On a CPU device the kernel wrappers run
               their plain PyTorch versions.
 
 This slice runs the ``ram`` directory kind; ``fs-*``/``byte-*`` and

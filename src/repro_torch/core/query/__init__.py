@@ -2,8 +2,8 @@
 
   types.py    query dataclasses + TopDocs
   plan.py     batch planner: family grouping + shared padding
-  exec.py     eager term executors + the cross-segment top-k merge
-  fused.py    the term group through CUDA kernel ``term_topk``
+  exec.py     eager per-family executors + the cross-segment top-k merge
+  fused.py    family groups through their CUDA kernels
   cache.py    device-resident segment cache shared across Searchers
   profile.py  executor dispatch ledger
 """

@@ -15,8 +15,10 @@ stages its merged-away segments into its own fallback dict instead.
 With ``tile=True`` (fused engines) staging also uploads the kernel layout:
 ``csr.docs``/``csr.freqs`` (the CSR postings padded to a TILE multiple),
 ``tiled.doc_lens``/``tiled.live`` (doc space padded to a TILE multiple with
-dead docs) and ``tiled.dl_live = (doc_lens << 1) | live``, the one word
-kernel ``term_topk`` gathers per posting.  Every tensor is created on the
+dead docs), ``tiled.dl_live = (doc_lens << 1) | live`` (the one word
+kernels ``term_topk`` and ``bool_topk`` gather per posting) and
+``tiled.dv.<field>`` (the doc-values columns kernels ``sort_topk``,
+``range_topk`` and ``facet_hist`` read).  Every tensor is created on the
 cache's ``device``.
 """
 

@@ -1,22 +1,30 @@
-"""The fused term group executor (port of ``repro/core/query/fused.py``,
-term family).
+"""Fused group executors (port of ``repro/core/query/fused.py``).
 
-The reference compiles the whole term group -- every segment's CSR row
-gather, BM25, live mask, per-tile top-k and the cross-segment merge -- into
-one XLA program around the Pallas kernel ``term_topk_tiles``
-(``_fused_term_all``).  Here the per-segment work is one launch of the CUDA
-kernel ``term_topk``, which reads its rows straight from the segment's
-device-resident CSR (``cache.SegmentDeviceCache(tile=True)``) through
-(starts, lengths) coordinates, so the host ships only (B,) metadata per
-segment: one upload for the whole group.  The tiles' winners of every
-segment then go through one stable-sort merge (score desc, global doc id
-asc) and one device-to-host copy.
+The reference compiles each family group into XLA programs around its
+Pallas kernels: a CSR row gather, a scatter prologue where a family needs
+the doc space (bool, sort, facet), the kernel, and a hierarchical top-k.
+Here each (group, segment) is one launch of a CUDA kernel that reads its
+rows straight from the segment's device-resident CSR
+(``cache.SegmentDeviceCache(tile=True)``) through (starts, lengths)
+coordinates, so the host ships only per-row metadata: one upload per group.
 
-``k > MAX_K`` does not fit the kernel's winner row: as in the reference
-(``fused.py:76-85``), such a group takes the PyTorch selection path inside
-the same executor -- the same gather and ``bm25`` on the device, selection
-by a stable sort -- and the profile ledger records the route
-(``fused.term`` vs ``fused.term.select``).
+  term   kernel ``term_topk``  (``kernels/term_topk.py``)
+  bool   kernel ``bool_topk``  (``kernels/doc_topk.py``)
+  sort   kernel ``sort_topk``
+  range  kernel ``range_topk`` (no postings: the doc-values column)
+  facet  kernel ``facet_hist``
+
+The tiles' winners of every segment then go through one stable-sort merge
+(score desc, global doc id asc) and one device-to-host copy; facet
+histograms add across segments on the device (float32 counts are exact
+below 2^24) and come to the host once.
+
+``k > MAX_K`` does not fit the kernels' winner row: as in the reference
+(``fused.py:76-85``), such a term, bool, sort or range group takes the
+PyTorch selection path inside the same executor -- the rows gathered from
+the resident CSR on the device, the eager executors' scoring and a stable
+sort -- and the profile ledger records the route (``fused.<family>`` vs
+``fused.<family>.select``).  Facet has no k and always takes its kernel.
 """
 
 from __future__ import annotations
@@ -27,16 +35,69 @@ import numpy as np
 import torch
 
 from repro_torch.core.query import profile
-from repro_torch.core.query.exec import _merge_segment_candidates, _topk_stable
-from repro_torch.core.query.plan import FamilyGroup, bucket_batch, stage_term_meta
+from repro_torch.core.query.exec import (
+    _bool_core,
+    _finalize_facets,
+    _merge_segment_candidates,
+    _range_core,
+    _sort_core,
+    _topk_stable,
+    bool_idfs,
+    range_bounds,
+)
+from repro_torch.core.query.plan import (
+    FamilyGroup,
+    bucket_batch,
+    stage_bool_meta,
+    stage_term_meta,
+)
 from repro_torch.core.query.types import TopDocs
-from repro_torch.kernels.term_topk import MAX_K, csr_rows_scored, term_topk_tiles
+from repro_torch.kernels import doc_topk as dk
+from repro_torch.kernels.term_topk import (
+    MAX_K,
+    csr_rows,
+    csr_rows_scored,
+    term_topk_tiles,
+)
 
 
 def kernel_enabled(k: int) -> bool:
-    """Route term scoring through the kernels?  Always, except for k above
+    """Route scoring through the kernels?  Always, except for k above
     their per-tile winner row (``MAX_K``), which takes the PyTorch path."""
     return k <= MAX_K
+
+
+def _tag(family: str, use_kernel: bool) -> str:
+    return f"fused.{family}" if use_kernel else f"fused.{family}.select"
+
+
+def _flat(vals, ids, cnt):
+    """Per-tile winners (B, n_tiles, k) -> (B, n_tiles * k) candidates and
+    (B,) hit totals."""
+    rows = vals.shape[0]
+    return vals.view(rows, -1), ids.view(rows, -1), cnt.sum(-1)
+
+
+def _staged(ctx, metas):
+    """Every segment's (starts, lengths) in one upload: the coordinates of
+    segment i are ``coords[i, 0]``, ``coords[i, 1]``."""
+    return torch.from_numpy(
+        np.stack([np.stack([m.starts, m.lengths]) for m in metas])
+    ).to(ctx.device)
+
+
+def _term_metas(ctx, terms, pad: int, use_kernel: bool):
+    """(segment, CsrTileMeta) of the segments where a row has postings."""
+    out = []
+    for seg in ctx.segments:
+        meta = stage_term_meta(seg, terms, pad_rows=pad, tile=use_kernel)
+        if meta is not None:
+            out.append((seg, meta))
+    return out
+
+
+def _tiled(ctx, seg):
+    return ctx.device_cache.ensure_tiled(seg, fallback=ctx._transient_dev)
 
 
 def _select_term(st, starts, lengths, idfs, avgdl, k1, b, p: int, k: int):
@@ -55,38 +116,141 @@ def exec_term_fused(ctx, group: FamilyGroup, k: int) -> List[TopDocs]:
     n = len(group.queries)
     pad = bucket_batch(n) - n
     use_kernel = kernel_enabled(k)
-    metas, segs = [], []
-    for seg in ctx.segments:
-        meta = stage_term_meta(seg, group.queries, pad_rows=pad, tile=use_kernel)
-        if meta is not None:
-            metas.append(meta)
-            segs.append(seg)
-    if not segs:
+    staged = _term_metas(ctx, group.queries, pad, use_kernel)
+    if not staged:
         return _merge_segment_candidates([], n, k)
-    dev = ctx.device
     idfs = torch.tensor(
         [ctx.idf(q) for q in group.queries] + [0.0] * pad,
-        dtype=torch.float32, device=dev,
+        dtype=torch.float32, device=ctx.device,
     )
-    # every segment's (starts, lengths) in one upload
-    coords = torch.from_numpy(
-        np.stack([np.stack([m.starts, m.lengths]) for m in metas])
-    ).to(dev)
+    coords = _staged(ctx, [m for _, m in staged])
     per_seg = []
-    for i, (seg, meta) in enumerate(zip(segs, metas)):
-        st = ctx.device_cache.ensure_tiled(seg, fallback=ctx._transient_dev)
+    for i, (seg, meta) in enumerate(staged):
+        st = _tiled(ctx, seg)
         starts, lengths = coords[i, 0], coords[i, 1]
         if use_kernel:
-            vals, ids, cnt = term_topk_tiles(
+            vals, ids, hits = _flat(*term_topk_tiles(
                 st["csr.docs"], st["csr.freqs"], st["tiled.dl_live"],
                 starts, lengths, idfs, ctx.avgdl, ctx.k1, ctx.b, meta.p, k,
-            )
-            rows = vals.shape[0]
-            vals, ids, hits = vals.view(rows, -1), ids.view(rows, -1), cnt.sum(-1)
+            ))
         else:
             vals, ids, hits = _select_term(
                 st, starts, lengths, idfs, ctx.avgdl, ctx.k1, ctx.b, meta.p, k
             )
         per_seg.append((vals, ids.long() + seg.base_doc, hits))
-    profile.record("fused.term" if use_kernel else "fused.term.select")
+    profile.record(_tag("term", use_kernel))
     return _merge_segment_candidates(per_seg, n, k)
+
+
+def exec_bool_fused(ctx, group: FamilyGroup, k: int) -> List[TopDocs]:
+    n = len(group.queries)
+    pad = bucket_batch(n) - n
+    conj, n_terms = group.key[1] == "and", group.key[2]
+    use_kernel = kernel_enabled(k)
+    staged = []
+    for seg in ctx.segments:
+        meta = stage_bool_meta(seg, group.queries, pad_rows=pad, tile=use_kernel)
+        if meta is not None:
+            staged.append((seg, meta))
+    if not staged:
+        return _merge_segment_candidates([], n, k)
+    idfs = bool_idfs(ctx, group, n + pad)
+    coords = _staged(ctx, [m for _, m in staged])
+    per_seg = []
+    for i, (seg, meta) in enumerate(staged):
+        st = _tiled(ctx, seg)
+        starts, lengths = coords[i, 0], coords[i, 1]
+        if use_kernel:
+            vals, ids, hits = _flat(*dk.bool_topk_tiles(
+                st["csr.docs"], st["csr.freqs"], st["tiled.dl_live"],
+                starts, lengths, idfs, ctx.avgdl, ctx.k1, ctx.b, conj, k,
+            ))
+        else:
+            docs, freqs = csr_rows(st["csr.docs"], st["csr.freqs"], starts,
+                                   lengths, meta.p)
+            vals, ids, hits = _bool_core(
+                docs, freqs, idfs, st["doc_lens"], st["live"],
+                ctx.avgdl, ctx.k1, ctx.b, k, conj, n_terms,
+            )
+        per_seg.append((vals, ids.long() + seg.base_doc, hits))
+    profile.record(_tag("bool", use_kernel))
+    return _merge_segment_candidates(per_seg, n, k)
+
+
+def exec_sort_fused(ctx, group: FamilyGroup, k: int) -> List[TopDocs]:
+    n = len(group.queries)
+    pad = bucket_batch(n) - n
+    dv_field = group.key[1]
+    use_kernel = kernel_enabled(k)
+    staged = _term_metas(ctx, [q.term for q in group.queries], pad, use_kernel)
+    if not staged:
+        return _merge_segment_candidates([], n, k)
+    coords = _staged(ctx, [m for _, m in staged])
+    per_seg = []
+    for i, (seg, meta) in enumerate(staged):
+        st = _tiled(ctx, seg)
+        starts, lengths = coords[i, 0], coords[i, 1]
+        if use_kernel:
+            vals, ids, hits = _flat(*dk.sort_topk_tiles(
+                st["csr.docs"], st["csr.freqs"], st["tiled.live"],
+                st[f"tiled.dv.{dv_field}"], starts, lengths, k,
+            ))
+        else:
+            docs, freqs = csr_rows(st["csr.docs"], st["csr.freqs"], starts,
+                                   lengths, meta.p)
+            vals, ids, hits = _sort_core(
+                docs, freqs, st[f"dv.{dv_field}"], st["live"], k
+            )
+        per_seg.append((vals, ids.long() + seg.base_doc, hits))
+    profile.record(_tag("sort", use_kernel))
+    return _merge_segment_candidates(per_seg, n, k)
+
+
+def exec_range_fused(ctx, group: FamilyGroup, k: int) -> List[TopDocs]:
+    n = len(group.queries)
+    dv_field = group.key[1]
+    use_kernel = kernel_enabled(k)
+    los, his = range_bounds(ctx, group, bucket_batch(n) - n)
+    per_seg = []
+    for seg in ctx.segments:
+        st = _tiled(ctx, seg)
+        if use_kernel:
+            vals, ids, hits = _flat(*dk.range_topk_tiles(
+                st[f"tiled.dv.{dv_field}"], st["tiled.live"], los, his, k,
+            ))
+        else:
+            vals, ids, hits = _range_core(
+                st[f"dv.{dv_field}"], st["live"], los, his, k
+            )
+        per_seg.append((vals, ids.long() + seg.base_doc, hits))
+    profile.record(_tag("range", use_kernel))
+    return _merge_segment_candidates(per_seg, n, k)
+
+
+def exec_facet_fused(ctx, group: FamilyGroup, k: int) -> List[TopDocs]:
+    n = len(group.queries)
+    dv_field, n_bins, match_all = group.key[1], group.key[2], group.key[3]
+    if match_all:  # one row for the group, replicated on the host
+        staged = [(seg, None) for seg in ctx.segments]
+    else:
+        terms = [q.term for q in group.queries]
+        staged = _term_metas(ctx, terms, bucket_batch(n) - n, True)
+    counts = np.zeros((n, n_bins), dtype=np.float64)
+    totals = np.zeros(n, dtype=np.int64)
+    if staged:
+        coords = None if match_all else _staged(ctx, [m for _, m in staged])
+        hist_dev = totals_dev = None
+        for i, (seg, _) in enumerate(staged):
+            st = _tiled(ctx, seg)
+            starts, lengths = (None, None) if match_all else (coords[i, 0], coords[i, 1])
+            hist, cnt = dk.facet_hist_tiles(
+                st["csr.docs"], st["csr.freqs"], st["tiled.live"],
+                st[f"tiled.dv.{dv_field}"], starts, lengths, n_bins,
+            )
+            hits = cnt.sum(-1)
+            hist_dev = hist if hist_dev is None else hist_dev + hist
+            totals_dev = hits if totals_dev is None else totals_dev + hits
+        counts += hist_dev.cpu().numpy().astype(np.float64)[:n]
+        totals += totals_dev.cpu().numpy().astype(np.int64)[:n]
+    profile.record("fused.facet")
+    return _finalize_facets(counts, totals, k)

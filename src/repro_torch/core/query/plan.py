@@ -1,14 +1,16 @@
-"""Batch query planner (port of ``repro/core/query/plan.py``, term path).
+"""Batch query planner (port of ``repro/core/query/plan.py``).
 
 ``plan_batch`` groups a batch of queries into family groups that one
 executor call scores together.  Postings staging pads a group to one shared
 row width per segment, and the batch dimension to a power of two with inert
-rows that score ``-inf`` and are dropped at trim time.
+rows that score ``-inf`` and are dropped at trim time.  The fused executors
+ship CSR coordinates instead of postings (``stage_term_meta``,
+``stage_bool_meta``).
 
-``TILE`` is the port's own: the postings per thread block of the CUDA
-kernel ``term_topk`` (``repro_torch.kernels.term_topk.TILE``), not the
-TPU's (8, 128) block.  Width only changes how much inert padding there is,
-never a result.
+``TILE`` is the port's own: the postings (or docs) per thread block of the
+CUDA kernels (``repro_torch.kernels.term_topk.TILE``), not the TPU's
+(8, 128) block.  Width only changes how much inert padding there is, never
+a result.
 """
 
 from __future__ import annotations
@@ -127,11 +129,36 @@ def stage_term_postings(
     return docs, freqs
 
 
+def stage_bool_postings(
+    seg: Segment, queries: Sequence[BooleanQuery], pad_rows: int = 0
+) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """(B+pad_rows, T, P) padded host postings of boolean queries of T
+    terms, or None when no term of any row has postings in this segment."""
+    n_terms = len(queries[0].terms)
+    posts = [
+        [seg.postings(term_hash(t.field, t.token)) for t in q.terms]
+        for q in queries
+    ]
+    longest = max((len(d) for row in posts for d, _ in row), default=0)
+    if longest == 0:
+        return None
+    p = bucket(longest)
+    rows = len(queries) + pad_rows
+    docs = np.zeros((rows, n_terms, p), dtype=np.int32)
+    freqs = np.zeros((rows, n_terms, p), dtype=np.int32)
+    for i, row in enumerate(posts):
+        for t, (d, f) in enumerate(row):
+            docs[i, t, : len(d)] = d
+            freqs[i, t, : len(f)] = f
+    return docs, freqs
+
+
 @dataclasses.dataclass
 class CsrTileMeta:
     """Per-row postings coordinates into a segment's device-resident CSR:
-    (R,) ``starts``/``lengths`` (absent terms are (0, 0) rows) and the
-    shared padded row width ``p``."""
+    ``starts``/``lengths`` are (R,) for term-shaped groups and (R, T) for
+    boolean groups (absent terms are (0, 0) rows); ``p`` is the shared
+    padded row width."""
 
     starts: np.ndarray
     lengths: np.ndarray
@@ -174,3 +201,25 @@ def stage_term_meta(
         starts = np.concatenate([starts, np.zeros(pad_rows, np.int32)])
         lengths = np.concatenate([lengths, np.zeros(pad_rows, np.int32)])
     return CsrTileMeta(starts, lengths, p)
+
+
+def stage_bool_meta(
+    seg: Segment,
+    queries: Sequence[BooleanQuery],
+    pad_rows: int = 0,
+    tile: bool = False,
+) -> Optional[CsrTileMeta]:
+    """(R, T) CSR coordinates of boolean queries (+ inert padding rows), or
+    None when nothing matches: the skip condition of
+    ``stage_bool_postings``."""
+    n_terms = len(queries[0].terms)
+    rows = len(queries) + pad_rows
+    starts = np.zeros((rows, n_terms), dtype=np.int32)
+    lengths = np.zeros((rows, n_terms), dtype=np.int32)
+    s, n = _row_coords(seg, [t for q in queries for t in q.terms])
+    starts[: len(queries)] = s.reshape(-1, n_terms)
+    lengths[: len(queries)] = n.reshape(-1, n_terms)
+    longest = int(lengths.max()) if lengths.size else 0
+    if longest == 0:
+        return None
+    return CsrTileMeta(starts, lengths, pad_width(longest, tile))

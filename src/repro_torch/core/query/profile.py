@@ -2,11 +2,13 @@
 
 Executors self-report every group-level dispatch with ``record(tag)``; a
 benchmark wraps its timed region in ``capture()`` to read the delta.  Tags
-are ``<path>.<family>``: ``eager.term`` (one staged upload + executor call
-per segment), ``fused.term`` (the group through kernel ``term_topk``) and
-``fused.term.select`` (the group through the PyTorch selection path, taken
-for k above the kernels' ``MAX_K``).  Kernel launches themselves are counted
-by the kernel wrappers (``repro_torch.kernels.term_topk.launches``).
+are ``<path>.<family>``: ``eager.<family>`` (one staged upload + executor
+call per segment), ``fused.<family>`` (the group through its CUDA kernel),
+``fused.<family>.select`` (the group through the PyTorch selection path,
+taken for k above the kernels' ``MAX_K``) and ``host.phrase`` (the phrase
+group's positions merge).  Kernel launches themselves are counted by the
+kernel wrappers (``launches`` in ``repro_torch.kernels.term_topk`` and
+``repro_torch.kernels.doc_topk``).
 """
 
 from __future__ import annotations

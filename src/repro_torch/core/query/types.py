@@ -1,8 +1,9 @@
 """Query types and result containers (port of ``repro/core/query/types.py``).
 
 All eight query families are declared so that batches plan the same way as
-in the reference; this slice executes ``TermQuery``, and the searcher raises
-``NotImplementedError`` for the other families.
+in the reference.  Term, boolean, phrase, sort, range and facet queries
+run; vector and hybrid queries come with a later slice, and the searcher
+raises ``NotImplementedError`` for them.
 """
 
 from __future__ import annotations

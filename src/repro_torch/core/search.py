@@ -1,21 +1,25 @@
 """Searcher: the point-in-time data plane over immutable segments (port of
-``repro/core/search.py``, term path).
+``repro/core/search.py``).
 
 ``search_batch`` is the primary entry point: a batch is planned into family
 groups and each group runs through ``query.exec.execute_group`` -- with
-``fused=True`` (the default) the term group goes through kernel
-``term_topk`` (``query/fused.py``); with ``fused=False`` through the eager
-executors, the counterpart of the JAX package's vmapped path.
+``fused=True`` (the default) term, bool, sort, range and facet groups go
+through the CUDA kernels (``query/fused.py``); with ``fused=False`` through
+the eager executors, the counterpart of the JAX package's vmapped path.
+Phrase groups are a positions merge on the host either way.
+
 ``search_single`` is the sequential per-query path: one call per segment
-and a heapq merge on the host.  With ``fused=True`` its term scoring runs
-kernel ``bm25_topk`` (the reference's ``use_pallas`` branch); otherwise the
-eager ``_term_topk``.  Both kernels take k <= ``MAX_K``; a larger k takes
-the PyTorch path, the same rule as the batched executor.
+and a heapq merge on the host, the oracle the batched executors are held
+to.  With ``fused=True`` its term scoring runs kernel ``bm25_topk`` (the
+reference's ``use_pallas`` branch); otherwise the eager ``_term_topk``.
+Both term kernels take k <= ``MAX_K``; a larger k takes the PyTorch path,
+the same rule as the batched executors.  The other families run the eager
+cores on the engine's device, as the reference runs its jnp cores there.
+Vector and hybrid queries come with a later slice and raise.
 
 Scoring is Lucene's BM25 (k1=0.9, b=0.4) with global collection
 statistics; ``avgdl``, ``k1``, ``b`` and each ``idf`` reach the scoring code
 as float32 rounded once from the Python doubles, as in the reference.
-Other query families come with later slices.
 """
 
 from __future__ import annotations
@@ -29,10 +33,34 @@ import torch
 from repro_torch.core.analyzer import Analyzer, term_hash
 from repro_torch.core.lifecycle.infos import SegmentInfos
 from repro_torch.core.query.cache import SegmentDeviceCache
-from repro_torch.core.query.exec import FAMILIES_SLICE, _term_topk, execute_group
+from repro_torch.core.query.exec import (
+    VECTOR_SLICE,
+    _bool_core,
+    _facet_core,
+    _matched_core,
+    _range_core,
+    _sort_core,
+    _term_topk,
+    execute_group,
+)
 from repro_torch.core.query.fused import kernel_enabled
-from repro_torch.core.query.plan import plan_batch
-from repro_torch.core.query.types import Query, TermQuery, TopDocs
+from repro_torch.core.query.plan import (
+    plan_batch,
+    stage_bool_postings,
+    stage_term_postings,
+)
+from repro_torch.core.query.types import (
+    BooleanQuery,
+    FacetQuery,
+    HybridQuery,
+    PhraseQuery,
+    Query,
+    RangeQuery,
+    SortQuery,
+    TermQuery,
+    TopDocs,
+    VectorQuery,
+)
 from repro_torch.core.segment import Segment
 from repro_torch.kernels import term_topk as kt
 from repro_torch.kernels.runtime import resolve_device
@@ -136,7 +164,19 @@ class Searcher:
         on the host): the oracle the batched executors are held to."""
         if isinstance(query, TermQuery):
             return self._search_term(query, k)
-        raise NotImplementedError(f"{type(query).__name__}: {FAMILIES_SLICE}")
+        if isinstance(query, BooleanQuery):
+            return self._search_bool(query, k)
+        if isinstance(query, PhraseQuery):
+            return self._search_phrase(query, k)
+        if isinstance(query, SortQuery):
+            return self._search_sort(query, k)
+        if isinstance(query, RangeQuery):
+            return self._search_range(query, k)
+        if isinstance(query, FacetQuery):
+            return self._search_facet(query, k)
+        if isinstance(query, (VectorQuery, HybridQuery)):
+            raise NotImplementedError(f"{type(query).__name__}: {VECTOR_SLICE}")
+        raise TypeError(f"unknown query type {type(query)}")
 
     # -- sequential implementation ---------------------------------------------
     def _merge(self, per_seg: List[Tuple[np.ndarray, np.ndarray]], k: int):
@@ -181,3 +221,134 @@ class Searcher:
             )
         ids, scores = self._merge(per_seg, k)
         return TopDocs(total, ids, scores)
+
+    def _staged(self, staged):
+        """Host postings from the planner's staging, on the device."""
+        return tuple(torch.from_numpy(a).to(self.device) for a in staged)
+
+    def _scored(self, per_seg, total: int, k: int) -> TopDocs:
+        ids, scores = self._merge(per_seg, k)
+        return TopDocs(total, ids, scores)
+
+    @staticmethod
+    def _host(vals, ids, base_doc: int):
+        return vals[0].cpu().numpy(), ids[0].cpu().numpy().astype(np.int64) + base_doc
+
+    def _search_bool(self, q: BooleanQuery, k: int) -> TopDocs:
+        idfs = torch.tensor([[self.idf(t) for t in q.terms]], dtype=torch.float32,
+                            device=self.device)
+        total = 0
+        per_seg = []
+        for seg in self.segments:
+            staged = stage_bool_postings(seg, [q])  # (1, T, P)
+            if staged is None:
+                continue
+            st = self._seg_dev(seg)
+            vals, ids, hits = _bool_core(
+                *self._staged(staged), idfs, st["doc_lens"], st["live"],
+                self.avgdl, self.k1, self.b, k, q.mode == "and", len(q.terms),
+            )
+            total += int(hits[0])
+            per_seg.append(self._host(vals, ids, seg.base_doc))
+        return self._scored(per_seg, total, k)
+
+    def _search_phrase(self, q: PhraseQuery, k: int) -> TopDocs:
+        """Exact phrase via positions: conjunctive candidates, then an
+        adjacency check on the host (Lucene's exact-phrase scorer is a CPU
+        merge over positions too)."""
+        hashes = [term_hash(q.field, t) for t in q.tokens]
+        idf = float(sum(self.idf(TermQuery(q.field, t)) for t in q.tokens))
+        per_seg = []
+        total = 0
+        for seg in self.segments:
+            posting_sets = [seg.postings(th)[0] for th in hashes]
+            if any(len(d) == 0 for d in posting_sets):
+                continue
+            cand = posting_sets[0]
+            for d in posting_sets[1:]:
+                cand = np.intersect1d(cand, d, assume_unique=True)
+            cand = cand[seg.live[cand]]
+            if len(cand) == 0:
+                continue
+            # positions of every candidate doc as doc_rank * M + pos, then
+            # one np.isin per token step
+            M = int(seg.doc_lens.max()) + len(hashes) + 1
+            keysets = []
+            for th in hashes:
+                i = seg.term_slot(th)
+                s_, e_ = int(seg.postings_offsets[i]), int(seg.postings_offsets[i + 1])
+                rows = s_ + np.searchsorted(seg.postings_docs[s_:e_], cand)
+                counts = seg.pos_offsets[rows + 1] - seg.pos_offsets[rows]
+                doc_rank = np.repeat(np.arange(len(cand)), counts)
+                flat = np.concatenate([
+                    seg.positions[int(seg.pos_offsets[r]): int(seg.pos_offsets[r + 1])]
+                    for r in rows
+                ])
+                keysets.append(doc_rank.astype(np.int64) * M + flat)
+            match = keysets[0]
+            for step, ks in enumerate(keysets[1:], start=1):
+                match = match[np.isin(match + step, ks)]
+                if len(match) == 0:
+                    break
+            hits = []
+            if len(match):
+                tf_per_doc = np.bincount(match // M, minlength=len(cand))
+                k1, b, avgdl = self.k1, self.b, self.avgdl
+                for rank in np.nonzero(tf_per_doc)[0]:
+                    doc = int(cand[rank])
+                    tf = float(tf_per_doc[rank])
+                    dl = float(seg.doc_lens[doc])
+                    s = idf * (tf * (k1 + 1)) / (tf + k1 * (1 - b + b * dl / avgdl))
+                    hits.append((s, doc + seg.base_doc))
+            total += len(hits)
+            if hits:
+                hits.sort(key=lambda t: (-t[0], t[1]))
+                hits = hits[:k]
+                per_seg.append((np.asarray([h[0] for h in hits], np.float32),
+                                np.asarray([h[1] for h in hits], np.int64)))
+        return self._scored(per_seg, total, k)
+
+    def _search_sort(self, q: SortQuery, k: int) -> TopDocs:
+        total = 0
+        per_seg = []
+        for seg in self.segments:
+            staged = stage_term_postings(seg, [q.term])  # (1, P)
+            if staged is None:
+                continue
+            st = self._seg_dev(seg)
+            vals, ids, hits = _sort_core(*self._staged(staged),
+                                         st[f"dv.{q.dv_field}"], st["live"], k)
+            total += int(hits[0])
+            per_seg.append(self._host(vals, ids, seg.base_doc))
+        return self._scored(per_seg, total, k)
+
+    def _search_range(self, q: RangeQuery, k: int) -> TopDocs:
+        lo = torch.tensor([q.lo], dtype=torch.int32, device=self.device)
+        hi = torch.tensor([q.hi], dtype=torch.int32, device=self.device)
+        total = 0
+        per_seg = []
+        for seg in self.segments:
+            st = self._seg_dev(seg)
+            vals, ids, hits = _range_core(st[f"dv.{q.dv_field}"], st["live"], lo, hi, k)
+            total += int(hits[0])
+            per_seg.append(self._host(vals, ids, seg.base_doc))
+        return self._scored(per_seg, total, k)
+
+    def _search_facet(self, q: FacetQuery, k: int) -> TopDocs:
+        counts = np.zeros(q.n_bins, dtype=np.float64)
+        total = 0
+        for seg in self.segments:
+            st = self._seg_dev(seg)
+            if q.term is None:
+                matched = st["live"][None]
+            else:
+                staged = stage_term_postings(seg, [q.term])
+                if staged is None:
+                    continue
+                matched = _matched_core(*self._staged(staged), st["live"])
+            c = _facet_core(matched, st[f"dv.{q.dv_field}"], q.n_bins)
+            counts += c[0].cpu().numpy().astype(np.float64)
+            total += int(matched.sum())
+        order = np.argsort(-counts, kind="stable")[:k]
+        return TopDocs(total, order.astype(np.int64),
+                       counts[order].astype(np.float32), facets=counts)

@@ -1,7 +1,8 @@
 // BM25 scoring + per-tile top-k for the term query family, on Hopper (sm_90a).
 //
 // Two entry points share one device routine (score a tile of postings into
-// shared memory, count the valid ones, then pick the tile's top-k):
+// shared memory, count the valid ones, then pick the tile's top-k with
+// tile_topk.cuh):
 //
 //   term_topk  replaces repro/kernels/fused_exec.py::term_topk_tiles (the
 //              Pallas kernel inside the fused term program, fused.py:137).
@@ -27,144 +28,20 @@
 // anything.  The k rounds of block argmax run in shared memory and registers
 // and stop early once the tile's valid postings are exhausted.
 //
-// Parity with the JAX package (bit-exact float32 scores): XLA:CPU evaluates
-//   idf * (tf * (k1 + 1)) / (tf + k1 * ((1 - b) + (b * dl) / avgdl))
-// with exactly one fused multiply-add, fma(k1, x, tf) in the denominator, and
-// every other operation IEEE round-to-nearest.  This file is built with
-// -fmad=false (no other contraction) and writes that one __fmaf_rn by hand;
-// division is IEEE (-prec-div defaults to true; never --use_fast_math).
+// Parity with the JAX package (bit-exact float32 scores): see bm25_score in
+// tile_topk.cuh; division is IEEE (-prec-div defaults to true; never
+// --use_fast_math).
 //
-// Selection order: score descending, then position ascending.  Postings are
-// doc-sorted within a row, so position order is doc order (Lucene's
-// tie-break).  Outputs per tile are k slots: the first min(k, valid) hold the
-// winners, the rest hold (-inf, -1).
+// This file also holds the library's shared queries (tile width, widest k,
+// CUDA error strings) that every kernel's wrapper uses.
 
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <stdint.h>
+#include "tile_topk.cuh"
 
-#define TILE 1024     // postings per thread block
-#define THREADS 256   // TILE / THREADS entries per thread
-#define PER_THREAD (TILE / THREADS)
-#define WARPS (THREADS / 32)
-#define MAX_K 128
-
-struct Best {
-  float v;
-  int p;
-};
-
-// tile position -> reported id
-struct DocAt {  // term_topk: the posting's segment-local doc id
+// term_topk: tile position -> the posting's segment-local doc id
+struct DocAt {
   const int* docs;
   __device__ __forceinline__ int operator()(int p) const { return docs[p]; }
 };
-struct PosFrom {  // bm25_topk: the position in the (P,) row
-  int base;
-  __device__ __forceinline__ int operator()(int p) const { return base + p; }
-};
-
-// a beats b: higher score, or equal score at a lower position
-__device__ __forceinline__ bool beats(float av, int ap, float bv, int bp) {
-  return av > bv || (av == bv && ap < bp);
-}
-
-__device__ __forceinline__ float bm25_score(int tf_i, int dl_i, float idf,
-                                            float avgdl, float k1, float b) {
-  const float tf = __int2float_rn(tf_i);
-  const float dl = __int2float_rn(dl_i);
-  const float x = __fadd_rn(__fsub_rn(1.0f, b), __fdiv_rn(__fmul_rn(b, dl), avgdl));
-  const float denom = __fmaf_rn(k1, x, tf);
-  const float num = __fmul_rn(idf, __fmul_rn(tf, __fadd_rn(k1, 1.0f)));
-  return __fdiv_rn(num, denom);
-}
-
-// best of this thread's entries (strided: i = t, t + THREADS, ...)
-__device__ __forceinline__ Best local_best(const float* s, int t) {
-  Best r{-CUDART_INF_F, TILE};
-  #pragma unroll
-  for (int j = 0; j < PER_THREAD; ++j) {
-    const int i = t + j * THREADS;
-    if (beats(s[i], i, r.v, r.p)) {
-      r.v = s[i];
-      r.p = i;
-    }
-  }
-  return r;
-}
-
-// Top-k of the scored tile s[0..TILE) with n_valid finite entries.  Writes
-// out_v[0..k) / out_id[0..k); id_of maps a tile position to the reported id.
-template <typename IdOf>
-__device__ void tile_topk(float* s, int n_valid, int k, float* out_v,
-                          int* out_id, IdOf id_of) {
-  __shared__ float warp_v[WARPS];
-  __shared__ int warp_p[WARPS];
-  const int t = threadIdx.x;
-  const int lane = t & 31;
-  const int warp = t >> 5;
-  const int rounds = n_valid < k ? n_valid : k;
-
-  Best mine = local_best(s, t);
-  for (int r = 0; r < rounds; ++r) {
-    Best w = mine;
-    #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_down_sync(0xffffffffu, w.v, off);
-      const int op = __shfl_down_sync(0xffffffffu, w.p, off);
-      if (beats(ov, op, w.v, w.p)) {
-        w.v = ov;
-        w.p = op;
-      }
-    }
-    if (lane == 0) {
-      warp_v[warp] = w.v;
-      warp_p[warp] = w.p;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      w.v = lane < WARPS ? warp_v[lane] : -CUDART_INF_F;
-      w.p = lane < WARPS ? warp_p[lane] : TILE;
-      #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_down_sync(0xffffffffu, w.v, off);
-        const int op = __shfl_down_sync(0xffffffffu, w.p, off);
-        if (beats(ov, op, w.v, w.p)) {
-          w.v = ov;
-          w.p = op;
-        }
-      }
-      if (lane == 0) {
-        out_v[r] = w.v;
-        out_id[r] = id_of(w.p);
-        warp_p[0] = w.p;  // broadcast the winner's position
-      }
-    }
-    __syncthreads();
-    const int won = warp_p[0];
-    if ((won % THREADS) == t) {  // only the owner's candidate changes
-      s[won] = -CUDART_INF_F;
-      mine = local_best(s, t);
-    }
-    __syncthreads();  // warp_p[0] is rewritten next round
-  }
-  for (int r = rounds + t; r < k; r += THREADS) {
-    out_v[r] = -CUDART_INF_F;
-    out_id[r] = -1;
-  }
-}
-
-__device__ __forceinline__ int block_count(int c) {
-  __shared__ int warp_c[WARPS];
-  #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) c += __shfl_down_sync(0xffffffffu, c, off);
-  if ((threadIdx.x & 31) == 0) warp_c[threadIdx.x >> 5] = c;
-  __syncthreads();
-  int total = 0;
-  #pragma unroll
-  for (int w = 0; w < WARPS; ++w) total += warp_c[w];
-  return total;
-}
 
 // grid (n_tiles, B): tile x of query row y
 __global__ void __launch_bounds__(THREADS) term_topk_kernel(
@@ -244,8 +121,13 @@ __global__ void __launch_bounds__(THREADS) bm25_topk_kernel(
 
 extern "C" {
 
-int term_topk_tile() { return TILE; }
-int term_topk_max_k() { return MAX_K; }
+// shared by every kernel's wrapper: the constants of tile_topk.cuh and the
+// message of a CUDA error code a launch returned
+int kernels_tile() { return TILE; }
+int kernels_max_k() { return MAX_K; }
+const char* cuda_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
 
 int term_topk(const int* csr_docs, const int* csr_freqs, const int* dl_live,
               const int* starts, const int* lengths, const float* idfs,
@@ -266,10 +148,6 @@ int bm25_topk(const int* freqs, const int* dl, const int* valid, float idf,
   bm25_topk_kernel<<<n_tiles, THREADS, 0, (cudaStream_t)stream>>>(
       freqs, dl, valid, idf, avgdl, k1, b, k, out_vals, out_idx);
   return (int)cudaGetLastError();
-}
-
-const char* term_topk_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
 }
 
 }  // extern "C"

@@ -1,0 +1,147 @@
+// Device routines shared by every kernel source in csrc/: the BM25 score,
+// the block-wide valid count and the shared-memory top-k of one tile.
+//
+// Every function here is inline or a template, so each .cu that includes
+// this header gets its own copy (the library is built without relocatable
+// device code).
+//
+// Selection order: score descending, then tile position ascending.  A
+// position is a posting's index in its doc-sorted row (term kernels) or a
+// doc id within a 1,024-doc tile (doc-space kernels), so position order is
+// doc order: Lucene's tie-break, and the lowest-index order of
+// jax.lax.top_k.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math_constants.h>
+#include <stdint.h>
+
+#define TILE 1024     // postings or docs per thread block
+#define THREADS 256   // TILE / THREADS entries per thread
+#define PER_THREAD (TILE / THREADS)
+#define WARPS (THREADS / 32)
+#define MAX_K 128     // widest per-tile winner row
+
+struct Best {
+  float v;
+  int p;
+};
+
+// tile position -> reported id: base + position (a row position for
+// bm25_topk, a segment-local doc id for the doc-space kernels)
+struct PosFrom {
+  int base;
+  __device__ __forceinline__ int operator()(int p) const { return base + p; }
+};
+
+// a beats b: higher score, or equal score at a lower position
+__device__ __forceinline__ bool beats(float av, int ap, float bv, int bp) {
+  return av > bv || (av == bv && ap < bp);
+}
+
+// idf * (tf * (k1 + 1)) / fma(k1, (1 - b) + (b * dl) / avgdl, tf): every
+// step IEEE round-to-nearest, and the one fused multiply-add that XLA:CPU
+// puts in the reference's bm25 (the library is built with -fmad=false, so
+// nvcc adds no other)
+__device__ __forceinline__ float bm25_score(int tf_i, int dl_i, float idf,
+                                            float avgdl, float k1, float b) {
+  const float tf = __int2float_rn(tf_i);
+  const float dl = __int2float_rn(dl_i);
+  const float x = __fadd_rn(__fsub_rn(1.0f, b), __fdiv_rn(__fmul_rn(b, dl), avgdl));
+  const float denom = __fmaf_rn(k1, x, tf);
+  const float num = __fmul_rn(idf, __fmul_rn(tf, __fadd_rn(k1, 1.0f)));
+  return __fdiv_rn(num, denom);
+}
+
+// best of this thread's entries (strided: i = t, t + THREADS, ...)
+__device__ __forceinline__ Best local_best(const float* s, int t) {
+  Best r{-CUDART_INF_F, TILE};
+  #pragma unroll
+  for (int j = 0; j < PER_THREAD; ++j) {
+    const int i = t + j * THREADS;
+    if (beats(s[i], i, r.v, r.p)) {
+      r.v = s[i];
+      r.p = i;
+    }
+  }
+  return r;
+}
+
+// Top-k of the scored tile s[0..TILE) with n_valid finite entries.  Thread
+// t may have written only its own strided entries since the last barrier.
+// Writes out_v[0..k) / out_id[0..k): the first min(k, n_valid) slots hold
+// the winners, the rest (-inf, -1).  id_of maps a tile position to the
+// reported id.
+template <typename IdOf>
+__device__ void tile_topk(float* s, int n_valid, int k, float* out_v,
+                          int* out_id, IdOf id_of) {
+  __shared__ float warp_v[WARPS];
+  __shared__ int warp_p[WARPS];
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int rounds = n_valid < k ? n_valid : k;
+
+  Best mine = local_best(s, t);
+  for (int r = 0; r < rounds; ++r) {
+    Best w = mine;
+    #pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float ov = __shfl_down_sync(0xffffffffu, w.v, off);
+      const int op = __shfl_down_sync(0xffffffffu, w.p, off);
+      if (beats(ov, op, w.v, w.p)) {
+        w.v = ov;
+        w.p = op;
+      }
+    }
+    if (lane == 0) {
+      warp_v[warp] = w.v;
+      warp_p[warp] = w.p;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      w.v = lane < WARPS ? warp_v[lane] : -CUDART_INF_F;
+      w.p = lane < WARPS ? warp_p[lane] : TILE;
+      #pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        const float ov = __shfl_down_sync(0xffffffffu, w.v, off);
+        const int op = __shfl_down_sync(0xffffffffu, w.p, off);
+        if (beats(ov, op, w.v, w.p)) {
+          w.v = ov;
+          w.p = op;
+        }
+      }
+      if (lane == 0) {
+        out_v[r] = w.v;
+        out_id[r] = id_of(w.p);
+        warp_p[0] = w.p;  // broadcast the winner's position
+      }
+    }
+    __syncthreads();
+    const int won = warp_p[0];
+    if ((won % THREADS) == t) {  // only the owner's candidate changes
+      s[won] = -CUDART_INF_F;
+      mine = local_best(s, t);
+    }
+    __syncthreads();  // warp_p[0] is rewritten next round
+  }
+  for (int r = rounds + t; r < k; r += THREADS) {
+    out_v[r] = -CUDART_INF_F;
+    out_id[r] = -1;
+  }
+}
+
+// Sum of c over the block.  Its barrier also publishes every shared-memory
+// write made before the call.  Call it at most once per kernel.
+__device__ __forceinline__ int block_count(int c) {
+  __shared__ int warp_c[WARPS];
+  #pragma unroll
+  for (int off = 16; off > 0; off >>= 1) c += __shfl_down_sync(0xffffffffu, c, off);
+  if ((threadIdx.x & 31) == 0) warp_c[threadIdx.x >> 5] = c;
+  __syncthreads();
+  int total = 0;
+  #pragma unroll
+  for (int w = 0; w < WARPS; ++w) total += warp_c[w];
+  return total;
+}

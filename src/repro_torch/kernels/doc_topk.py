@@ -1,0 +1,340 @@
+"""Doc-space query families: wrappers of the four CUDA kernels in
+``csrc/doc_topk.cu`` and their plain PyTorch versions.
+
+  ``bool_topk_tiles``   kernel ``bool_topk``, replacing
+                        ``repro/kernels/fused_exec.py::bool_topk_tiles``
+  ``sort_topk_tiles``   kernel ``sort_topk``, replacing ``sort_topk_tiles``
+  ``range_topk_tiles``  kernel ``range_topk``, replacing ``range_topk_tiles``
+  ``facet_hist_tiles``  kernel ``facet_hist``, replacing ``facet_hist_tiles``
+
+Each works per (query row, TILE-doc tile of the segment's doc space) and
+returns per-tile winners ``(B, n_tiles, k)`` (segment-local doc ids; slots
+past a tile's matches hold ``(-inf, -1)``) and per-tile match counts
+``(B, n_tiles)``, or a ``(B, n_bins)`` histogram.  The kernels read term
+postings straight from the segment's device-resident CSR through (starts,
+lengths); the reference's XLA scatter prologues happen inside them.
+
+The doc-space math below (``bool_dense``, ``matched_docs``, ``sort_keys``,
+``range_ok``, ``facet_hist``) is also what the eager executors
+(``core/query/exec.py``) run, so the plain versions and the oracle share one
+definition.  It follows the reference's cores (``repro/core/query/exec.py:
+74-117, :179-194``):
+
+  * a boolean doc's score is its terms' BM25 scores added in term order from
+    0.0 (what XLA:CPU's scatter-add computes), with no float atomics;
+  * a sort key is the doc value rounded to float32;
+  * facet bins follow ``jnp.bincount``: negative bins count in bin 0, bins
+    >= n_bins are dropped.
+
+Every wrapper takes the plain version for CPU tensors only; a CUDA tensor
+launches the kernel or raises.  ``launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels import runtime
+from repro_torch.kernels.term_topk import (
+    TILE,
+    _tile_topk_plain,
+    bm25,
+    check_k,
+    check_tensor,
+    csr_rows,
+    library,
+    scalars,
+)
+
+#: kernel launches, by kernel name; reset with ``reset_launches``
+launches: Dict[str, int] = {
+    "bool_topk": 0, "sort_topk": 0, "range_topk": 0, "facet_hist": 0,
+}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# doc-space math, shared with the eager executors
+# ---------------------------------------------------------------------------
+
+
+def bool_dense(docs, freqs, idfs, doc_lens, live, avgdl, k1, b,
+               conjunctive: bool, n_terms: int):
+    """Boolean scores over a segment's doc space.
+
+    docs/freqs: (B, T, P) postings rows (freq 0 = padding); idfs: (B, T)
+    float32; doc_lens: (ND,) int; live: (ND,) bool; avgdl/k1/b: 0-d float32.
+    Returns (score (B, ND) float32, -inf where the doc fails the filter;
+    ok (B, ND) bool): AND keeps docs that all T terms hit, OR docs that any
+    term hits, and both keep only live docs."""
+    bsz, nd = docs.shape[0], doc_lens.shape[0]
+    d = docs.long()
+    score = bm25(freqs, doc_lens[d], idfs[..., None], avgdl, k1, b)
+    valid = freqs > 0
+    # padding lanes go to a spill column past the doc space, dropped below
+    d = torch.where(valid, d, nd)
+    dense = torch.zeros(bsz, nd + 1, dtype=torch.float32, device=docs.device)
+    count = torch.zeros(bsz, nd + 1, dtype=torch.int32, device=docs.device)
+    for t in range(docs.shape[1]):  # term order; docs are unique in a row
+        dense.scatter_add_(1, d[:, t], score[:, t])
+        count.scatter_add_(1, d[:, t], valid[:, t].int())
+    count = count[:, :nd]
+    ok = ((count == n_terms) if conjunctive else (count > 0)) & live
+    return torch.where(ok, dense[:, :nd], -torch.inf), ok
+
+
+def matched_docs(docs, freqs, live):
+    """(B, P) postings rows -> (B, ND) bool: the live docs that have a
+    posting with freq > 0 (padding lanes never mark doc 0)."""
+    nd = live.shape[0]
+    d = torch.where(freqs > 0, docs.long(), nd)
+    m = torch.zeros(docs.shape[0], nd + 1, dtype=torch.bool, device=docs.device)
+    m.scatter_(1, d, True)
+    return m[:, :nd] & live
+
+
+def sort_keys(matched, dv):
+    """(B, ND) sort keys: the doc value as float32, -inf where unmatched."""
+    return torch.where(matched, dv.float(), -torch.inf)
+
+
+def range_ok(dv, live, los, his):
+    """(B, ND) bool: ``lo <= dv <= hi`` per row, and live."""
+    return (dv >= los[:, None]) & (dv <= his[:, None]) & live
+
+
+def facet_hist(matched, bins, n_bins: int):
+    """(B, ND) matched docs -> (B, n_bins) float32 counts per bin."""
+    b = bins.long().clamp(min=0)
+    b = torch.where(b < n_bins, b, n_bins).expand_as(matched)
+    hist = torch.zeros(matched.shape[0], n_bins + 1, dtype=torch.int64,
+                       device=matched.device)
+    hist.scatter_add_(1, b, matched.long())
+    return hist[:, :n_bins].float()
+
+
+def _doc_tiles_topk(score, k: int):
+    """(B, ND_pad) scores -> per-tile (vals, doc ids) (B, ND_pad/TILE, k)."""
+    bsz, nd = score.shape
+    vals, pos = _tile_topk_plain(score.view(bsz, nd // TILE, TILE), k)
+    base = torch.arange(nd // TILE, device=score.device)[:, None] * TILE
+    return vals, torch.where(pos >= 0, pos + base, -1).to(torch.int32)
+
+
+def _tile_counts(mask):
+    bsz, nd = mask.shape
+    return mask.view(bsz, nd // TILE, TILE).sum(-1, dtype=torch.int32)
+
+
+def _row_width(lengths) -> int:
+    return max(int(lengths.max()), 1) if lengths.numel() else 1
+
+
+# ---------------------------------------------------------------------------
+# plain versions (same output contract as the kernels)
+# ---------------------------------------------------------------------------
+
+
+def bool_topk_tiles_plain(csr_docs, csr_freqs, dl_live, starts, lengths, idfs,
+                          avgdl, k1, b, conjunctive: bool, k: int):
+    docs, freqs = csr_rows(csr_docs, csr_freqs, starts, lengths, _row_width(lengths))
+    avgdl, k1, b = scalars(csr_docs.device, avgdl, k1, b)
+    score, ok = bool_dense(docs, freqs, idfs, dl_live >> 1, (dl_live & 1) > 0,
+                           avgdl, k1, b, conjunctive, starts.shape[1])
+    vals, ids = _doc_tiles_topk(score, k)
+    return vals, ids, _tile_counts(ok)
+
+
+def sort_topk_tiles_plain(csr_docs, csr_freqs, live, dv, starts, lengths, k: int):
+    docs, freqs = csr_rows(csr_docs, csr_freqs, starts, lengths, _row_width(lengths))
+    matched = matched_docs(docs, freqs, live > 0)
+    vals, ids = _doc_tiles_topk(sort_keys(matched, dv), k)
+    return vals, ids, _tile_counts(matched)
+
+
+def range_topk_tiles_plain(dv, live, los, his, k: int):
+    ok = range_ok(dv, live > 0, los, his)
+    vals, ids = _doc_tiles_topk(torch.where(ok, 1.0, -torch.inf), k)
+    return vals, ids, _tile_counts(ok)
+
+
+def facet_hist_tiles_plain(csr_docs, csr_freqs, live, bins, starts, lengths,
+                           n_bins: int):
+    if starts is None:
+        matched = (live > 0)[None]
+    else:
+        docs, freqs = csr_rows(csr_docs, csr_freqs, starts, lengths,
+                               _row_width(lengths))
+        matched = matched_docs(docs, freqs, live > 0)
+    return facet_hist(matched, bins, n_bins), _tile_counts(matched)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check_doc_space(dev, **cols):
+    """Doc-space columns: (ND_pad,) int32 on ``dev``, ND_pad a positive
+    TILE multiple, all the same length.  Returns ND_pad / TILE."""
+    nd = None
+    for name, t in cols.items():
+        check_tensor(name, t, torch.int32, dev)
+        if nd is None:
+            nd = t.shape[0]
+        elif t.shape[0] != nd:
+            raise ValueError(f"{name} has {t.shape[0]} docs, want {nd}")
+    if nd == 0 or nd % TILE:
+        raise ValueError(f"doc space of {nd} must be a positive multiple of {TILE}")
+    return nd // TILE
+
+
+def _check_rows(dev, csr_docs, csr_freqs, starts, lengths, ndim):
+    for name, t in (("csr_docs", csr_docs), ("csr_freqs", csr_freqs)):
+        check_tensor(name, t, torch.int32, dev)
+    for name, t in (("starts", starts), ("lengths", lengths)):
+        check_tensor(name, t, torch.int32, dev, ndim)
+    if lengths.shape != starts.shape:
+        raise ValueError("starts and lengths must have the same shape")
+
+
+def _winners(rows, n_tiles, k, dev):
+    return (torch.empty((rows, n_tiles, k), dtype=torch.float32, device=dev),
+            torch.empty((rows, n_tiles, k), dtype=torch.int32, device=dev),
+            torch.empty((rows, n_tiles), dtype=torch.int32, device=dev))
+
+
+def _launch(name, out, *args):
+    """Launch kernel ``name`` on the current stream of ``out``'s device."""
+    lib = library()
+    with torch.cuda.device(out.device):
+        code = getattr(lib, name)(*args, runtime.stream_of(out))
+    runtime.check(lib, code, f"{name} launch")
+    launches[name] += 1
+
+
+def bool_topk_tiles(csr_docs, csr_freqs, dl_live, starts, lengths, idfs,
+                    avgdl: float, k1: float, b: float, conjunctive: bool, k: int):
+    """Per-tile top-k of B boolean queries of T terms over a segment.
+
+    csr_docs/csr_freqs: (nnz_pad,) int32 CSR postings, doc-sorted per row;
+    dl_live: (ND_pad,) int32 packed ``(doc_len << 1) | live``; starts/
+    lengths: (B, T) int32 row coordinates; idfs: (B, T) float32.  Returns
+    (vals (B, ND_pad/TILE, k) float32 summed BM25, ids segment-local doc
+    ids, cnt (B, ND_pad/TILE) docs that pass the filter per tile)."""
+    dev = csr_docs.device
+    n_tiles = _check_doc_space(dev, dl_live=dl_live)
+    _check_rows(dev, csr_docs, csr_freqs, starts, lengths, 2)
+    check_tensor("idfs", idfs, torch.float32, dev, 2)
+    if idfs.shape != starts.shape:
+        raise ValueError("idfs must have one entry per (row, term)")
+    check_k(k)
+    if dev.type == "cpu":
+        return bool_topk_tiles_plain(csr_docs, csr_freqs, dl_live, starts,
+                                     lengths, idfs, avgdl, k1, b, conjunctive, k)
+    rows, n_terms = starts.shape
+    vals, ids, cnt = _winners(rows, n_tiles, k, dev)
+    _launch("bool_topk", vals, csr_docs.data_ptr(), csr_freqs.data_ptr(),
+            dl_live.data_ptr(), starts.data_ptr(), lengths.data_ptr(),
+            idfs.data_ptr(), avgdl, k1, b, n_terms, int(conjunctive), rows,
+            n_tiles, k, vals.data_ptr(), ids.data_ptr(), cnt.data_ptr())
+    return vals, ids, cnt
+
+
+def sort_topk_tiles(csr_docs, csr_freqs, live, dv, starts, lengths, k: int):
+    """Per-tile top-k of B term queries ordered by a doc-values column.
+
+    live/dv: (ND_pad,) int32; starts/lengths: (B,) int32.  Returns (vals
+    (B, ND_pad/TILE, k) float32 keys ``float(dv)``, ids, cnt matched live
+    docs per tile)."""
+    dev = csr_docs.device
+    n_tiles = _check_doc_space(dev, live=live, dv=dv)
+    _check_rows(dev, csr_docs, csr_freqs, starts, lengths, 1)
+    check_k(k)
+    if dev.type == "cpu":
+        return sort_topk_tiles_plain(csr_docs, csr_freqs, live, dv, starts,
+                                     lengths, k)
+    rows = starts.shape[0]
+    vals, ids, cnt = _winners(rows, n_tiles, k, dev)
+    _launch("sort_topk", vals, csr_docs.data_ptr(), csr_freqs.data_ptr(),
+            live.data_ptr(), dv.data_ptr(), starts.data_ptr(),
+            lengths.data_ptr(), rows, n_tiles, k, vals.data_ptr(),
+            ids.data_ptr(), cnt.data_ptr())
+    return vals, ids, cnt
+
+
+def range_topk_tiles(dv, live, los, his, k: int):
+    """Per-tile lowest k doc ids with ``lo <= dv <= hi`` and live.
+
+    dv/live: (ND_pad,) int32; los/his: (B,) int32.  Returns (vals
+    (B, ND_pad/TILE, k) float32, 1.0 per hit; ids; cnt hits per tile)."""
+    dev = dv.device
+    n_tiles = _check_doc_space(dev, dv=dv, live=live)
+    for name, t in (("los", los), ("his", his)):
+        check_tensor(name, t, torch.int32, dev)
+    if los.shape != his.shape:
+        raise ValueError("los and his must have the same shape")
+    check_k(k)
+    if dev.type == "cpu":
+        return range_topk_tiles_plain(dv, live, los, his, k)
+    rows = los.shape[0]
+    vals, ids, cnt = _winners(rows, n_tiles, k, dev)
+    _launch("range_topk", vals, dv.data_ptr(), live.data_ptr(), los.data_ptr(),
+            his.data_ptr(), rows, n_tiles, k, vals.data_ptr(), ids.data_ptr(),
+            cnt.data_ptr())
+    return vals, ids, cnt
+
+
+def facet_hist_tiles(csr_docs, csr_freqs, live, bins, starts, lengths,
+                     n_bins: int):
+    """Histogram of matched live docs over int bins, per query row.
+
+    live/bins: (ND_pad,) int32.  ``starts``/``lengths`` (B,) int32 give each
+    row's term postings; both None means one match-all row.  Returns
+    (hist (B, n_bins) float32 counts, cnt (B, ND_pad/TILE) matched live docs
+    per tile)."""
+    dev = live.device
+    n_tiles = _check_doc_space(dev, live=live, bins=bins)
+    match_all = starts is None
+    if match_all != (lengths is None):
+        raise ValueError("starts and lengths are both given or both None")
+    if not match_all:
+        _check_rows(dev, csr_docs, csr_freqs, starts, lengths, 1)
+    if n_bins < 1:
+        raise ValueError(f"n_bins={n_bins} must be positive")
+    if dev.type == "cpu":
+        return facet_hist_tiles_plain(csr_docs, csr_freqs, live, bins, starts,
+                                      lengths, n_bins)
+    rows = 1 if match_all else starts.shape[0]
+    hist = torch.zeros((rows, n_bins), dtype=torch.int32, device=dev)
+    cnt = torch.empty((rows, n_tiles), dtype=torch.int32, device=dev)
+    rows_ptr = (None, None) if match_all else (starts.data_ptr(), lengths.data_ptr())
+    _launch("facet_hist", hist, csr_docs.data_ptr(), csr_freqs.data_ptr(),
+            live.data_ptr(), bins.data_ptr(), *rows_ptr, int(match_all), n_bins,
+            rows, n_tiles, hist.data_ptr(), cnt.data_ptr())
+    return hist.float(), cnt
+
+
+__all__ = [
+    "launches",
+    "reset_launches",
+    "bool_dense",
+    "matched_docs",
+    "sort_keys",
+    "range_ok",
+    "facet_hist",
+    "bool_topk_tiles",
+    "bool_topk_tiles_plain",
+    "sort_topk_tiles",
+    "sort_topk_tiles_plain",
+    "range_topk_tiles",
+    "range_topk_tiles_plain",
+    "facet_hist_tiles",
+    "facet_hist_tiles_plain",
+]

@@ -8,10 +8,12 @@ runs on the card or not at all.
     present and the card is compute capability 9.0 (Hopper); the message
     tells the caller to pass ``device="cpu"``, which only the tests do.
   * ``library()`` builds ``csrc/*.cu`` on first use with ``nvcc`` into a
-    shared library with a plain C interface and loads it with ``ctypes``.
-    The build is keyed by the sources' content, lands in ``_build/`` beside
-    this package, and raises with nvcc's stderr if it fails.  Nothing here
-    runs at import time.
+    shared library with a plain C interface and loads it with ``ctypes``:
+    one ``nvcc -c`` per source, all started together, then one link.  The
+    build is keyed by the content of every file under ``csrc/`` (the
+    ``*.cu`` sources and the ``*.cuh``/``*.h`` headers they include), lands
+    in ``_build/`` beside this package, and raises with nvcc's stderr if it
+    fails.  Nothing here runs at import time.
 
 Kernel wrappers take their plain PyTorch version only for tensors that lie
 on the CPU; a CUDA tensor launches the kernel or raises.  There is no switch
@@ -39,9 +41,11 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-fmad=false", "-std=c++17",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+#: what the build digest covers: the sources and the headers they include
+SOURCE_GLOBS = ("*.cu", "*.cuh", "*.h")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -85,36 +89,60 @@ def _nvcc() -> str:
 
 
 def _sources():
+    """The sources nvcc compiles: ``csrc/*.cu`` (headers are included)."""
     return sorted(CSRC.glob("*.cu"))
 
 
-def _build() -> Path:
-    srcs = _sources()
+def library_path() -> Path:
+    """Where the library built from the current ``csrc/`` lives: keyed by
+    the name and content of every source and header, and the flags."""
+    files = sorted({p for g in SOURCE_GLOBS for p in CSRC.glob(g)})
     digest = hashlib.sha256()
-    for p in srcs:
+    for p in files:
         digest.update(p.name.encode())
         digest.update(p.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    out = BUILD_DIR / f"librepro_torch_{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"librepro_torch_{digest.hexdigest()[:16]}.so"
+
+
+def _run_all(cmds):
+    """Run the commands together; raise with stderr if any fails.  Returns
+    their combined output."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    log, failed = [], []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        log.append(out + err)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "".join(log)
+
+
+def _build() -> Path:
+    out = library_path()
     build_info["path"] = str(out)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build beside the target, then rename: concurrent first uses never
-    # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_info["seconds"] = time.perf_counter() - t0
-    build_info["log"] = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
+    # build in a private directory beside the target, then rename:
+    # concurrent first uses never load a half-written library
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        nvcc = _nvcc()
+        objs = [Path(tmp) / f"{src.stem}.o" for src in _sources()]
+        t0 = time.perf_counter()
+        try:
+            log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                            for src, o in zip(_sources(), objs)])
+            lib = Path(tmp) / out.name
+            log += _run_all([[nvcc, "-shared", "-o", str(lib), *map(str, objs)]])
+        finally:
+            build_info["seconds"] = time.perf_counter() - t0
+        build_info["log"] = log
+        os.replace(lib, out)
     return out
 
 
@@ -125,14 +153,22 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(_build()))
             vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.term_topk.argtypes = [vp] * 6 + [f32] * 3 + [i32] * 3 + [vp] * 4
-            lib.term_topk.restype = i32
-            lib.bm25_topk.argtypes = [vp] * 3 + [f32] * 4 + [i32] * 2 + [vp] * 3
-            lib.bm25_topk.restype = i32
-            lib.term_topk_tile.restype = i32
-            lib.term_topk_max_k.restype = i32
-            lib.term_topk_error_string.argtypes = [i32]
-            lib.term_topk_error_string.restype = ctypes.c_char_p
+            sigs = {  # name: argument types; every launch returns a CUDA error code
+                "term_topk": [vp] * 6 + [f32] * 3 + [i32] * 3 + [vp] * 4,
+                "bm25_topk": [vp] * 3 + [f32] * 4 + [i32] * 2 + [vp] * 3,
+                "bool_topk": [vp] * 6 + [f32] * 3 + [i32] * 5 + [vp] * 4,
+                "sort_topk": [vp] * 6 + [i32] * 3 + [vp] * 4,
+                "range_topk": [vp] * 4 + [i32] * 3 + [vp] * 4,
+                "facet_hist": [vp] * 6 + [i32] * 4 + [vp] * 3,
+            }
+            for name, argtypes in sigs.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = i32
+            for name in ("kernels_tile", "kernels_max_k", "facet_shared_bins"):
+                getattr(lib, name).restype = i32
+            lib.cuda_error_string.argtypes = [i32]
+            lib.cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
 
@@ -140,7 +176,7 @@ def library() -> ctypes.CDLL:
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     """Raise on a CUDA error returned by a launch."""
     if code != 0:
-        msg = lib.term_topk_error_string(code).decode()
+        msg = lib.cuda_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
 
 

@@ -93,21 +93,26 @@ def _tile_topk_plain(s: torch.Tensor, k: int):
     return vals, torch.where(torch.isfinite(vals), order, -1)
 
 
+def csr_rows(csr_docs, csr_freqs, starts, lengths, p: int):
+    """Gather rows of width ``p`` from a segment's CSR through (starts,
+    lengths) of any shape S: (docs, freqs), each S + (p,) int32, with
+    (doc 0, freq 0) past each row's end."""
+    ar = torch.arange(p, device=csr_docs.device)
+    idx = (starts.long()[..., None] + ar).clamp_(0, csr_docs.shape[0] - 1)
+    inrow = ar < lengths.long()[..., None]
+    return torch.where(inrow, csr_docs[idx], 0), torch.where(inrow, csr_freqs[idx], 0)
+
+
 def csr_rows_scored(csr_docs, csr_freqs, dl_live, starts, lengths, idfs,
                     avgdl, k1, b, p: int):
-    """Gather B query rows of width ``p`` from a segment's CSR through
-    (starts, lengths) and score them: (scores (B, p) float32 with -inf
-    where not valid, docs (B, p) int32, valid (B, p) bool).  A posting is
-    valid when it lies in its row, has freq > 0 and its doc is live."""
-    dev = csr_docs.device
-    ar = torch.arange(p, device=dev)
-    idx = (starts.long()[:, None] + ar).clamp_(0, csr_docs.shape[0] - 1)
-    inrow = ar < lengths.long()[:, None]
-    docs = torch.where(inrow, csr_docs[idx], 0)
-    freqs = torch.where(inrow, csr_freqs[idx], 0)
+    """Gather B query rows of width ``p`` from a segment's CSR and score
+    them: (scores (B, p) float32 with -inf where not valid, docs (B, p)
+    int32, valid (B, p) bool).  A posting is valid when it lies in its row,
+    has freq > 0 and its doc is live."""
+    docs, freqs = csr_rows(csr_docs, csr_freqs, starts, lengths, p)
     g = dl_live[docs.long()]
     valid = (freqs > 0) & ((g & 1) > 0)
-    avgdl, k1, b = scalars(dev, avgdl, k1, b)
+    avgdl, k1, b = scalars(csr_docs.device, avgdl, k1, b)
     s = bm25(freqs, g >> 1, idfs[:, None], avgdl, k1, b)
     return torch.where(valid, s, -torch.inf), docs, valid
 
@@ -142,7 +147,9 @@ def bm25_topk_blocks_plain(freqs, dl, valid, idf, avgdl, k1, b, k: int):
 # ---------------------------------------------------------------------------
 
 
-def _check(name, t, dtype, device, ndim=1):
+def check_tensor(name, t, dtype, device, ndim=1):
+    """Raise unless ``t`` is a contiguous ``ndim``-d ``dtype`` tensor on
+    ``device``: what every kernel takes."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
     if t.dtype != dtype or t.device != device or t.dim() != ndim:
@@ -154,7 +161,7 @@ def _check(name, t, dtype, device, ndim=1):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_k(k: int) -> None:
+def check_k(k: int) -> None:
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k={k} outside the kernels' range 1..{MAX_K}")
 
@@ -162,11 +169,12 @@ def _check_k(k: int) -> None:
 _checked = []  # the library once its constants matched this module's
 
 
-def _library():
-    """The CUDA library, checked once against ``TILE`` and ``MAX_K``."""
+def library():
+    """The CUDA library of every kernel, checked once against ``TILE`` and
+    ``MAX_K`` (``csrc/tile_topk.cuh``)."""
     lib = runtime.library()
     if not _checked:
-        built = (lib.term_topk_tile(), lib.term_topk_max_k())
+        built = (lib.kernels_tile(), lib.kernels_max_k())
         if built != (TILE, MAX_K):
             raise RuntimeError(f"csrc TILE/MAX_K {built} != {(TILE, MAX_K)}")
         _checked.append(lib)
@@ -190,18 +198,18 @@ def term_topk_tiles(csr_docs, csr_freqs, dl_live, starts, lengths, idfs,
     for name, t in (("csr_docs", csr_docs), ("csr_freqs", csr_freqs),
                     ("dl_live", dl_live), ("starts", starts),
                     ("lengths", lengths)):
-        _check(name, t, torch.int32, dev)
-    _check("idfs", idfs, torch.float32, dev)
+        check_tensor(name, t, torch.int32, dev)
+    check_tensor("idfs", idfs, torch.float32, dev)
     rows = starts.shape[0]
     if lengths.shape[0] != rows or idfs.shape[0] != rows:
         raise ValueError("starts, lengths and idfs must have one entry per row")
     if p <= 0 or p % TILE:
         raise ValueError(f"p={p} must be a positive multiple of {TILE}")
-    _check_k(k)
+    check_k(k)
     if dev.type == "cpu":
         return term_topk_tiles_plain(csr_docs, csr_freqs, dl_live, starts,
                                      lengths, idfs, avgdl, k1, b, p, k)
-    lib = _library()
+    lib = library()
     nb = p // TILE
     vals = torch.empty((rows, nb, k), dtype=torch.float32, device=dev)
     ids = torch.empty((rows, nb, k), dtype=torch.int32, device=dev)
@@ -226,16 +234,16 @@ def bm25_topk_blocks(freqs, dl, valid, idf: float, avgdl: float, k1: float,
     tile's valid postings hold (-inf, -1)."""
     dev = freqs.device
     for name, t in (("freqs", freqs), ("dl", dl), ("valid", valid)):
-        _check(name, t, torch.int32, dev)
+        check_tensor(name, t, torch.int32, dev)
     n = freqs.shape[0]
     if dl.shape[0] != n or valid.shape[0] != n:
         raise ValueError("freqs, dl and valid must have the same length")
     if n == 0 or n % TILE:
         raise ValueError(f"P={n} must be a positive multiple of {TILE}")
-    _check_k(k)
+    check_k(k)
     if dev.type == "cpu":
         return bm25_topk_blocks_plain(freqs, dl, valid, idf, avgdl, k1, b, k)
-    lib = _library()
+    lib = library()
     nb = n // TILE
     vals = torch.empty((nb, k), dtype=torch.float32, device=dev)
     idx = torch.empty((nb, k), dtype=torch.int32, device=dev)
@@ -290,7 +298,11 @@ __all__ = [
     "fma_f32",
     "bm25",
     "scalars",
+    "csr_rows",
     "csr_rows_scored",
+    "check_tensor",
+    "check_k",
+    "library",
     "term_topk_tiles",
     "term_topk_tiles_plain",
     "bm25_topk_blocks",

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import doc_topk as dk
 from repro_torch.kernels import term_topk as kt
 
 AVGDL, K1, B = 91.37731, 0.9, 0.4
@@ -78,3 +79,90 @@ def test_kernels_match_plain_on_card(card, k):
     want = [x.cpu().numpy() for x in kt.bm25_topk_blocks_plain(*args2)]
     np.testing.assert_array_equal(got[0].view(np.int32), want[0].view(np.int32))
     np.testing.assert_array_equal(got[1], want[1])
+
+
+def _csr(rng, rows, n_terms, n_docs):
+    """Doc-sorted postings of (rows, n_terms) lists as one CSR padded with a
+    tile of zeros; row 0 term 0 holds doc 0, the last row is empty."""
+    docs, freqs = [], []
+    lengths = np.zeros((rows, n_terms), np.int32)
+    for r in range(rows - 1):
+        for t in range(n_terms):
+            d = np.sort(rng.choice(n_docs, size=int(rng.integers(1, 3000)), replace=False))
+            if r == 0 and t == 0:
+                d = np.unique(np.concatenate([[0], d]))
+            docs.append(d)
+            freqs.append(rng.integers(0, 25, len(d)) if r != 1 else np.full(len(d), 4))
+            lengths[r, t] = len(d)
+    starts = np.zeros_like(lengths)
+    starts.flat[1:] = np.cumsum(lengths.ravel())[:-1]
+    pad = [np.zeros(kt.TILE, np.int64)]
+    return (np.concatenate(docs + pad).astype(np.int32),
+            np.concatenate(freqs + pad).astype(np.int32), starts, lengths)
+
+
+def _equal(got, want):
+    for g, w in zip(got, want):
+        g, w = g.cpu().numpy(), w.cpu().numpy()
+        if g.dtype == np.float32:
+            g, w = g.view(np.int32), w.view(np.int32)
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 10, 128])
+def test_doc_kernels_match_plain_on_card(card, k):
+    """bool_topk (T = 2, 3; and/or), sort_topk (float32 keys with ties
+    above 2^24), range_topk (an empty window and the padding row) and
+    facet_hist (match-all and term rows; bins out of range; shared and
+    device-memory counters) against their plain versions: 0 ULP."""
+    rng = np.random.default_rng(100 + k)
+    rows, n_docs, nd_pad = 6, 20000, 20 * kt.TILE
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(card)
+
+    dl = rng.integers(1, 400, nd_pad).astype(np.int32)
+    live = (rng.random(nd_pad) > 0.2).astype(np.int32)
+    live[n_docs:] = 0
+    live[0] = 1
+    dl_live = dev((dl << 1) | live)
+    for n_terms in (2, 3):
+        cd, cf, starts, lengths = _csr(rng, rows, n_terms, n_docs)
+        idfs = rng.uniform(0.5, 8.0, (rows, n_terms)).astype(np.float32)
+        for conj in (True, False):
+            args = (dev(cd), dev(cf), dl_live, dev(starts), dev(lengths), dev(idfs),
+                    AVGDL, K1, B, conj, k)
+            n0 = dk.launches["bool_topk"]
+            got = dk.bool_topk_tiles(*args)
+            torch.cuda.synchronize()
+            assert dk.launches["bool_topk"] == n0 + 1
+            _equal(got, dk.bool_topk_tiles_plain(*args))
+
+    cd, cf, starts, lengths = _csr(rng, rows, 1, n_docs)
+    starts, lengths = dev(starts[:, 0]), dev(lengths[:, 0])
+    ts = rng.integers(0, 1 << 30, nd_pad).astype(np.int32)
+    ts[:3000] = (1 << 30) - rng.integers(1, 64, 3000)  # equal float32 keys
+    for dv in (ts, rng.integers(0, 12, nd_pad).astype(np.int32)):
+        args = (dev(cd), dev(cf), dev(live), dev(dv), starts, lengths, k)
+        got = dk.sort_topk_tiles(*args)
+        torch.cuda.synchronize()
+        _equal(got, dk.sort_topk_tiles_plain(*args))
+
+    doy = rng.integers(0, 365, nd_pad).astype(np.int32)
+    los = dev(np.asarray([10, 100, 300, 0, 0, 364], np.int32))
+    his = dev(np.asarray([300, 101, 200, -1, 364, 364], np.int32))
+    args = (dev(doy), dev(live), los, his, k)
+    got = dk.range_topk_tiles(*args)
+    torch.cuda.synchronize()
+    _equal(got, dk.range_topk_tiles_plain(*args))
+
+    for n_bins in (12, 365, 9000):  # 9000: counters in device memory
+        bins = dev(rng.integers(-3, n_bins + 4, nd_pad).astype(np.int32))
+        for rows_ in ((None, None), (starts, lengths)):
+            args = (dev(cd), dev(cf), dev(live), bins, *rows_, n_bins)
+            n0 = dk.launches["facet_hist"]
+            got = dk.facet_hist_tiles(*args)
+            torch.cuda.synchronize()
+            assert dk.launches["facet_hist"] == n0 + 1
+            _equal(got, dk.facet_hist_tiles_plain(*args))

@@ -21,7 +21,7 @@ from repro_torch.core.engine import SearchEngine
 from repro_torch.core.interop import segment_from_arrays
 from repro_torch.core.query import profile
 from repro_torch.core.query.plan import pad_width
-from repro_torch.core.query.types import BooleanQuery, TermQuery
+from repro_torch.core.query.types import HybridQuery, TermQuery, VectorQuery
 from repro_torch.core.search import Searcher
 
 N_DOCS = 360
@@ -176,11 +176,14 @@ def test_pad_width(longest, tile, want):
 
 
 def test_other_families_raise():
+    """Vector and hybrid queries run on kernels of a later slice: both the
+    batched and the sequential path raise and say so."""
     eng = SearchEngine("ram", device="cpu")
     eng.add({"body": "a b"})
     eng.reopen()
-    q = BooleanQuery((TermQuery("body", "a"), TermQuery("body", "b")))
-    with pytest.raises(NotImplementedError, match="TermQuery"):
-        eng.search(q)
-    with pytest.raises(NotImplementedError, match="TermQuery"):
-        eng.searcher.search_single(q)
+    vec = VectorQuery((1.0, 0.0))
+    for q in (vec, HybridQuery(TermQuery("body", "a"), vec)):
+        with pytest.raises(NotImplementedError, match="later slice"):
+            eng.search(q)
+        with pytest.raises(NotImplementedError, match="later slice"):
+            eng.searcher.search_single(q)

@@ -86,3 +86,23 @@ def test_cpu_tensors_take_the_plain_version():
     z = torch.zeros(kt.TILE, dtype=torch.int32)
     kt.bm25_topk_blocks(z, z + 3, z, 1.0, 1.0, 0.9, 0.4, 10)
     assert kt.launches == before
+
+
+def test_header_edit_changes_library_path(tmp_path, monkeypatch):
+    """The build is keyed by every file under csrc/, headers included, and
+    nvcc compiles only the .cu sources."""
+    import shutil
+
+    from repro_torch.kernels import runtime
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(runtime.CSRC, csrc)
+    monkeypatch.setattr(runtime, "CSRC", csrc)
+    headers = sorted(p.name for p in csrc.glob("*.cuh"))
+    assert headers, "csrc/ holds no header"
+    assert [p.suffix for p in runtime._sources()] == [".cu"] * len(runtime._sources())
+    before = runtime.library_path()
+    assert runtime.library_path() == before  # deterministic
+    header = csrc / headers[0]
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert runtime.library_path() != before
