@@ -10,7 +10,8 @@ Phases (any failure raises and the script exits non-zero):
               -Xptxas -v register / shared-memory summary)
   3. main     ``SearchEngine("ram")`` with the default device and kernel
               switch: ingest the luceneutil-shaped synthetic corpus
-              (wikimedium500k's size) in batches with a flush and an NRT
+              (wikimedium500k's size; every doc but a seeded 1% carries a
+              seeded 768-dim float32 vector) in batches with a flush and an NRT
               reopen every 50,000 docs and one delete of a rare term that
               flushed segments hold before the last flush, reopen, then
               batches of 32 BM25 TermQuerys (k=10) drawn from the
@@ -30,11 +31,32 @@ Phases (any failure raises and the script exits non-zero):
               equals ``search_batch``, a mixed batch of every task equals the
               per-task results, the deleted term's docs are in no family's
               hits, and kernels K3-K6 were launched.
-  5. kernels  each kernel against its plain PyTorch version on the card at
+  5. vectors  the same index, whose docs carry seeded 768-dim float32
+              vectors (1% carry none), through ``search_batch``: batches of
+              32 queries of one task -- VectorDot, VectorCosine (k=10),
+              VectorCosineTop100 (k=100), HybridDot, HybridCosine (a High- or
+              Med-band body term + a vector, alpha uniform in [0.2, 0.8],
+              k=10); half the vectors are perturbed indexed vectors, half
+              normals.  Per task: QPS, batch p50/p99, route; device idle
+              share for VectorCosine and HybridDot; how often a perturbed
+              query's source doc ranks first; the time of one
+              VectorDot ``search_single`` and of one VectorCosine batch at
+              k=200 (the PyTorch selection path).  Then
+              ``ops.bitset_combine`` ANDs and ORs the doc bitsets of four
+              High-band terms over the 500,000-doc space.  Checks: that
+              ``search_single`` equals ``search_batch``; on the largest
+              segment, one batch per task equals the eager executors on
+              the card, one query per task ``search_single`` and two the
+              port on the CPU; the k=200
+              batch's first 10 hits are the k=10 ones; every live doc is a
+              hit; deleted docs are in no result; bitset words and
+              cardinalities equal numpy's; kernels K7-K9 were launched.
+  6. kernels  each kernel against its plain PyTorch version on the card at
               the main path's shapes (bit-equal), its time from CUDA events,
               the plain version's time, the time of one PyTorch library call
-              for the selection or histogram half where there is one, and
-              its byte bound at 3.35 TB/s.
+              where one computes the same function (or its selection or
+              histogram half), and its bound: the larger of its bytes at
+              3.35 TB/s and its operations at 67 TFLOP/s.
 
 The line before the last is the ``{"kernels": [...]}`` record; the last is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the repository
@@ -68,9 +90,14 @@ REPLACES = {
     "sort_topk": "src/repro/kernels/fused_exec.py:225",
     "range_topk": "src/repro/kernels/fused_exec.py:279",
     "facet_hist": "src/repro/kernels/fused_exec.py:340",
+    "vector_topk": "src/repro/kernels/vector_topk.py:90",
+    "hybrid_topk": "src/repro/kernels/vector_topk.py:162",
+    "bitset_combine": "src/repro/kernels/bitset.py:43",
 }
 SOURCE = "src/repro_torch/csrc/term_topk.cu"
 DOC_SOURCE = "src/repro_torch/csrc/doc_topk.cu"
+VECTOR_SOURCE = "src/repro_torch/csrc/vector_topk.cu"
+BITSET_SOURCE = "src/repro_torch/csrc/bitset.cu"
 # Document-frequency bands named after luceneutil's HighTerm / MedTerm /
 # LowTerm task categories, as fractions of the collection.  The boundaries
 # are this script's choice, not numbers luceneutil defines.
@@ -91,6 +118,17 @@ CHECK_BATCHES = 2
 SINGLE_PER_TASK = 4
 CPU_QUERIES = 8
 PHRASE_DOCS = 2000  # documents the phrase task takes adjacent pairs from
+# vectors phase: the width of BERT-base/mpnet sentence embeddings, which
+# luceneutil's knnPerfTest.py indexes; a seeded 1% of docs carry no vector
+DIM = 768
+VECTORLESS = 0.01
+VECTOR_SEED = SEED + 3  # the vectors; the vector traffic draws from SEED + 4
+VECTOR_TASK_K = {"VectorDot": K, "VectorCosine": K, "VectorCosineTop100": 100,
+                 "HybridDot": K, "HybridCosine": K}
+VECTOR_CPU = 2  # queries per task held to the port on the CPU (one segment)
+VECTOR_WIDE_K = 200  # one VectorCosine batch above the kernels' k of 128
+BITSET_TERMS = 4  # bitmaps per ops.bitset_combine call
+BITSET_CALLS = 8  # calls per mode
 
 
 def log(tag: str, obj) -> None:
@@ -169,6 +207,14 @@ def cuda_ms(fn, iters: int, warmup: int = 3):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters, host_ms < spin.elapsed_time(t0)
+
+
+def resident_bytes(tensors) -> int:
+    """Bytes of the distinct storages under ``tensors`` (a view counts
+    with the tensor it views)."""
+    storages = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                for t in tensors}
+    return sum(storages.values())
 
 
 def bits_equal(a, b) -> bool:
@@ -387,6 +433,33 @@ def families_phase(eng, cfg, bands: dict, words, rare: str, n_batches: int):
     return stats, launches, tasks, prof
 
 
+def kernel_record(name, source, launches, fn, plain, args, library, n_bytes,
+                  n_ops, shape, winners_k=None, plain_iters=5, plain_warmup=3):
+    """Hold kernel ``fn`` to its plain version on the same inputs (every
+    output bit-equal), time both and the library call (None: there is
+    none), and return its record.  With ``winners_k`` the outputs are
+    per-tile winners and counts: the bytes of the winners written (at most
+    ``winners_k`` per tile) are added to ``n_bytes``."""
+    got = [x.cpu().numpy() for x in fn(*args)]
+    want = [x.cpu().numpy() for x in plain(*args)]
+    if not all(bits_equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"{name} differs from its plain version")
+    if winners_k is not None:
+        n_bytes += int(np.minimum(got[2], winners_k).sum()) * 8
+    ms, q = cuda_ms(lambda: fn(*args), 50)
+    plain_ms, pq = cuda_ms(lambda: plain(*args), plain_iters, plain_warmup)
+    lib_ms, lq = cuda_ms(library, 50) if library is not None else (None, None)
+    b_ms, b_by = bound(n_bytes, n_ops)
+    return {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": REPLACES[name], "launches": launches,
+        "max_abs_err": max_abs_err(got[0], want[0]), "bit_equal": True,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": lib_ms, "queued_ahead": [q, pq, lq],
+        "shape": dict(shape, bytes=n_bytes, ops=n_ops),
+    }
+
+
 def doc_kernel_records(eng, tasks: dict, launches: dict) -> list:
     """K3-K6 against their plain versions on the card at the main path's
     shapes: the largest segment and one 32-query group of the busiest task
@@ -431,24 +504,10 @@ def doc_kernel_records(eng, tasks: dict, launches: dict) -> list:
     records = []
 
     def record(name, fn, plain, args, library, n_bytes, n_ops, shape):
-        got = [x.cpu().numpy() for x in fn(*args)]
-        want = [x.cpu().numpy() for x in plain(*args)]
-        if not all(bits_equal(g, w) for g, w in zip(got, want)):
-            raise AssertionError(f"{name} differs from its plain version")
-        if name != "facet_hist":  # per-tile winners: add what they write
-            n_bytes += int(np.minimum(got[2], K).sum()) * 8
-        ms, q = cuda_ms(lambda: fn(*args), 50)
-        plain_ms, pq = cuda_ms(lambda: plain(*args), 5)
-        lib_ms, lq = cuda_ms(library, 50)
-        b_ms, b_by = bound(n_bytes, n_ops)
-        records.append({
-            "name": name, "route": "cuda", "source": DOC_SOURCE,
-            "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": max_abs_err(got[0], want[0]),
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib_ms, "queued_ahead": [q, pq, lq],
-            "shape": dict(shape, segment_docs=seg.n_docs, nd_pad=nd_pad, k=K),
-        })
+        records.append(kernel_record(
+            name, DOC_SOURCE, launches[name], fn, plain, args, library, n_bytes,
+            n_ops, dict(shape, segment_docs=seg.n_docs, nd_pad=nd_pad, k=K),
+            winners_k=None if name == "facet_hist" else K))
 
     rows_b = BATCH
     counts_b = rows_b * n_tiles * 4  # the per-tile counts every kernel writes
@@ -521,6 +580,264 @@ def doc_kernel_records(eng, tasks: dict, launches: dict) -> list:
     return records
 
 
+def vector_tasks(bands: dict, words, vecs, pool, n_batches: int, seed: int):
+    """{task: [batch of BATCH queries]} and, per task, each query's source
+    doc (-1 for a random vector).  Even queries perturb the vector of a live
+    doc drawn from ``pool`` (v + 0.1 * noise), odd ones are standard
+    normals; hybrid terms come from the High and Med bands."""
+    from repro_torch.core.query.types import HybridQuery, TermQuery, VectorQuery
+
+    rng = np.random.default_rng(seed)
+
+    def vector(i):
+        if i % 2:
+            return rng.standard_normal(DIM).astype(np.float32), -1
+        src = int(rng.choice(pool))
+        noise = rng.standard_normal(DIM).astype(np.float32)
+        return vecs[src] + np.float32(0.1) * noise, src
+
+    def hybrid_term():
+        band = ("high", "med")[int(rng.integers(2))]
+        return TermQuery("body", words[int(rng.choice(bands[band]))])
+
+    def make(name, i):
+        v, src = vector(i)
+        vq = VectorQuery(tuple(v.tolist()), "dot" if name.endswith("Dot") else "cosine")
+        if name.startswith("Hybrid"):
+            return HybridQuery(hybrid_term(), vq, float(rng.uniform(0.2, 0.8))), src
+        return vq, src
+
+    tasks, sources = {}, {}
+    for name in VECTOR_TASK_K:
+        made = [[make(name, i) for i in range(BATCH)]
+                for _ in range(n_batches + FAMILY_WARM)]
+        tasks[name] = [[q for q, _ in b] for b in made]
+        sources[name] = [[src for _, src in b] for b in made]
+    return tasks, sources
+
+
+def bitset_task(eng, bands: dict, words, seed: int):
+    """Lucene-style doc bitsets of BITSET_TERMS High-band terms over the
+    whole doc space, combined on the card by ``ops.bitset_combine`` (AND
+    and OR, BITSET_CALLS calls each).  Checks the words and cardinalities
+    against numpy.  Returns (stats, the last call's (T, W) bitmaps)."""
+    import torch
+
+    from repro_torch.core.analyzer import term_hash
+    from repro_torch.kernels import ops
+
+    s = eng.searcher
+    n = s.total_docs
+    rng = np.random.default_rng(seed)
+    bitmaps = None
+    t = time.perf_counter()
+    for call in range(BITSET_CALLS):
+        terms = rng.choice(bands["high"], size=BITSET_TERMS, replace=False)
+        sets = []
+        for w in terms:
+            th = term_hash("body", words[int(w)])
+            docs = [sg.base_doc + sg.postings(th)[0] for sg in s.segments]
+            bits = np.zeros(-(-n // 32) * 32, dtype=bool)  # whole words
+            bits[np.concatenate(docs)] = True
+            sets.append(bits)
+        packed = np.stack([np.packbits(b, bitorder="little").view(np.uint32) for b in sets])
+        bitmaps = torch.from_numpy(packed).to(eng.device)
+        for mode, want in (("and", np.logical_and.reduce(sets)),
+                           ("or", np.logical_or.reduce(sets))):
+            combined, card = ops.bitset_combine(bitmaps, mode)
+            words_ = combined.view(torch.int32).cpu().numpy().view(np.uint32)
+            if not np.array_equal(words_, np.packbits(want, bitorder="little").view(np.uint32)) \
+                    or int(card) != int(want.sum()):
+                raise AssertionError(f"bitset_combine {mode} of {terms} is wrong")
+    torch.cuda.synchronize()
+    return {"calls": 2 * BITSET_CALLS, "terms": BITSET_TERMS,
+            "words": int(bitmaps.shape[1]), "seconds": time.perf_counter() - t}, bitmaps
+
+
+def vectors_phase(eng, bands: dict, words, vecs, has_vec, n_batches: int):
+    """Drive the vector and hybrid tasks and the bitset combine through
+    their entry points on the card and check them (see the module
+    docstring).  Returns (per-task stats, K7-K9 launch counts, the tasks,
+    the bitset inputs, profiles, check summary)."""
+    import torch
+
+    from repro_torch.core.query import profile
+    from repro_torch.core.search import Searcher
+    from repro_torch.kernels import bitset as kb
+    from repro_torch.kernels import vector_topk as vk
+
+    s = eng.searcher
+    deleted_ids = np.concatenate(
+        [sg.base_doc + np.nonzero(~sg.live)[0] for sg in s.segments])
+    n_live = s.total_docs - len(deleted_ids)
+    pool = np.setdiff1d(np.nonzero(has_vec)[0], deleted_ids)
+    tasks, sources = vector_tasks(bands, words, vecs, pool, n_batches, SEED + 4)
+    stats, results = {}, {}
+    vk.reset_launches()
+    kb.reset_launches()
+    for name, batches in tasks.items():
+        k = VECTOR_TASK_K[name]
+        lat, res = [], []
+        with profile.capture() as routes:
+            for i, qs in enumerate(batches):
+                t = time.perf_counter()
+                r = eng.search_batch(qs, k=k)
+                if i >= FAMILY_WARM:
+                    lat.append(time.perf_counter() - t)
+                res.append(r)
+        lat_ms = np.asarray(lat) * 1e3
+        results[name] = res
+        src = np.asarray(sources[name])
+        top = np.asarray([[td.doc_ids[0] for td in r] for r in res])
+        stats[name] = {
+            "qps": BATCH * len(lat) / (lat_ms.sum() / 1e3),
+            "batch_p50_ms": float(np.percentile(lat_ms, 50)),
+            "batch_p99_ms": float(np.percentile(lat_ms, 99)),
+            "timed_batches": len(lat), "k": k, "routes": dict(routes),
+            "perturbed_source_first": [int((top[src >= 0] == src[src >= 0]).sum()),
+                                       int((src >= 0).sum())],
+        }
+    bit_stats, bitmaps = bitset_task(eng, bands, words, SEED + 5)
+    launches = {**vk.launches, **kb.launches}
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a vector or bitset kernel never launched: {launches}")
+
+    for name, res in results.items():
+        for batch_res in res:
+            for td in batch_res:
+                check_topdocs(td, VECTOR_TASK_K[name], name)
+                if td.total_hits != n_live:
+                    raise AssertionError(f"{name}: {td.total_hits} hits, {n_live} live docs")
+                if np.isin(td.doc_ids, deleted_ids).any():
+                    raise AssertionError(f"{name}: a deleted doc is a hit")
+    # the plain chains are 768 steps of op-by-op launches a segment, so the
+    # eager, CPU and search_single checks run on the largest segment, one
+    # batch per task; one timed search_single over the whole index checks
+    # the main path's merge across segments
+    seg = max(s.segments, key=lambda sg: sg.n_docs)
+    one_card = Searcher([seg], device_cache=eng.device_cache)
+    one_eager = Searcher([seg], fused=False, device_cache=eng.device_cache)
+    one_cpu = Searcher([seg], device="cpu")
+    for name, batches in tasks.items():
+        k = VECTOR_TASK_K[name]
+        want = one_card.search_batch(batches[0], k=k)
+        for g, w in zip(one_eager.search_batch(batches[0], k=k), want):
+            same_topdocs(g, w, f"eager {name}")
+        for g, w in zip(one_cpu.search_batch(batches[0][:VECTOR_CPU], k=k), want):
+            same_topdocs(g, w, f"cpu {name}")
+        same_topdocs(one_card.search_single(batches[0][0], k=k), want[0],
+                     f"search_single {name}")
+    t = time.perf_counter()
+    got = s.search_single(tasks["VectorDot"][0][0], k=K)
+    single_ms = (time.perf_counter() - t) * 1e3
+    same_topdocs(got, results["VectorDot"][0][0], "search_single VectorDot, every segment")
+    # k above the kernels' winner row: the PyTorch selection path over the
+    # whole index, whose first K hits are the kernel path's
+    qs = tasks["VectorCosine"][0]
+    with profile.capture() as routes:
+        t = time.perf_counter()
+        wide = eng.search_batch(qs, k=VECTOR_WIDE_K)
+        wide_ms = (time.perf_counter() - t) * 1e3
+    if dict(routes) != {"fused.vector.select": 1}:
+        raise AssertionError(f"k={VECTOR_WIDE_K} took {dict(routes)}")
+    for g, w in zip(wide, results["VectorCosine"][0]):
+        check_topdocs(g, VECTOR_WIDE_K, "VectorCosine k=200")
+        if len(g.doc_ids) != min(VECTOR_WIDE_K, g.total_hits) or not (
+                np.array_equal(g.doc_ids[:K], w.doc_ids)
+                and bits_equal(g.scores[:K], w.scores)):
+            raise AssertionError("VectorCosine: the k=200 head differs from k=10")
+    profs = {name: device_profile(lambda n=name: [
+        eng.search_batch(qs, k=VECTOR_TASK_K[n]) for qs in tasks[n][:5]])
+        for name in ("VectorCosine", "HybridDot")}
+    torch.cuda.synchronize()
+    checks = {"fused_eq_eager_card_one_segment": seg.name, "single_eq_batch": True,
+              "cpu_eq_card_one_segment": seg.name, "every_live_doc_a_hit": True,
+              "deleted_docs_absent": True, "bitset_eq_numpy": True,
+              "k200_head_eq_k10": True,
+              "VectorDot_search_single_ms": single_ms,
+              "VectorCosine_k200_batch_ms": wide_ms}
+    return stats, launches, tasks, bitmaps, bit_stats, profs, checks
+
+
+def vector_kernel_records(eng, tasks: dict, launches: dict, bitmaps) -> list:
+    """K7-K9 against their plain versions on the card at the main path's
+    shapes: the largest segment and one 32-query group (K7: VectorCosine,
+    K8: HybridDot); K9 the bitset task's last four bitmaps, padded to the
+    block.  Returns the kernel records."""
+    import torch
+
+    from repro_torch.core.query.exec import hybrid_params, query_vectors
+    from repro_torch.core.query.plan import FamilyGroup, stage_term_meta
+    from repro_torch.kernels import bitset as kb
+    from repro_torch.kernels import vector_topk as vk
+    from repro_torch.kernels import term_topk as kt
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the library yardstick
+    s = eng.searcher
+    dev = eng.device
+    seg = max(s.segments, key=lambda sg: sg.n_docs)
+    st = eng.device_cache.ensure_tiled(seg)
+    vmat = st["tiled.dv._vec"]
+    nd, dp = seg.n_docs, vmat.shape[1]
+    n_tiles = vmat.shape[0] // kt.TILE
+    shape = {"segment_docs": nd, "nd_pad": vmat.shape[0], "dim": DIM, "rows": BATCH, "k": K}
+    records = []
+
+    # K7 vector_topk: cosine of 32 queries against every doc of the segment
+    qs = tasks["VectorCosine"][FAMILY_WARM]
+    qvecs = query_vectors(s, [q.vector for q in qs], BATCH, dp)
+    args = (vmat, st["tiled.live"], qvecs, K, True, DIM)
+    ops = 2 * BATCH * nd * DIM + 2 * nd * DIM + 2 * BATCH * DIM + 4 * BATCH * nd
+    records.append(kernel_record(
+        "vector_topk", VECTOR_SOURCE, launches["vector_topk"], vk.vector_topk_tiles,
+        vk.vector_topk_tiles_plain, args,
+        lambda: torch.topk(torch.mm(qvecs, vmat.t()), K, dim=-1),
+        nd * dp * 4 + nd * 4 + BATCH * dp * 4 + BATCH * n_tiles * 4, ops,
+        dict(shape, task="VectorCosine"), winners_k=K, plain_iters=2, plain_warmup=1))
+
+    # K8 hybrid_topk: one term + one vector per row, dot
+    qs = tasks["HybridDot"][FAMILY_WARM]
+    group = FamilyGroup(key=("hybrid", DIM, "dot"), indices=list(range(BATCH)), queries=qs)
+    meta = stage_term_meta(seg, [q.term for q in qs], tile=True)
+    idfs, alphas = hybrid_params(s, group, BATCH)
+    qvecs = query_vectors(s, [q.vector.vector for q in qs], BATCH, dp)
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    args = (st["csr.docs"], st["csr.freqs"], st["tiled.dl_live"], up(meta.starts),
+            up(meta.lengths), idfs, s.avgdl, s.k1, s.b, vmat, qvecs, alphas, K,
+            False, DIM)
+    postings = int(meta.lengths.sum())
+    # the dot products, OPS_PER_SCORE per posting's BM25, 9 per blend
+    ops = 2 * BATCH * nd * DIM + postings * OPS_PER_SCORE + 9 * BATCH * nd
+    records.append(kernel_record(
+        "hybrid_topk", VECTOR_SOURCE, launches["hybrid_topk"], vk.hybrid_topk_tiles,
+        vk.hybrid_topk_tiles_plain, args,
+        lambda: torch.topk(torch.mm(qvecs, vmat.t()), K, dim=-1),
+        nd * dp * 4 + nd * 4 + postings * 8 + BATCH * 16 + BATCH * dp * 4
+        + BATCH * n_tiles * 4, ops, dict(shape, task="HybridDot", postings=postings),
+        winners_k=K, plain_iters=2, plain_warmup=1))
+
+    # K9 bitset_combine: four doc bitsets over the whole doc space, AND
+    t, w = bitmaps.shape
+    pad = (-w) % kb.BLOCK
+    padded = torch.cat([bitmaps.view(torch.int32),
+                        torch.zeros((t, pad), dtype=torch.int32, device=dev)], 1)
+    padded = padded.contiguous().view(torch.uint32)
+
+    def as_int(fn):
+        return lambda *a: tuple(x.view(torch.int32) for x in fn(*a))
+
+    # words read once, written once, one count per block; ~15 integer
+    # operations per word (T-1 ANDs, the popcount, the block sum)
+    records.append(kernel_record(
+        "bitset_combine", BITSET_SOURCE, launches["bitset_combine"],
+        as_int(kb.bitset_combine_blocks), as_int(kb.bitset_combine_blocks_plain),
+        (padded, "and"), None, t * w * 4 + w * 4 + (w + pad) // kb.BLOCK * 4,
+        (t - 1 + 12) * w,
+        {"terms": t, "words": w, "words_padded": w + pad, "docs": s.total_docs},
+        plain_iters=20))
+    return records
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--docs", type=int, default=500_000)
@@ -542,6 +859,7 @@ def main(argv=None) -> int:
     from repro_torch.core.query.plan import bucket_batch, stage_term_meta
     from repro_torch.core.query.types import TermQuery
     from repro_torch.core.search import Searcher
+    from repro_torch.core.writer import VECTOR_FIELD
     from repro_torch.data.corpus import CorpusConfig, synthetic_corpus, words
     from repro_torch.kernels import runtime
     from repro_torch.kernels import term_topk as kt
@@ -569,12 +887,20 @@ def main(argv=None) -> int:
     kt.reset_launches()
     profile.reset()
     eng = SearchEngine("ram")  # default device (the card) and fused=True
+    t = time.perf_counter()
+    vec_rng = np.random.default_rng(VECTOR_SEED)
+    vecs = vec_rng.standard_normal((cfg.n_docs, DIM), dtype=np.float32)
+    has_vec = vec_rng.random(cfg.n_docs) >= VECTORLESS
+    vector_gen_s = time.perf_counter() - t
     gen = synthetic_corpus(cfg)
     gen_s = ingest_s = 0.0
     added = 0
     while added < cfg.n_docs:
         t = time.perf_counter()
         chunk = list(itertools.islice(gen, min(1000, cfg.n_docs - added)))
+        for j, (_, dv) in enumerate(chunk, start=added):
+            if has_vec[j]:
+                dv[VECTOR_FIELD] = vecs[j]
         gen_s += time.perf_counter() - t
         t = time.perf_counter()
         eng.add_documents(chunk)
@@ -654,14 +980,20 @@ def main(argv=None) -> int:
         "deleted": {"term": rare, "df_flushed": rare_df, "docs": deleted,
                     "live_refreshes": refreshes},
         "corpus_gen_s": gen_s,
+        "vector_gen_s": vector_gen_s,
+        "vectors": {"dim": DIM, "docs_with_vector": int(has_vec.sum())},
         "ingest_docs_per_s": cfg.n_docs / ingest_s,
         "reopen_s": reopen_s,
         "device_bytes": torch.cuda.memory_allocated(),
-        # doc-value columns (plain + tiled) staged for later query families
-        "device_bytes_doc_values": sum(
-            t.numel() * t.element_size()
-            for st_ in eng.device_cache._store.values()
+        # doc-value columns (plain + tiled), the vector column apart
+        "device_bytes_doc_values": resident_bytes(
+            t for st_ in eng.device_cache._store.values()
             for key, t in st_.items() if key.startswith(("dv.", "tiled.dv."))
+            and not key.endswith(VECTOR_FIELD)
+        ),
+        "device_bytes_vectors": resident_bytes(
+            t for st_ in eng.device_cache._store.values()
+            for key, t in st_.items() if key.endswith(f"dv.{VECTOR_FIELD}")
         ),
         "df_bands": band_sizes,
         "batch": BATCH,
@@ -694,7 +1026,22 @@ def main(argv=None) -> int:
         "deleted_docs_absent": True,
     })
 
-    # 5. kernels against their plain versions at the main path's shapes ---
+    # 5. vectors and the bitset combine through the same engine ----------
+    t = time.perf_counter()
+    vec_stats, vec_launches, vec_tasks, bitmaps, bit_stats, vec_profs, vec_checks = \
+        vectors_phase(eng, bands, table, vecs, has_vec, FAMILY_BATCHES)
+    for name, st_ in vec_stats.items():
+        log("task", dict(st_, task=name))
+    log("vectors", dict(vec_checks, **{
+        "seconds": time.perf_counter() - t,
+        "launches": vec_launches,
+        "batch": BATCH,
+        "bitset": bit_stats,
+        "profile_5_batches_VectorCosine": vec_profs["VectorCosine"],
+        "profile_5_batches_HybridDot": vec_profs["HybridDot"],
+    }))
+
+    # 6. kernels against their plain versions at the main path's shapes ---
     records = []
     seg = max(s.segments, key=lambda sg: sg.nnz)
     st = eng.device_cache.ensure_tiled(seg)
@@ -768,8 +1115,10 @@ def main(argv=None) -> int:
         "shape": {"p": n_pad, "k": K, "segment_docs": seg.n_docs},
     })
     records += doc_kernel_records(eng, tasks, fam_launches)
+    records += vector_kernel_records(eng, vec_tasks, vec_launches, bitmaps)
     for r in records:
-        log("kernel", dict(r, bit_equal=True))
+        r["bit_equal"] = True
+        log("kernel", r)
     print(json.dumps({"kernels": [
         {k: v for k, v in r.items() if k not in ("shape", "queued_ahead")}
         for r in records

@@ -9,13 +9,18 @@ one row per posting:
   pos_offset (n,) int64  start of this posting's span in ``positions``
   positions  (m,) int32  flat token positions (span length == freq)
 
-Host-side numpy, as in the reference.  Dense-vector columns and WAL replay
-(``extend_raw``) come with their later slices.
+Dense vectors ride two more columns: ``vec`` holds row-major float32
+components (one fixed-dim span per vectored doc) and ``vec_doc`` the
+buffer-local doc id of each span.  The first vector pins ``vec_dim``; the
+flush densifies the spans into an (n_docs, dim) doc-values column.
+
+Host-side numpy, as in the reference.  WAL replay (``extend_raw``,
+``extend_raw_vectors``) comes with its later slice.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -67,7 +72,8 @@ class _Column:
 
 
 class ColumnarBuffer:
-    """The writer's DRAM buffer as five flat columns."""
+    """The writer's DRAM buffer as five flat posting columns and two
+    vector columns."""
 
     def __init__(self) -> None:
         self.term_hash = _Column(np.int64)
@@ -75,6 +81,9 @@ class ColumnarBuffer:
         self.freq = _Column(np.int32)
         self.pos_offset = _Column(np.int64)
         self.positions = _Column(np.int32)
+        self.vec = _Column(np.float32)
+        self.vec_doc = _Column(np.int32)
+        self.vec_dim = 0
 
     def __len__(self) -> int:
         return self.term_hash.n
@@ -103,6 +112,34 @@ class ColumnarBuffer:
         self.pos_offset.extend(base + pos_starts.astype(np.int64))
         self.positions.extend(positions)
         return k * (8 + 4 + 4 + 8) + len(positions) * 4
+
+    def append_vector(self, doc_local: int, vec) -> int:
+        """Append one document's dense vector.  The first vector pins
+        ``vec_dim``; a later one of another length raises ``ValueError``.
+        Returns the bytes appended."""
+        v = np.asarray(vec, dtype=np.float32).ravel()
+        if self.vec_dim == 0:
+            self.vec_dim = len(v)
+        elif len(v) != self.vec_dim:
+            raise ValueError(f"vector dim {len(v)} != buffer dim {self.vec_dim}")
+        self.vec.extend(v)
+        self.vec_doc.extend_fill(doc_local, 1)
+        return len(v) * 4 + 4
+
+    def vector_columns(self) -> Tuple[np.ndarray, np.ndarray, int]:
+        """(flat components, per-span doc ids, dim) trimmed views."""
+        return self.vec.view(), self.vec_doc.view(), self.vec_dim
+
+    def vector_matrix(self, n_docs: int) -> Optional[np.ndarray]:
+        """The spans as an (n_docs, dim) float32 matrix with zero rows for
+        vectorless docs, or None when the buffer saw no vector."""
+        if self.vec_dim == 0:
+            return None
+        mat = np.zeros((n_docs, self.vec_dim), dtype=np.float32)
+        docs = self.vec_doc.view()
+        if len(docs):
+            mat[docs] = self.vec.view().reshape(len(docs), self.vec_dim)
+        return mat
 
     def columns(
         self,

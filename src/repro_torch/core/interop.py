@@ -15,6 +15,7 @@ from typing import Dict
 import numpy as np
 
 from repro_torch.core.segment import Segment
+from repro_torch.core.writer import VECTOR_FIELD
 
 #: array -> (dtype, rank) of the shared segment layout
 LAYOUT = {
@@ -65,6 +66,11 @@ def segment_from_arrays(
             v = np.asarray(v)
             if v.shape[:1] != (n_docs,):
                 raise ValueError(f"{name}:{key} is not one value per doc")
+            if key[3:] == VECTOR_FIELD and (v.ndim != 2 or v.dtype != np.float32):
+                raise ValueError(
+                    f"{name}:{key} is {v.ndim}-d {v.dtype}, want a 2-d float32 "
+                    f"(n_docs, dim) vector column"
+                )
             dv[key[3:]] = v.copy()
     return Segment(
         name=name,

@@ -18,8 +18,12 @@ With ``tile=True`` (fused engines) staging also uploads the kernel layout:
 dead docs), ``tiled.dl_live = (doc_lens << 1) | live`` (the one word
 kernels ``term_topk`` and ``bool_topk`` gather per posting) and
 ``tiled.dv.<field>`` (the doc-values columns kernels ``sort_topk``,
-``range_topk`` and ``facet_hist`` read).  Every tensor is created on the
-cache's ``device``.
+``range_topk`` and ``facet_hist`` read; the ``_vec`` column kernels
+``vector_topk`` and ``hybrid_topk`` read, its components padded with zeros
+to a multiple of four).  A tiled cache keeps one copy of a 2-D doc-values
+column (the vector column): ``dv.<field>`` is then the view of the tiled
+column's first ``n_docs`` rows and ``d`` components, where the reference
+uploads a second copy.  Every tensor is created on the cache's ``device``.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import torch
 
 from repro_torch.core.query.plan import TILE
 from repro_torch.core.segment import Segment
+from repro_torch.kernels.vector_topk import pad_dim
 
 
 def _pad_tile(host: np.ndarray, fill) -> np.ndarray:
@@ -80,11 +85,15 @@ class SegmentDeviceCache:
         st: Dict[str, object] = {"_live_version": seg.live}
         hosts = {"doc_lens": seg.doc_lens, "live": seg.live}
         for k, v in seg.doc_values.items():
-            hosts[f"dv.{k}"] = v
+            if not (self.tile and v.ndim == 2):
+                hosts[f"dv.{k}"] = v
         for key, host in hosts.items():
             st[key] = self._upload(host)
         if self.tile:
             self._add_tiled(st, seg)
+            for k, v in seg.doc_values.items():
+                if v.ndim == 2:  # the vector column: one copy on the card
+                    st[f"dv.{k}"] = st[f"tiled.dv.{k}"][: v.shape[0], : v.shape[1]]
         return st
 
     def _add_tiled(self, st: Dict[str, object], seg: Segment) -> None:
@@ -102,7 +111,12 @@ class SegmentDeviceCache:
             "tiled.dl_live": (dl_pad << 1) | live_pad,
         }
         for k, v in seg.doc_values.items():
-            hosts[f"tiled.dv.{k}"] = _pad_tile(np.asarray(v), 0)
+            host = _pad_tile(np.asarray(v), 0)
+            extra = pad_dim(host.shape[1]) - host.shape[1] if host.ndim == 2 else 0
+            if extra:  # the vector column: zero components up to the
+                # kernels' 16-byte loads (they add only the first d)
+                host = np.pad(host, ((0, 0), (0, extra)))
+            hosts[f"tiled.dv.{k}"] = host
         for key, host in hosts.items():
             st[key] = self._upload(host)
 

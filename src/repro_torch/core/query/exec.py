@@ -14,9 +14,16 @@ with the kernels' plain versions (``repro_torch.kernels.doc_topk``).
 Phrase verification is a positions merge on the host in numpy, as in the
 reference (``_exec_phrase``).
 
+Vector and hybrid scoring share their math with the kernels' plain
+versions (``repro_torch.kernels.vector_topk``): a sequential float32 FMA
+chain per similarity and one FMA in the hybrid blend.  The reference pads
+hybrid batches to at least two rows (``bucket_batch_min2``) against an XLA
+rounding quirk at B=1; the port computes every row elementwise, so a lone
+query is a batch of one.
+
 The merge orders candidates by score descending, then global doc id
 ascending (Lucene's order): ``jnp.lexsort((ids, -vals))`` becomes two
-stable sorts.  Vector and hybrid queries come with a later slice.
+stable sorts.
 """
 
 from __future__ import annotations
@@ -35,13 +42,10 @@ from repro_torch.core.query.plan import (
     stage_term_postings,
 )
 from repro_torch.core.query.types import TermQuery, TopDocs, empty_topdocs
+from repro_torch.core.writer import VECTOR_FIELD
 from repro_torch.kernels import doc_topk as dk
+from repro_torch.kernels import vector_topk as vk
 from repro_torch.kernels.term_topk import bm25, scalars
-
-VECTOR_SLICE = (
-    "vector and hybrid queries run on kernels K7-K8, which come with a "
-    "later slice of the port (ROADMAP queue 1, item 10)"
-)
 
 __all__ = [
     "bm25",
@@ -112,6 +116,28 @@ def _range_core(dv, live, los, his, k):
     ok = dk.range_ok(dv, live, los, his)
     vals, ids = _topk_stable(torch.where(ok, 1.0, -torch.inf), k)
     return vals, ids, ok.sum(-1)
+
+
+def _vector_core(vmat, live, qvecs, k, cosine):
+    """Exact top-k of B query vectors (B, d) over a dense (ND, d) vector
+    column: every live doc is a candidate and a hit (match-all-live)."""
+    score = torch.where(live, vk.similarity(vmat, qvecs, cosine), -torch.inf)
+    vals, ids = _topk_stable(score, k)
+    return vals, ids, live.sum().expand(qvecs.shape[0])
+
+
+def _hybrid_core(docs, freqs, doc_lens, vmat, live, qvecs, idfs, avgdl, k1, b,
+                 alphas, k, cosine):
+    """BM25 (+) vector over every live doc: the row's term postings
+    docs/freqs (B, P) become a dense BM25 column (0 where a doc lacks the
+    term), blended with the similarity by fixed normalisations, then top-k.
+    idfs/alphas: (B,) float32; avgdl/k1/b: Python floats."""
+    avgdl, k1, b = scalars(docs.device, avgdl, k1, b)
+    dense = vk.hybrid_dense(docs, freqs, idfs, doc_lens, avgdl, k1, b)
+    sims = vk.similarity(vmat, qvecs, cosine)
+    score = torch.where(live, vk.hybrid_scores(dense, sims, alphas, cosine), -torch.inf)
+    vals, ids = _topk_stable(score, k)
+    return vals, ids, live.sum().expand(qvecs.shape[0])
 
 
 def _matched_core(docs, freqs, live):
@@ -466,8 +492,81 @@ def _exec_phrase(ctx, group: FamilyGroup, k: int) -> List[TopDocs]:
     return out
 
 
-def _exec_later_slice(ctx, group: FamilyGroup, k: int) -> List[TopDocs]:
-    raise NotImplementedError(f"{group.kind!r} queries: {VECTOR_SLICE}")
+def _seg_vector(ctx, seg):
+    """Device handle of a segment's (n_docs, d) vector column, or None when
+    the segment has no vectors (it then contributes nothing)."""
+    if VECTOR_FIELD not in seg.doc_values:
+        return None
+    return ctx._seg_dev(seg)[f"dv.{VECTOR_FIELD}"]
+
+
+def query_vectors(ctx, vectors, rows: int, width: int) -> torch.Tensor:
+    """(rows, width) float32 query vectors on the device; padding rows and
+    components are zeros."""
+    q = np.zeros((rows, width), dtype=np.float32)
+    for i, v in enumerate(vectors):
+        q[i, : len(v)] = v
+    return torch.from_numpy(q).to(ctx.device)
+
+
+def hybrid_params(ctx, group: FamilyGroup, rows: int):
+    """(idfs, alphas): (rows,) float32 each, rounded once from the doubles;
+    padding rows are 0."""
+    vals = np.zeros((2, rows), dtype=np.float32)
+    for i, q in enumerate(group.queries):
+        vals[:, i] = ctx.idf(q.term), q.alpha
+    idfs, alphas = torch.from_numpy(vals).to(ctx.device)
+    return idfs, alphas
+
+
+def _exec_vector(ctx, group: FamilyGroup, k: int) -> List[TopDocs]:
+    if ctx.fused:
+        from repro_torch.core.query import fused
+
+        return fused.exec_vector_fused(ctx, group, k)
+    n = len(group.queries)
+    dim, cosine = group.key[1], group.key[2] == "cosine"
+    qvecs = query_vectors(ctx, [q.vector for q in group.queries], bucket_batch(n), dim)
+    per_seg = []
+    for seg in ctx.segments:
+        vmat = _seg_vector(ctx, seg)
+        if vmat is None:
+            continue
+        vals, ids, hits = _vector_core(vmat, ctx._seg_dev(seg)["live"], qvecs, k, cosine)
+        profile.record("eager.vector")
+        per_seg.append((vals, ids + seg.base_doc, hits))
+    return _merge_segment_candidates(per_seg, n, k)
+
+
+def _exec_hybrid(ctx, group: FamilyGroup, k: int) -> List[TopDocs]:
+    if ctx.fused:
+        from repro_torch.core.query import fused
+
+        return fused.exec_hybrid_fused(ctx, group, k)
+    n = len(group.queries)
+    rows = bucket_batch(n)
+    dim, cosine = group.key[1], group.key[2] == "cosine"
+    terms = [q.term for q in group.queries]
+    qvecs = query_vectors(ctx, [q.vector.vector for q in group.queries], rows, dim)
+    idfs, alphas = hybrid_params(ctx, group, rows)
+    per_seg = []
+    for seg in ctx.segments:
+        vmat = _seg_vector(ctx, seg)
+        if vmat is None:
+            continue
+        staged = stage_term_postings(seg, terms, pad_rows=rows - n)
+        if staged is None:
+            # the term scores nothing here; the vector half still ranks
+            # every live doc (BM25 0)
+            staged = (np.zeros((rows, 1), np.int32),) * 2
+        st = ctx._seg_dev(seg)
+        vals, ids, hits = _hybrid_core(
+            *_upload(ctx, *staged), st["doc_lens"], vmat, st["live"], qvecs,
+            idfs, ctx.avgdl, ctx.k1, ctx.b, alphas, k, cosine,
+        )
+        profile.record("eager.hybrid")
+        per_seg.append((vals, ids + seg.base_doc, hits))
+    return _merge_segment_candidates(per_seg, n, k)
 
 
 _EXECUTORS = {
@@ -477,8 +576,8 @@ _EXECUTORS = {
     "range": _exec_range,
     "facet": _exec_facet,
     "phrase": _exec_phrase,
-    "vector": _exec_later_slice,
-    "hybrid": _exec_later_slice,
+    "vector": _exec_vector,
+    "hybrid": _exec_hybrid,
 }
 
 

@@ -13,18 +13,27 @@ coordinates, so the host ships only per-row metadata: one upload per group.
   sort   kernel ``sort_topk``
   range  kernel ``range_topk`` (no postings: the doc-values column)
   facet  kernel ``facet_hist``
+  vector kernel ``vector_topk`` (``kernels/vector_topk.py``; the tiled
+         ``_vec`` column, no postings)
+  hybrid kernel ``hybrid_topk`` (the term's CSR rows and the ``_vec``
+         column in one launch)
 
 The tiles' winners of every segment then go through one stable-sort merge
 (score desc, global doc id asc) and one device-to-host copy; facet
 histograms add across segments on the device (float32 counts are exact
 below 2^24) and come to the host once.
 
+Segments without a vector column contribute nothing to vector and hybrid
+groups; a segment where no hybrid row's term has postings still ranks every
+live doc by its vector (BM25 0).
+
 ``k > MAX_K`` does not fit the kernels' winner row: as in the reference
-(``fused.py:76-85``), such a term, bool, sort or range group takes the
-PyTorch selection path inside the same executor -- the rows gathered from
-the resident CSR on the device, the eager executors' scoring and a stable
-sort -- and the profile ledger records the route (``fused.<family>`` vs
-``fused.<family>.select``).  Facet has no k and always takes its kernel.
+(``fused.py:76-85``), such a term, bool, sort, range, vector or hybrid
+group takes the PyTorch selection path inside the same executor -- the
+rows gathered from the resident CSR on the device, the eager executors'
+scoring and a stable sort -- and the profile ledger records the route
+(``fused.<family>`` vs ``fused.<family>.select``).  Facet has no k and
+always takes its kernel.
 """
 
 from __future__ import annotations
@@ -38,21 +47,28 @@ from repro_torch.core.query import profile
 from repro_torch.core.query.exec import (
     _bool_core,
     _finalize_facets,
+    _hybrid_core,
     _merge_segment_candidates,
     _range_core,
     _sort_core,
     _topk_stable,
+    _vector_core,
     bool_idfs,
+    hybrid_params,
+    query_vectors,
     range_bounds,
 )
 from repro_torch.core.query.plan import (
+    CsrTileMeta,
     FamilyGroup,
     bucket_batch,
     stage_bool_meta,
     stage_term_meta,
 )
 from repro_torch.core.query.types import TopDocs
+from repro_torch.core.writer import VECTOR_FIELD
 from repro_torch.kernels import doc_topk as dk
+from repro_torch.kernels import vector_topk as vk
 from repro_torch.kernels.term_topk import (
     MAX_K,
     csr_rows,
@@ -254,3 +270,71 @@ def exec_facet_fused(ctx, group: FamilyGroup, k: int) -> List[TopDocs]:
         totals += totals_dev.cpu().numpy().astype(np.int64)[:n]
     profile.record("fused.facet")
     return _finalize_facets(counts, totals, k)
+
+
+def _vector_segments(ctx):
+    return [seg for seg in ctx.segments if VECTOR_FIELD in seg.doc_values]
+
+
+def exec_vector_fused(ctx, group: FamilyGroup, k: int) -> List[TopDocs]:
+    n = len(group.queries)
+    dim, cosine = group.key[1], group.key[2] == "cosine"
+    use_kernel = kernel_enabled(k)
+    segs = _vector_segments(ctx)
+    if not segs:
+        return _merge_segment_candidates([], n, k)
+    qvecs = query_vectors(ctx, [q.vector for q in group.queries], bucket_batch(n),
+                          vk.pad_dim(dim))
+    per_seg = []
+    for seg in segs:
+        st = _tiled(ctx, seg)
+        if use_kernel:
+            vals, ids, hits = _flat(*vk.vector_topk_tiles(
+                st[f"tiled.dv.{VECTOR_FIELD}"], st["tiled.live"], qvecs, k,
+                cosine, dim,
+            ))
+        else:
+            vals, ids, hits = _vector_core(
+                st[f"dv.{VECTOR_FIELD}"], st["live"], qvecs[:, :dim], k, cosine
+            )
+        per_seg.append((vals, ids.long() + seg.base_doc, hits))
+    profile.record(_tag("vector", use_kernel))
+    return _merge_segment_candidates(per_seg, n, k)
+
+
+def exec_hybrid_fused(ctx, group: FamilyGroup, k: int) -> List[TopDocs]:
+    n = len(group.queries)
+    rows = bucket_batch(n)
+    dim, cosine = group.key[1], group.key[2] == "cosine"
+    use_kernel = kernel_enabled(k)
+    segs = _vector_segments(ctx)
+    if not segs:
+        return _merge_segment_candidates([], n, k)
+    terms = [q.term for q in group.queries]
+    absent = np.zeros(rows, dtype=np.int32)
+    metas = [stage_term_meta(seg, terms, pad_rows=rows - n, tile=use_kernel)
+             or CsrTileMeta(absent, absent, 1) for seg in segs]
+    coords = _staged(ctx, metas)
+    qvecs = query_vectors(ctx, [q.vector.vector for q in group.queries], rows,
+                          vk.pad_dim(dim))
+    idfs, alphas = hybrid_params(ctx, group, rows)
+    per_seg = []
+    for i, (seg, meta) in enumerate(zip(segs, metas)):
+        st = _tiled(ctx, seg)
+        starts, lengths = coords[i, 0], coords[i, 1]
+        if use_kernel:
+            vals, ids, hits = _flat(*vk.hybrid_topk_tiles(
+                st["csr.docs"], st["csr.freqs"], st["tiled.dl_live"], starts,
+                lengths, idfs, ctx.avgdl, ctx.k1, ctx.b,
+                st[f"tiled.dv.{VECTOR_FIELD}"], qvecs, alphas, k, cosine, dim,
+            ))
+        else:
+            docs, freqs = csr_rows(st["csr.docs"], st["csr.freqs"], starts,
+                                   lengths, meta.p)
+            vals, ids, hits = _hybrid_core(
+                docs, freqs, st["doc_lens"], st[f"dv.{VECTOR_FIELD}"], st["live"],
+                qvecs[:, :dim], idfs, ctx.avgdl, ctx.k1, ctx.b, alphas, k, cosine,
+            )
+        per_seg.append((vals, ids.long() + seg.base_doc, hits))
+    profile.record(_tag("hybrid", use_kernel))
+    return _merge_segment_candidates(per_seg, n, k)

@@ -7,8 +7,8 @@ call per segment), ``fused.<family>`` (the group through its CUDA kernel),
 ``fused.<family>.select`` (the group through the PyTorch selection path,
 taken for k above the kernels' ``MAX_K``) and ``host.phrase`` (the phrase
 group's positions merge).  Kernel launches themselves are counted by the
-kernel wrappers (``launches`` in ``repro_torch.kernels.term_topk`` and
-``repro_torch.kernels.doc_topk``).
+kernel wrappers (``launches`` in ``repro_torch.kernels.term_topk``,
+``doc_topk``, ``vector_topk`` and ``bitset``).
 """
 
 from __future__ import annotations

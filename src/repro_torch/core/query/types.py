@@ -1,9 +1,7 @@
 """Query types and result containers (port of ``repro/core/query/types.py``).
 
-All eight query families are declared so that batches plan the same way as
-in the reference.  Term, boolean, phrase, sort, range and facet queries
-run; vector and hybrid queries come with a later slice, and the searcher
-raises ``NotImplementedError`` for them.
+All eight query families of the reference: term, boolean, phrase, sort,
+range, facet, vector and hybrid.
 """
 
 from __future__ import annotations

@@ -13,9 +13,9 @@ and a heapq merge on the host, the oracle the batched executors are held
 to.  With ``fused=True`` its term scoring runs kernel ``bm25_topk`` (the
 reference's ``use_pallas`` branch); otherwise the eager ``_term_topk``.
 Both term kernels take k <= ``MAX_K``; a larger k takes the PyTorch path,
-the same rule as the batched executors.  The other families run the eager
-cores on the engine's device, as the reference runs its jnp cores there.
-Vector and hybrid queries come with a later slice and raise.
+the same rule as the batched executors.  The other families, vector and
+hybrid included, run the eager cores on the engine's device, as the
+reference runs its jnp cores there.
 
 Scoring is Lucene's BM25 (k1=0.9, b=0.4) with global collection
 statistics; ``avgdl``, ``k1``, ``b`` and each ``idf`` reach the scoring code
@@ -34,14 +34,17 @@ from repro_torch.core.analyzer import Analyzer, term_hash
 from repro_torch.core.lifecycle.infos import SegmentInfos
 from repro_torch.core.query.cache import SegmentDeviceCache
 from repro_torch.core.query.exec import (
-    VECTOR_SLICE,
     _bool_core,
     _facet_core,
+    _hybrid_core,
     _matched_core,
     _range_core,
+    _seg_vector,
     _sort_core,
     _term_topk,
+    _vector_core,
     execute_group,
+    query_vectors,
 )
 from repro_torch.core.query.fused import kernel_enabled
 from repro_torch.core.query.plan import (
@@ -174,8 +177,10 @@ class Searcher:
             return self._search_range(query, k)
         if isinstance(query, FacetQuery):
             return self._search_facet(query, k)
-        if isinstance(query, (VectorQuery, HybridQuery)):
-            raise NotImplementedError(f"{type(query).__name__}: {VECTOR_SLICE}")
+        if isinstance(query, VectorQuery):
+            return self._search_vector(query, k)
+        if isinstance(query, HybridQuery):
+            return self._search_hybrid(query, k)
         raise TypeError(f"unknown query type {type(query)}")
 
     # -- sequential implementation ---------------------------------------------
@@ -352,3 +357,44 @@ class Searcher:
         order = np.argsort(-counts, kind="stable")[:k]
         return TopDocs(total, order.astype(np.int64),
                        counts[order].astype(np.float32), facets=counts)
+
+    def _search_vector(self, q: VectorQuery, k: int) -> TopDocs:
+        """Exact dense retrieval, segment by segment: the oracle of the
+        batched vector executors and the kernel path."""
+        qvec = query_vectors(self, [q.vector], 1, q.dim)
+        total = 0
+        per_seg = []
+        for seg in self.segments:
+            vmat = _seg_vector(self, seg)
+            if vmat is None:
+                continue
+            vals, ids, hits = _vector_core(vmat, self._seg_dev(seg)["live"], qvec,
+                                           k, q.metric == "cosine")
+            total += int(hits[0])
+            per_seg.append(self._host(vals, ids, seg.base_doc))
+        return self._scored(per_seg, total, k)
+
+    def _search_hybrid(self, q: HybridQuery, k: int) -> TopDocs:
+        """BM25 (+) vector fusion, segment by segment, with the batched
+        executors' fixed normalisations; a lone query is one row."""
+        qvec = query_vectors(self, [q.vector.vector], 1, q.vector.dim)
+        idfs, alphas = (torch.tensor([v], dtype=torch.float32, device=self.device)
+                        for v in (self.idf(q.term), q.alpha))
+        total = 0
+        per_seg = []
+        for seg in self.segments:
+            vmat = _seg_vector(self, seg)
+            if vmat is None:
+                continue
+            staged = stage_term_postings(seg, [q.term])
+            if staged is None:
+                staged = (np.zeros((1, 1), np.int32),) * 2
+            st = self._seg_dev(seg)
+            vals, ids, hits = _hybrid_core(
+                *self._staged(staged), st["doc_lens"], vmat, st["live"], qvec,
+                idfs, self.avgdl, self.k1, self.b, alphas, k,
+                q.vector.metric == "cosine",
+            )
+            total += int(hits[0])
+            per_seg.append(self._host(vals, ids, seg.base_doc))
+        return self._scored(per_seg, total, k)

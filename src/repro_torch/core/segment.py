@@ -14,6 +14,7 @@ doc-side arrays and the CSR on the card.
   doc_lens          (n_docs,)    int32   tokens per doc (BM25 length norm)
   live              (n_docs,)    bool    deletion bitmap (False = deleted)
   doc_values[name]  (n_docs,)    int32   columnar doc values
+  doc_values[_vec]  (n_docs, d)  float32 dense vectors (zero rows: none)
 
 The per-term-loop oracles (``build_segment_reference``,
 ``merge_segments_reference``) are not ported: the tests hold this module

@@ -40,9 +40,10 @@ WAL_SLICE = (
     "use_wal (the durable ingest buffer) comes with the search-at-ack slice "
     "(ROADMAP queue 1, item 11)"
 )
-#: reserved doc-values key of a dense vector (the reference's VECTOR_FIELD)
+#: reserved doc-values key of a dense vector (the reference's VECTOR_FIELD):
+#: the buffer keeps flat vector spans and flush makes them an (n_docs, dim)
+#: float32 doc-values column
 VECTOR_FIELD = "_vec"
-VECTOR_SLICE = "dense vectors come with ROADMAP queue 1, item 10"
 
 
 class IndexWriter:
@@ -155,8 +156,9 @@ class IndexWriter:
         if doc_values:
             for k, val in doc_values.items():
                 if k == VECTOR_FIELD:
-                    raise NotImplementedError(VECTOR_SLICE)
-                self._append_dv(local, k, val)
+                    self._ram_bytes += self._buf.append_vector(local, val)
+                else:
+                    self._append_dv(local, k, val)
         return self._infos.total_docs + local
 
     def _append_dv(self, local: int, key: str, val) -> None:
@@ -212,6 +214,9 @@ class IndexWriter:
             k: np.asarray(v + [0] * (n_docs - len(v)), dtype=np.int32)
             for k, v in self._buf_dv.items()
         }
+        vmat = self._buf.vector_matrix(n_docs)
+        if vmat is not None:
+            dv[VECTOR_FIELD] = vmat
         cols = self._buf.columns()
         live = self._apply_buffered_deletes(cols[0], cols[1], n_docs)
         seg = build_segment_columnar(

@@ -55,21 +55,6 @@
 
 #define FACET_SHARED_BINS 8192  // above this, facet_hist counts in device memory
 
-// first i in [0, n) with docs[i] >= key, or n (docs ascending)
-__device__ __forceinline__ int lower_bound(const int* __restrict__ docs, int n,
-                                           int key) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (docs[mid] < key) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
-}
-
 // Threads 0 and 1 write range[0..2): the positions in row docs[0..len) of
 // the first doc >= base and the first doc >= base + TILE.  The caller
 // synchronises before reading them.

@@ -1,5 +1,7 @@
 // Device routines shared by every kernel source in csrc/: the BM25 score,
-// the block-wide valid count and the shared-memory top-k of one tile.
+// the binary search of a doc-sorted postings row, the block-wide valid
+// count and the shared-memory top-k of one tile (by the block or by one
+// warp).
 //
 // Every function here is inline or a template, so each .cu that includes
 // this header gets its own copy (the library is built without relocatable
@@ -52,6 +54,21 @@ __device__ __forceinline__ float bm25_score(int tf_i, int dl_i, float idf,
   const float denom = __fmaf_rn(k1, x, tf);
   const float num = __fmul_rn(idf, __fmul_rn(tf, __fadd_rn(k1, 1.0f)));
   return __fdiv_rn(num, denom);
+}
+
+// first i in [0, n) with docs[i] >= key, or n (docs ascending)
+__device__ __forceinline__ int lower_bound(const int* __restrict__ docs, int n,
+                                           int key) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (docs[mid] < key) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
 }
 
 // best of this thread's entries (strided: i = t, t + THREADS, ...)
@@ -144,4 +161,54 @@ __device__ __forceinline__ int block_count(int c) {
   #pragma unroll
   for (int w = 0; w < WARPS; ++w) total += warp_c[w];
   return total;
+}
+
+// best of lane l's entries l, l + 32, ... of a TILE-entry score row
+__device__ __forceinline__ Best lane_best(const float* s, int lane) {
+  Best r{-CUDART_INF_F, TILE};
+  for (int i = lane; i < TILE; i += 32) {
+    if (beats(s[i], i, r.v, r.p)) {
+      r.v = s[i];
+      r.p = i;
+    }
+  }
+  return r;
+}
+
+// Top-k of s[0..TILE) by one warp, with the contract of tile_topk: the
+// first min(k, n_valid) slots of out_v/out_id hold the winners (score
+// descending, position ascending), the rest (-inf, -1).  Lane l owns the
+// entries l, l + 32, ...; only the winner's owner rescans, so the warp needs
+// no barrier and the warps of a block can each select a row of their own.
+template <typename IdOf>
+__device__ void warp_topk(float* s, int n_valid, int k, float* out_v,
+                          int* out_id, IdOf id_of) {
+  const int lane = threadIdx.x & 31;
+  const int rounds = n_valid < k ? n_valid : k;
+  Best mine = lane_best(s, lane);
+  for (int r = 0; r < rounds; ++r) {
+    // butterfly: every lane ends with the winner
+    Best w = mine;
+    #pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, w.v, off);
+      const int op = __shfl_xor_sync(0xffffffffu, w.p, off);
+      if (beats(ov, op, w.v, w.p)) {
+        w.v = ov;
+        w.p = op;
+      }
+    }
+    if (lane == 0) {
+      out_v[r] = w.v;
+      out_id[r] = id_of(w.p);
+    }
+    if ((w.p & 31) == lane) {  // only the owner's candidate changes
+      s[w.p] = -CUDART_INF_F;
+      mine = lane_best(s, lane);
+    }
+  }
+  for (int r = rounds + lane; r < k; r += 32) {
+    out_v[r] = -CUDART_INF_F;
+    out_id[r] = -1;
+  }
 }

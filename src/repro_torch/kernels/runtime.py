@@ -160,12 +160,17 @@ def library() -> ctypes.CDLL:
                 "sort_topk": [vp] * 6 + [i32] * 3 + [vp] * 4,
                 "range_topk": [vp] * 4 + [i32] * 3 + [vp] * 4,
                 "facet_hist": [vp] * 6 + [i32] * 4 + [vp] * 3,
+                "vector_topk": [vp, i32, i32, vp, vp] + [i32] * 4 + [vp] * 4,
+                "hybrid_topk": ([vp, i32, i32, vp, vp, i32] + [vp] * 6
+                                + [f32] * 3 + [i32] * 3 + [vp] * 4),
+                "bitset_combine": [vp, i32, ctypes.c_longlong, i32] + [vp] * 3,
             }
             for name, argtypes in sigs.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = i32
-            for name in ("kernels_tile", "kernels_max_k", "facet_shared_bins"):
+            for name in ("kernels_tile", "kernels_max_k", "facet_shared_bins",
+                         "vector_rows", "vector_dim_align", "bitset_block"):
                 getattr(lib, name).restype = i32
             lib.cuda_error_string.argtypes = [i32]
             lib.cuda_error_string.restype = ctypes.c_char_p

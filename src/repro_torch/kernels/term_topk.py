@@ -53,7 +53,8 @@ def reset_launches() -> None:
 
 
 def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """Correctly rounded float32 ``a * b + c`` of float32 inputs.
+    """Correctly rounded float32 ``a * b + c`` of float32 inputs (given as
+    float32 or float64 tensors that broadcast together).
 
     The product is exact in float64; the float64 sum is made round-to-odd
     (an inexact sum whose last bit is even moves one ulp toward the exact

@@ -14,8 +14,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import bitset as kb
 from repro_torch.kernels import doc_topk as dk
+from repro_torch.kernels import ops
 from repro_torch.kernels import term_topk as kt
+from repro_torch.kernels import vector_topk as vk
 
 AVGDL, K1, B = 91.37731, 0.9, 0.4
 N_DOCS, ND_PAD = 5000, 5120
@@ -166,3 +169,71 @@ def test_doc_kernels_match_plain_on_card(card, k):
             torch.cuda.synchronize()
             assert dk.launches["facet_hist"] == n0 + 1
             _equal(got, dk.facet_hist_tiles_plain(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dim", [24, 768])
+@pytest.mark.parametrize("cosine", [False, True])
+def test_vector_kernels_match_plain_on_card(card, dim, cosine):
+    """vector_topk and hybrid_topk against their plain versions: 0 ULP at
+    k = 1, 10 and 128, with vectorless (zero) rows, dead docs, a row group
+    that is not full (B = 11), a hybrid row whose term is absent, and
+    alphas 0 and 1."""
+    rng = np.random.default_rng(dim + cosine)
+    rows, n_docs, nd_pad = 11, 6000, 6 * kt.TILE
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(card)
+
+    dp = vk.pad_dim(dim)
+    vmat = np.zeros((nd_pad, dp), np.float32)
+    vmat[:n_docs, :dim] = rng.standard_normal((n_docs, dim))
+    vmat[: n_docs : 7] = 0  # vectorless docs
+    qvecs = np.zeros((rows, dp), np.float32)
+    qvecs[:, :dim] = rng.standard_normal((rows, dim))
+    qvecs[2, :dim] = vmat[40, :dim]  # a query equal to a doc
+    live = (rng.random(nd_pad) > 0.2).astype(np.int32)
+    live[n_docs:] = 0
+    dl = rng.integers(1, 400, nd_pad).astype(np.int32)
+    cd, cf, starts, lengths = _csr(rng, rows, 1, n_docs)
+    starts, lengths = starts[:, 0], lengths[:, 0]
+    idfs = rng.uniform(0.5, 8.0, rows).astype(np.float32)
+    alphas = rng.uniform(0.0, 1.0, rows).astype(np.float32)
+    alphas[0], alphas[1] = 0.0, 1.0
+    for k in (1, 10, 128):
+        args = (dev(vmat), dev(live), dev(qvecs), k, cosine, dim)
+        n0 = vk.launches["vector_topk"]
+        got = vk.vector_topk_tiles(*args)
+        torch.cuda.synchronize()
+        assert vk.launches["vector_topk"] == n0 + 1
+        _equal(got, vk.vector_topk_tiles_plain(*args))
+        args = (dev(cd), dev(cf), dev((dl << 1) | live), dev(starts), dev(lengths),
+                dev(idfs), AVGDL, K1, B, dev(vmat), dev(qvecs), dev(alphas), k,
+                cosine, dim)
+        n0 = vk.launches["hybrid_topk"]
+        got = vk.hybrid_topk_tiles(*args)
+        torch.cuda.synchronize()
+        assert vk.launches["hybrid_topk"] == n0 + 1
+        _equal(got, vk.hybrid_topk_tiles_plain(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["and", "or"])
+def test_bitset_kernel_matches_plain_on_card(card, mode):
+    """bitset_combine against its plain version (words and block counts)
+    for T in {1, 2, 4, 7}, and ``ops.bitset_combine`` with a ragged W."""
+    rng = np.random.default_rng(len(mode))
+    for t in (1, 2, 4, 7):
+        bits = rng.integers(0, 1 << 32, (t, 16 * kb.BLOCK), dtype=np.uint64)
+        bits = torch.from_numpy(bits.astype(np.uint32)).to(card)
+        n0 = kb.launches["bitset_combine"]
+        got = kb.bitset_combine_blocks(bits, mode)
+        torch.cuda.synchronize()
+        assert kb.launches["bitset_combine"] == n0 + 1
+        want = kb.bitset_combine_blocks_plain(bits, mode)
+        _equal([x.view(torch.int32) for x in got], [x.view(torch.int32) for x in want])
+        ragged = bits[:, :5000].contiguous()
+        combined, count = ops.bitset_combine(ragged, mode)
+        cpu_combined, cpu_count = ops.bitset_combine(ragged.cpu(), mode)
+        _equal([combined.view(torch.int32)], [cpu_combined.view(torch.int32)])
+        assert int(count) == int(cpu_count)

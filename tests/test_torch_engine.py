@@ -176,14 +176,16 @@ def test_pad_width(longest, tile, want):
 
 
 def test_other_families_raise():
-    """Vector and hybrid queries run on kernels of a later slice: both the
-    batched and the sequential path raise and say so."""
+    """Vector and hybrid queries, once a later slice, now answer on the CPU:
+    the batched and the sequential path give the same hits."""
     eng = SearchEngine("ram", device="cpu")
-    eng.add({"body": "a b"})
+    eng.add({"body": "a b"}, {"_vec": np.asarray([1.0, 0.0], np.float32)})
+    eng.add({"body": "b c"}, {"_vec": np.asarray([0.5, 0.5], np.float32)})
     eng.reopen()
     vec = VectorQuery((1.0, 0.0))
     for q in (vec, HybridQuery(TermQuery("body", "a"), vec)):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            eng.search(q)
-        with pytest.raises(NotImplementedError, match="later slice"):
-            eng.searcher.search_single(q)
+        got, single = eng.search(q), eng.searcher.search_single(q)
+        assert got.total_hits == single.total_hits == 2
+        np.testing.assert_array_equal(got.doc_ids, [0, 1])
+        np.testing.assert_array_equal(got.doc_ids, single.doc_ids)
+        np.testing.assert_array_equal(got.scores, single.scores)
