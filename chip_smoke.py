@@ -40,27 +40,50 @@ Phases (any failure raises and the script exits non-zero):
               normals.  Per task: QPS, batch p50/p99, route; device idle
               share for VectorCosine and HybridDot; how often a perturbed
               query's source doc ranks first; the time of one
-              VectorDot ``search_single`` and of one VectorCosine batch at
-              k=200 (the PyTorch selection path).  Then
+              VectorDot ``search_single`` (K7, one row per segment) and of
+              one VectorCosine and one HybridDot batch at k=200 (K7/K8's
+              scores mode ranked by the PyTorch selection).  Then
               ``ops.bitset_combine`` ANDs and ORs the doc bitsets of four
               High-band terms over the 500,000-doc space.  Checks: that
               ``search_single`` equals ``search_batch``; on the largest
               segment, one batch per task equals the eager executors on
               the card, one query per task ``search_single`` and two the
-              port on the CPU; the k=200
-              batch's first 10 hits are the k=10 ones; every live doc is a
-              hit; deleted docs are in no result; bitset words and
-              cardinalities equal numpy's; kernels K7-K9 were launched.
-  6. kernels  each kernel against its plain PyTorch version on the card at
-              the main path's shapes (bit-equal), its time from CUDA events,
-              the plain version's time, the time of one PyTorch library call
-              where one computes the same function (or its selection or
-              histogram half), and its bound: the larger of its bytes at
-              3.35 TB/s and its operations at 67 TFLOP/s.
+              port on the CPU; the k=200 batches' first 10 hits are the
+              k=10 ones and launched the scores mode once per segment; the
+              whole-index ``search_single`` launched K7 once per segment;
+              every live doc is a hit; deleted docs are in no result;
+              bitset words and cardinalities equal numpy's; kernels K7-K9
+              and the scores mode were launched.
+  6. kernels  each search kernel (K1-K9) against its plain PyTorch version
+              on the card at the main path's shapes (bit-equal), K7/K8's
+              scores mode too, its time from CUDA events, the plain
+              version's time, the time of one PyTorch library call where
+              one computes the same function (or its selection or histogram
+              half), and its bound: the larger of its bytes at 3.35 TB/s and
+              its operations at the peak rate of their type (67 TFLOP/s
+              float32).
+  7. lm       LM serving at Qwen2-1.5B's full width (28 layers, d 1536, 12
+              query over 2 KV heads, vocab 151,936; bf16 weights seeded on
+              the card, float32 cache): ``ServeEngine(batch_slots=8,
+              max_len=512)`` serves 12 requests, each a shared 128-token
+              prefix plus its own 64-token tail, 32 new tokens each.  Prints
+              requests, tokens, decode steps, wall s, tok/s, the median ms
+              of a batched decode step, the KV store's stats, device bytes
+              (weights, cache) and the device idle share over 5 batched
+              steps.  Checks: 32 tokens per request; sealed blocks; kernel
+              ``decode_attn`` launched 28 times per decode step; one batched
+              step at ragged lengths on the card against the same step on
+              the CPU (logits within LM_LOGIT_BOUND, argmax equal wherever
+              the top-2 margin exceeds it); a request outside slot 0 served
+              alone gives its batched tokens (or differs first where the
+              margin is under the bound).  Then K10 against its plain
+              version (2e-5 float32, 2e-2 bf16) at the engine's shape and at
+              a 32,768-position cache, with SDPA as the library call.
 
-The line before the last is the ``{"kernels": [...]}`` record; the last is
-``{"ok": true, "device": {...}}``.  Without CUDA, or without the repository
-beside it, the script fails before printing a result.
+The line before the last is the ``{"kernels": [...]}`` record of all ten
+kernels; the last is ``{"ok": true, "device": {...}}``.  Without CUDA, or
+without the repository beside it, the script fails before printing a
+result.
 """
 
 from __future__ import annotations
@@ -93,11 +116,17 @@ REPLACES = {
     "vector_topk": "src/repro/kernels/vector_topk.py:90",
     "hybrid_topk": "src/repro/kernels/vector_topk.py:162",
     "bitset_combine": "src/repro/kernels/bitset.py:43",
+    "decode_attn": "src/repro/kernels/decode_attn.py:91",
 }
+# K7/K8's scores mode: the same kernels, whole rows of scores out
+REPLACES["vector_score_rows"] = REPLACES["vector_topk"]
+REPLACES["hybrid_score_rows"] = REPLACES["hybrid_topk"]
 SOURCE = "src/repro_torch/csrc/term_topk.cu"
 DOC_SOURCE = "src/repro_torch/csrc/doc_topk.cu"
 VECTOR_SOURCE = "src/repro_torch/csrc/vector_topk.cu"
 BITSET_SOURCE = "src/repro_torch/csrc/bitset.cu"
+DECODE_SOURCE = "src/repro_torch/csrc/decode_attn.cu"
+BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 # Document-frequency bands named after luceneutil's HighTerm / MedTerm /
 # LowTerm task categories, as fractions of the collection.  The boundaries
 # are this script's choice, not numbers luceneutil defines.
@@ -129,6 +158,19 @@ VECTOR_CPU = 2  # queries per task held to the port on the CPU (one segment)
 VECTOR_WIDE_K = 200  # one VectorCosine batch above the kernels' k of 128
 BITSET_TERMS = 4  # bitmaps per ops.bitset_combine call
 BITSET_CALLS = 8  # calls per mode
+# lm phase: Qwen2-1.5B at full width, random weights from LM_SEED
+LM_ARCH = "qwen2-1.5b"
+LM_SLOTS, LM_MAX_LEN = 8, 512
+LM_PREFIX, LM_TAIL, LM_NEW, LM_REQUESTS = 128, 64, 32, 12
+LM_SEED = SEED + 6
+LM_DEVICE = "cuda"
+LM_PROFILE_FROM = 8  # profile batched steps LM_PROFILE_FROM .. + LM_PROFILE_STEPS - 1
+LM_PROFILE_STEPS = 5
+# |logit| difference allowed between the card's and the CPU's bf16 decode
+# step: 2.5x the bf16-vs-float32 difference of the port's step measured on
+# the CPU at 28 layers (d 768: 0.050); the logits' spread is ~0.8
+LM_LOGIT_BOUND = 0.125
+DECODE_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # the reference's K10 tolerances
 
 
 def log(tag: str, obj) -> None:
@@ -235,7 +277,6 @@ def device_profile(run) -> dict:
     the busiest activities by name.  Busy time is null when the trace holds
     no CUDA activity (the profiler saw no device)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -243,6 +284,14 @@ def device_profile(run) -> dict:
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
+    return busy_share(prof, wall_ms)
+
+
+def busy_share(prof, wall_ms: float) -> dict:
+    """Busy and idle share of a finished torch.profiler trace over
+    ``wall_ms`` of host time (see ``device_profile``)."""
+    from torch.autograd import DeviceType
+
     by_name: dict = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -663,6 +712,7 @@ def vectors_phase(eng, bands: dict, words, vecs, has_vec, n_batches: int):
 
     from repro_torch.core.query import profile
     from repro_torch.core.search import Searcher
+    from repro_torch.core.writer import VECTOR_FIELD
     from repro_torch.kernels import bitset as kb
     from repro_torch.kernels import vector_topk as vk
 
@@ -698,9 +748,6 @@ def vectors_phase(eng, bands: dict, words, vecs, has_vec, n_batches: int):
                                        int((src >= 0).sum())],
         }
     bit_stats, bitmaps = bitset_task(eng, bands, words, SEED + 5)
-    launches = {**vk.launches, **kb.launches}
-    if min(launches.values()) == 0:
-        raise AssertionError(f"a vector or bitset kernel never launched: {launches}")
 
     for name, res in results.items():
         for batch_res in res:
@@ -711,9 +758,7 @@ def vectors_phase(eng, bands: dict, words, vecs, has_vec, n_batches: int):
                 if np.isin(td.doc_ids, deleted_ids).any():
                     raise AssertionError(f"{name}: a deleted doc is a hit")
     # the plain chains are 768 steps of op-by-op launches a segment, so the
-    # eager, CPU and search_single checks run on the largest segment, one
-    # batch per task; one timed search_single over the whole index checks
-    # the main path's merge across segments
+    # eager and CPU checks run on the largest segment, one batch per task
     seg = max(s.segments, key=lambda sg: sg.n_docs)
     one_card = Searcher([seg], device_cache=eng.device_cache)
     one_eager = Searcher([seg], fused=False, device_cache=eng.device_cache)
@@ -727,25 +772,41 @@ def vectors_phase(eng, bands: dict, words, vecs, has_vec, n_batches: int):
             same_topdocs(g, w, f"cpu {name}")
         same_topdocs(one_card.search_single(batches[0][0], k=k), want[0],
                      f"search_single {name}")
+    # search_single over the whole index: one row per segment through K7
+    n_vec_segs = sum(VECTOR_FIELD in sg.doc_values for sg in s.segments)
+    before = dict(vk.launches)
     t = time.perf_counter()
     got = s.search_single(tasks["VectorDot"][0][0], k=K)
     single_ms = (time.perf_counter() - t) * 1e3
+    if vk.launches["vector_topk"] - before["vector_topk"] != n_vec_segs:
+        raise AssertionError("search_single VectorDot did not launch vector_topk per segment")
     same_topdocs(got, results["VectorDot"][0][0], "search_single VectorDot, every segment")
-    # k above the kernels' winner row: the PyTorch selection path over the
-    # whole index, whose first K hits are the kernel path's
-    qs = tasks["VectorCosine"][0]
-    with profile.capture() as routes:
-        t = time.perf_counter()
-        wide = eng.search_batch(qs, k=VECTOR_WIDE_K)
-        wide_ms = (time.perf_counter() - t) * 1e3
-    if dict(routes) != {"fused.vector.select": 1}:
-        raise AssertionError(f"k={VECTOR_WIDE_K} took {dict(routes)}")
-    for g, w in zip(wide, results["VectorCosine"][0]):
-        check_topdocs(g, VECTOR_WIDE_K, "VectorCosine k=200")
-        if len(g.doc_ids) != min(VECTOR_WIDE_K, g.total_hits) or not (
-                np.array_equal(g.doc_ids[:K], w.doc_ids)
-                and bits_equal(g.scores[:K], w.scores)):
-            raise AssertionError("VectorCosine: the k=200 head differs from k=10")
+    # k above the kernels' winner row: the scores mode, ranked by the
+    # PyTorch selection, over the whole index; the first K hits are the
+    # k=10 ones
+    wide_ms = {}
+    for name, kernel in (("VectorCosine", "vector_score_rows"),
+                         ("HybridDot", "hybrid_score_rows")):
+        qs = tasks[name][0]
+        family = "hybrid" if name.startswith("Hybrid") else "vector"
+        before = vk.launches[kernel]
+        with profile.capture() as routes:
+            t = time.perf_counter()
+            wide = eng.search_batch(qs, k=VECTOR_WIDE_K)
+            wide_ms[name] = (time.perf_counter() - t) * 1e3
+        if dict(routes) != {f"fused.{family}.select": 1} \
+                or vk.launches[kernel] - before != n_vec_segs:
+            raise AssertionError(f"{name} k={VECTOR_WIDE_K} took {dict(routes)}, "
+                                 f"{vk.launches[kernel] - before} {kernel} launches")
+        for g, w in zip(wide, results[name][0]):
+            check_topdocs(g, VECTOR_WIDE_K, f"{name} k={VECTOR_WIDE_K}")
+            if len(g.doc_ids) != min(VECTOR_WIDE_K, g.total_hits) or not (
+                    np.array_equal(g.doc_ids[:K], w.doc_ids)
+                    and bits_equal(g.scores[:K], w.scores)):
+                raise AssertionError(f"{name}: the k={VECTOR_WIDE_K} head differs from k=10")
+    launches = {**vk.launches, **kb.launches}
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a vector or bitset kernel never launched: {launches}")
     profs = {name: device_profile(lambda n=name: [
         eng.search_batch(qs, k=VECTOR_TASK_K[n]) for qs in tasks[n][:5]])
         for name in ("VectorCosine", "HybridDot")}
@@ -755,7 +816,8 @@ def vectors_phase(eng, bands: dict, words, vecs, has_vec, n_batches: int):
               "deleted_docs_absent": True, "bitset_eq_numpy": True,
               "k200_head_eq_k10": True,
               "VectorDot_search_single_ms": single_ms,
-              "VectorCosine_k200_batch_ms": wide_ms}
+              "VectorCosine_k200_batch_ms": wide_ms["VectorCosine"],
+              "HybridDot_k200_batch_ms": wide_ms["HybridDot"]}
     return stats, launches, tasks, bitmaps, bit_stats, profs, checks
 
 
@@ -788,12 +850,19 @@ def vector_kernel_records(eng, tasks: dict, launches: dict, bitmaps) -> list:
     qvecs = query_vectors(s, [q.vector for q in qs], BATCH, dp)
     args = (vmat, st["tiled.live"], qvecs, K, True, DIM)
     ops = 2 * BATCH * nd * DIM + 2 * nd * DIM + 2 * BATCH * DIM + 4 * BATCH * nd
+    in_bytes = nd * dp * 4 + nd * 4 + BATCH * dp * 4 + BATCH * n_tiles * 4
     records.append(kernel_record(
         "vector_topk", VECTOR_SOURCE, launches["vector_topk"], vk.vector_topk_tiles,
         vk.vector_topk_tiles_plain, args,
         lambda: torch.topk(torch.mm(qvecs, vmat.t()), K, dim=-1),
-        nd * dp * 4 + nd * 4 + BATCH * dp * 4 + BATCH * n_tiles * 4, ops,
-        dict(shape, task="VectorCosine"), winners_k=K, plain_iters=2, plain_warmup=1))
+        in_bytes, ops, dict(shape, task="VectorCosine"), winners_k=K, plain_iters=2,
+        plain_warmup=1))
+    # its scores mode: every (row, doc) score written, (B, ND_pad) float32
+    records[-1]["scores_mode"] = kernel_record(
+        "vector_score_rows", VECTOR_SOURCE, launches["vector_score_rows"],
+        vk.vector_score_rows, vk.vector_score_rows_plain, args[:3] + args[4:],
+        lambda q=qvecs: torch.mm(q, vmat.t()), in_bytes + BATCH * vmat.shape[0] * 4, ops,
+        dict(shape, task="VectorCosine", k=None), plain_iters=2, plain_warmup=1)
 
     # K8 hybrid_topk: one term + one vector per row, dot
     qs = tasks["HybridDot"][FAMILY_WARM]
@@ -808,13 +877,20 @@ def vector_kernel_records(eng, tasks: dict, launches: dict, bitmaps) -> list:
     postings = int(meta.lengths.sum())
     # the dot products, OPS_PER_SCORE per posting's BM25, 9 per blend
     ops = 2 * BATCH * nd * DIM + postings * OPS_PER_SCORE + 9 * BATCH * nd
+    in_bytes = (nd * dp * 4 + nd * 4 + postings * 8 + BATCH * 16 + BATCH * dp * 4
+                + BATCH * n_tiles * 4)
     records.append(kernel_record(
         "hybrid_topk", VECTOR_SOURCE, launches["hybrid_topk"], vk.hybrid_topk_tiles,
         vk.hybrid_topk_tiles_plain, args,
         lambda: torch.topk(torch.mm(qvecs, vmat.t()), K, dim=-1),
-        nd * dp * 4 + nd * 4 + postings * 8 + BATCH * 16 + BATCH * dp * 4
-        + BATCH * n_tiles * 4, ops, dict(shape, task="HybridDot", postings=postings),
+        in_bytes, ops, dict(shape, task="HybridDot", postings=postings),
         winners_k=K, plain_iters=2, plain_warmup=1))
+    records[-1]["scores_mode"] = kernel_record(
+        "hybrid_score_rows", VECTOR_SOURCE, launches["hybrid_score_rows"],
+        vk.hybrid_score_rows, vk.hybrid_score_rows_plain, args[:12] + args[13:],
+        lambda: torch.mm(qvecs, vmat.t()), in_bytes + BATCH * vmat.shape[0] * 4, ops,
+        dict(shape, task="HybridDot", postings=postings, k=None), plain_iters=2,
+        plain_warmup=1)
 
     # K9 bitset_combine: four doc bitsets over the whole doc space, AND
     t, w = bitmaps.shape
@@ -836,6 +912,251 @@ def vector_kernel_records(eng, tasks: dict, launches: dict, bitmaps) -> list:
         {"terms": t, "words": w, "words_padded": w + pad, "docs": s.total_docs},
         plain_iters=20))
     return records
+
+
+def forced_logits(params, cfg, prompt, tokens):
+    """Logits (vocab,) float32 of the step that follows ``tokens`` when the
+    engine serves ``prompt`` alone in slot 0 and emits ``tokens``: the
+    engine feeds the prompt, its last token again, then each output."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+
+    cache = tf.init_kv_cache(cfg, LM_SLOTS, LM_MAX_LEN, dtype=torch.float32)
+    toks = torch.zeros(LM_SLOTS, dtype=torch.long, device=LM_DEVICE)
+    kvl = torch.zeros(LM_SLOTS, dtype=torch.int32, device=LM_DEVICE)
+    for pos, t in enumerate(list(prompt) + [prompt[-1]] + list(tokens)):
+        toks[0], kvl[0] = int(t), pos
+        logits, cache = tf.lm_decode_step(params, cache, toks, kvl, cfg)
+    return logits[0, : cfg.vocab].float().cpu()
+
+
+def lm_phase():
+    """Serve Qwen2-1.5B at full width through ``ServeEngine`` on the card
+    and check it (see the module docstring).  Returns (stats, K10's launch
+    count in the serving run, the engine)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attn as kd
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import Request, ServeEngine
+
+    spec = get_config(LM_ARCH)
+    cfg = spec.config
+    t = time.perf_counter()
+    params = tf.init_lm_params(cfg, torch.Generator(device=LM_DEVICE).manual_seed(LM_SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    rng = np.random.default_rng(LM_SEED)
+    prefix = rng.integers(1, cfg.vocab, LM_PREFIX)
+    prompts = [np.concatenate([prefix, rng.integers(1, cfg.vocab, LM_TAIL)])
+               for _ in range(LM_REQUESTS)]
+    eng = ServeEngine(params, cfg, batch_slots=LM_SLOTS, max_len=LM_MAX_LEN)
+
+    # slots taken, batched step times and one profiled window of steps,
+    # recorded around the engine's own admit and step
+    slots, steps, window = {}, [], {}
+    admit, step = eng.admit, eng.step
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+    def tracked_admit(req):
+        slots[req.rid] = eng._free_slot()
+        return admit(req)
+
+    def timed_step():
+        n = len(steps) + window.get("n", 0)
+        in_window = LM_PROFILE_FROM <= n < LM_PROFILE_FROM + LM_PROFILE_STEPS
+        if n == LM_PROFILE_FROM:
+            torch.cuda.synchronize()
+            prof.start()
+            window["t"] = time.perf_counter()
+        t0 = time.perf_counter()
+        active = step()
+        torch.cuda.synchronize()
+        if active and in_window:
+            window["n"] = window.get("n", 0) + 1
+            if window["n"] == LM_PROFILE_STEPS:
+                prof.stop()
+                window["profile"] = busy_share(prof, (time.perf_counter() - window["t"]) * 1e3)
+        elif active:
+            steps.append((active, (time.perf_counter() - t0) * 1e3))
+        return active
+
+    eng.admit, eng.step = tracked_admit, timed_step
+    kd.reset_launches()
+    reqs = [Request(f"q{i}", p, max_new=LM_NEW) for i, p in enumerate(prompts)]
+    out = eng.run(reqs)
+    torch.cuda.synchronize()
+    launches, calls = kd.launches["decode_attn"], eng.decode_calls
+    if out["requests"] != LM_REQUESTS or any(len(r.out) != LM_NEW for r in eng.completed):
+        raise AssertionError(f"lm: {out['requests']} requests served, tokens "
+                             f"{[len(r.out) for r in eng.completed]}")
+    if out["kv_stats"]["sealed"] == 0:
+        raise AssertionError(f"lm: no KV block sealed: {out['kv_stats']}")
+    if launches != cfg.n_layers * calls:
+        raise AssertionError(f"lm: decode_attn launched {launches} times in {calls} "
+                             f"decode steps of {cfg.n_layers} layers")
+    if "profile" not in window:
+        raise AssertionError("lm: the profiled window of batched steps never closed")
+
+    # one batched step at ragged lengths over the run's cache: the card
+    # against the same step of the port on the CPU, same weights
+    kvl = rng.integers(LM_PREFIX, LM_PREFIX + LM_TAIL + LM_NEW, LM_SLOTS).astype(np.int32)
+    toks = rng.integers(1, cfg.vocab, LM_SLOTS)
+    got, _ = tf.lm_decode_step(params, {n: c.clone() for n, c in eng.cache.items()},
+                               torch.from_numpy(toks).to(LM_DEVICE),
+                               torch.from_numpy(kvl).to(LM_DEVICE), cfg)
+    got = got[:, : cfg.vocab].float().cpu()
+    t = time.perf_counter()
+    cpu_params = {n: ({k: w.cpu() for k, w in v.items()} if n == "layers" else v.cpu())
+                  for n, v in params.items()}
+    want, _ = tf.lm_decode_step(cpu_params, {n: c.cpu() for n, c in eng.cache.items()},
+                                torch.from_numpy(toks), torch.from_numpy(kvl), cfg)
+    cpu_step_s = time.perf_counter() - t
+    del cpu_params
+    want = want[:, : cfg.vocab].float()
+    logit_err = float((got - want).abs().max())
+    top2 = want.topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > LM_LOGIT_BOUND
+    if not logit_err <= LM_LOGIT_BOUND:
+        raise AssertionError(f"lm: card logits differ from the CPU's by {logit_err}")
+    if not torch.equal(got.argmax(-1)[decided], want.argmax(-1)[decided]):
+        raise AssertionError("lm: the card's argmax differs from the CPU's on a decided row")
+
+    # a request outside slot 0 served alone: its batched tokens, or a first
+    # difference at a margin under the bound
+    rid = next(r for r, sl in slots.items() if sl == LM_SLOTS - 1)
+    idx = int(rid[1:])
+    batched = next(r.out for r in eng.completed if r.rid == rid)
+    alone_eng = ServeEngine(params, cfg, batch_slots=LM_SLOTS, max_len=LM_MAX_LEN)
+    alone_eng.run([Request("alone", prompts[idx], max_new=LM_NEW)])
+    alone = alone_eng.completed[0].out
+    first_diff, margin = None, None
+    if alone != batched:
+        first_diff = next(j for j, (a, b) in enumerate(zip(alone, batched)) if a != b)
+        row = forced_logits(params, cfg, prompts[idx], batched[:first_diff])
+        margin = float(row.max() - row[batched[first_diff]])
+        if margin > LM_LOGIT_BOUND:
+            raise AssertionError(f"lm: {rid} alone differs from its batch at token "
+                                 f"{first_diff}, margin {margin}")
+    del alone_eng
+    torch.cuda.synchronize()
+    full = [ms for active, ms in steps if active == LM_SLOTS]
+    stats = {
+        "arch": LM_ARCH, "source": spec.source, "layers": cfg.n_layers,
+        "d_model": cfg.d_model, "params": cfg.n_params(), "init_s": init_s,
+        "requests": out["requests"], "tokens": out["tokens"],
+        "decode_steps": out["decode_steps"], "prefill_steps": calls - out["decode_steps"],
+        "wall_s": out["wall_s"], "tok_per_s": out["tok_per_s"],
+        "batched_step_median_ms": float(np.median([ms for _, ms in steps])),
+        "full_batch_step_median_ms": float(np.median(full)) if full else None,
+        "kv_stats": out["kv_stats"],
+        "device_bytes_weights": sum(
+            t.numel() * t.element_size()
+            for t in [*params["layers"].values()] + [v for n, v in params.items()
+                                                     if n != "layers"]),
+        "device_bytes_cache": sum(c.numel() * c.element_size() for c in eng.cache.values()),
+        "device_bytes": torch.cuda.memory_allocated(),
+        "profile_5_batched_steps": window["profile"],
+        "decode_attn_launches": launches, "decode_step_calls": calls,
+        "card_vs_cpu_step": {"max_abs_logit_err": logit_err, "bound": LM_LOGIT_BOUND,
+                             "rows_decided": int(decided.sum()), "argmax_eq": True,
+                             "cpu_step_s": cpu_step_s},
+        "alone_vs_batch": {"rid": rid, "slot": slots[rid], "equal": alone == batched,
+                           "first_diff": first_diff, "margin": margin},
+    }
+    return stats, launches, eng
+
+
+def decode_kernel_record(launches: int, eng) -> dict:
+    """K10 against its plain version on the card (2e-5 float32 K/V, 2e-2
+    bf16), timed with its plain version and SDPA: at the engine's shape
+    (layer 0 of the serving run's cache as the model passes it, q bf16,
+    ragged lengths like the run's), then at decode_32k's cache length with
+    the batch cut to the engine's 8 rows, float32 and bf16 K/V."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs.lm_shapes import LM_SHAPES
+    from repro_torch.kernels import decode_attn as kd
+
+    cfg = eng.cfg
+    b, h, g, d = LM_SLOTS, cfg.n_kv_heads, cfg.group_size, cfg.head_dim
+    rng = np.random.default_rng(LM_SEED + 1)
+
+    def q_of(dtype):
+        return torch.from_numpy(rng.standard_normal((b, h, g, d), dtype=np.float32)).to(
+            LM_DEVICE, dtype)
+
+    def one(q, k, v, kvl, iters, plain_iters, shape):
+        s = k.shape[2]
+        tol = DECODE_TOL[str(k.dtype).split(".")[-1]]
+        got = kd.decode_attn(q, k, v, kvl)
+        want = kd.decode_attn_plain(q, k, v, kvl, 1.0 / np.sqrt(d))
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+        err = float((got - want).abs().max())
+        ms, mq = cuda_ms(lambda: kd.decode_attn(q, k, v, kvl), iters)
+        plain_ms, pq = cuda_ms(lambda: kd.decode_attn_plain(q, k, v, kvl, 1.0 / np.sqrt(d)),
+                               plain_iters, 1)
+        qs = q.reshape(b, h * g, 1, d).to(k.dtype)
+        mask = (torch.arange(s, device=LM_DEVICE)[None, :] < kvl[:, None])[:, None, None, :]
+        lib_ms, lq = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qs, k, v, attn_mask=mask, enable_gqa=True), iters)
+        n_pos = int(kvl.clamp(max=s).sum())
+        kv_bytes = n_pos * h * 2 * d * k.element_size()
+        n_bytes = kv_bytes + q.numel() * q.element_size() + b * h * g * d * 4 + b * 4
+        n_ops = 4 * h * g * d * n_pos
+        rate = FP32_OPS_PER_S if k.dtype == torch.float32 else BF16_OPS_PER_S
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / rate * 1e3
+        return {
+            "name": "decode_attn", "route": "cuda", "source": DECODE_SOURCE,
+            "replaces": REPLACES["decode_attn"], "launches": launches,
+            "max_abs_err": err, "tolerance": tol, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib_ms, "queued_ahead": [mq, pq, lq],
+            "shape": dict(shape, B=b, Hkv=h, G=g, D=d, S=s, positions=n_pos,
+                          q=str(q.dtype), kv=str(k.dtype), bytes=n_bytes, ops=n_ops,
+                          library="scaled_dot_product_attention(enable_gqa, bool mask)"),
+        }
+
+    # the engine's shape: layer 0 of the serving run's cache, (B, S, Hkv, D)
+    # as the model passes it
+    kvl = torch.from_numpy(rng.integers(LM_PREFIX, LM_PREFIX + LM_TAIL + LM_NEW, b)
+                           .astype(np.int32)).to(LM_DEVICE)
+    rec = one(q_of(torch.bfloat16), eng.cache["k"][0].transpose(1, 2),
+              eng.cache["v"][0].transpose(1, 2), kvl, 100, 20, {"case": "engine"})
+    long_s = LM_SHAPES["decode_32k"]["seq_len"]
+    kvl = torch.from_numpy(rng.integers(long_s // 2, long_s + 1, b).astype(np.int32))
+    kvl = kvl.to(LM_DEVICE)
+    kvl[0] = long_s
+    rec["other_shapes"] = []
+    gen = torch.Generator(device=LM_DEVICE).manual_seed(LM_SEED + 2)
+    for dtype in (torch.float32, torch.bfloat16):
+        k, v = (torch.randn((b, long_s, h, d), generator=gen, device=LM_DEVICE).to(dtype)
+                for _ in range(2))
+        rec["other_shapes"].append(one(
+            q_of(dtype), k.transpose(1, 2), v.transpose(1, 2), kvl, 20, 3,
+            {"case": "decode_32k", "reduced": "global_batch 128 -> 8"}))
+        del k, v
+    return rec
+
+
+def public(record: dict) -> dict:
+    """A kernel record as the kernels line prints it: without its shape and
+    queue notes, nested records likewise."""
+    out = {}
+    for key, val in record.items():
+        if key in ("shape", "queued_ahead"):
+            continue
+        if isinstance(val, dict) and "ms" in val:
+            val = public(val)
+        elif isinstance(val, list) and val and isinstance(val[0], dict):
+            val = [public(v) for v in val]
+        out[key] = val
+    return out
 
 
 def main(argv=None) -> int:
@@ -1061,6 +1382,9 @@ def main(argv=None) -> int:
     rows, nb = kc.shape
     k1_ms, k1_q = cuda_ms(lambda: kt.term_topk_tiles(*k1_args), 50)
     k1_plain_ms, k1_plain_q = cuda_ms(lambda: kt.term_topk_tiles_plain(*k1_args), 5)
+    # the library half: torch.topk of the scored postings rows
+    k1_scored = kt.csr_rows_scored(*k1_args[:10])[0]
+    k1_lib_ms, k1_lib_q = cuda_ms(lambda: torch.topk(k1_scored, K, dim=-1), 50)
     k1_postings = int(meta.lengths.sum())
     # bytes this batch needs: 12 B per posting (doc, freq, dl_live), 12 B of
     # (start, length, idf) per row, a 4 B count per tile that holds
@@ -1078,8 +1402,8 @@ def main(argv=None) -> int:
         "plain_ms": k1_plain_ms,
         "bound_ms": k1_bound[0],
         "bound_by": k1_bound[1],
-        "library_ms": None,
-        "queued_ahead": [k1_q, k1_plain_q],
+        "library_ms": k1_lib_ms,
+        "queued_ahead": [k1_q, k1_plain_q, k1_lib_q],
         "shape": {"rows": rows, "p": meta.p, "postings": k1_postings,
                   "k": K, "segment_docs": seg.n_docs},
     })
@@ -1098,6 +1422,9 @@ def main(argv=None) -> int:
     n_pad = freqs_t.shape[0]
     k2_ms, k2_q = cuda_ms(lambda: kt.bm25_topk_blocks(*k2_args), 50)
     k2_plain_ms, k2_plain_q = cuda_ms(lambda: kt.bm25_topk_blocks_plain(*k2_args), 5)
+    k2_scored = torch.where(valid_t > 0, kt.bm25(freqs_t, dl_t, *kt.scalars(
+        dev, s.idf(hi), s.avgdl, s.k1, s.b)), -torch.inf)
+    k2_lib_ms, k2_lib_q = cuda_ms(lambda: torch.topk(k2_scored, K), 50)
     # 12 B per staged posting read, 8 B per winner written
     k2_winners = int(valid_t.view(-1, kt.TILE).sum(-1).clamp(max=K).sum())
     k2_bound = bound(n_pad * 12 + k2_winners * 8, int(valid_t.sum()) * OPS_PER_SCORE)
@@ -1110,19 +1437,26 @@ def main(argv=None) -> int:
         "plain_ms": k2_plain_ms,
         "bound_ms": k2_bound[0],
         "bound_by": k2_bound[1],
-        "library_ms": None,
-        "queued_ahead": [k2_q, k2_plain_q],
+        "library_ms": k2_lib_ms,
+        "queued_ahead": [k2_q, k2_plain_q, k2_lib_q],
         "shape": {"p": n_pad, "k": K, "segment_docs": seg.n_docs},
     })
     records += doc_kernel_records(eng, tasks, fam_launches)
     records += vector_kernel_records(eng, vec_tasks, vec_launches, bitmaps)
     for r in records:
         r["bit_equal"] = True
+        for mode in [r.get("scores_mode")] if r.get("scores_mode") else []:
+            mode["bit_equal"] = True
+
+    # 7. LM serving at Qwen2-1.5B's width, then K10 at its shapes ---------
+    t = time.perf_counter()
+    lm_stats, lm_launches, lm_eng = lm_phase()
+    log("lm", dict(lm_stats, seconds=time.perf_counter() - t))
+    records.append(decode_kernel_record(lm_launches, lm_eng))
+    del lm_eng
+    for r in records:
         log("kernel", r)
-    print(json.dumps({"kernels": [
-        {k: v for k, v in r.items() if k not in ("shape", "queued_ahead")}
-        for r in records
-    ]}), flush=True)
+    print(json.dumps({"kernels": [public(r) for r in records]}), flush=True)
     log("done", {"run_s": time.perf_counter() - t_start})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

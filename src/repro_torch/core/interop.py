@@ -1,21 +1,25 @@
-"""Segments carried across from the JAX package.
+"""Segments and model parameters carried across from the JAX package.
 
 A segment is the port's "weights": ``segment_from_arrays`` turns the numpy
 arrays and metadata of a reference ``repro.core.segment.Segment`` (what
 ``Segment.arrays()``, ``.name`` and ``.base_doc`` give) into the port's
 ``Segment``, checked against the layout both packages share.  An index
-built by the JAX package can then be searched by the port.  Nothing here
+built by the JAX package can then be searched by the port.
+``lm_params_from_arrays`` does the same for a language model's parameter
+tree, so both packages compute with the same weights.  Nothing here
 imports the reference: the caller hands over plain arrays.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict
 
 import numpy as np
+import torch
 
 from repro_torch.core.segment import Segment
 from repro_torch.core.writer import VECTOR_FIELD
+from repro_torch.kernels.runtime import resolve_device
 
 #: array -> (dtype, rank) of the shared segment layout
 LAYOUT = {
@@ -86,3 +90,44 @@ def segment_from_arrays(
         live=out["live"],
         doc_values=dv,
     )
+
+
+def _tensor(a) -> torch.Tensor:
+    """A torch copy of a numpy array; bfloat16 arrays (``ml_dtypes``, what
+    ``np.asarray`` of a JAX bfloat16 array gives) go across bit for bit."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def lm_params_from_arrays(tree: Dict[str, Any], cfg, device=None) -> Dict[str, Any]:
+    """The port's parameters from the reference's parameter pytree as
+    numpy arrays: ``embed`` (vocab_pad, d), the stacked ``layers`` dict
+    (every weight with a leading L), ``final_norm`` (d,) and, without tied
+    embeddings, ``unembed`` (d, vocab_pad).  Each array must have the shape
+    the config gives it; it is cast to ``cfg.param_dtype`` and placed on
+    ``device`` (None: the card)."""
+    from repro_torch.models.transformer import layer_shapes
+
+    dev = resolve_device(device)
+    want = {"embed": (cfg.vocab_pad, cfg.d_model), "final_norm": (cfg.d_model,)}
+    if not cfg.tie_embeddings:
+        want["unembed"] = (cfg.d_model, cfg.vocab_pad)
+    layers = {f"layers.{n}": (cfg.n_layers, *s) for n, s in layer_shapes(cfg).items()}
+    got = {k: v for k, v in tree.items() if k != "layers"}
+    got.update({f"layers.{k}": v for k, v in tree.get("layers", {}).items()})
+    if set(got) != set(want) | set(layers):
+        raise ValueError(f"parameter tree has {sorted(got)}, want "
+                         f"{sorted(set(want) | set(layers))}")
+    out: Dict[str, Any] = {"layers": {}}
+    for key, shape in {**want, **layers}.items():
+        t = _tensor(got[key])
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{key} is {tuple(t.shape)}, want {shape}")
+        t = t.to(device=dev, dtype=cfg.param_dtype)
+        if key.startswith("layers."):
+            out["layers"][key[len("layers."):]] = t
+        else:
+            out[key] = t
+    return out

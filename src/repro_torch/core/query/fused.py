@@ -32,7 +32,10 @@ live doc by its vector (BM25 0).
 group takes the PyTorch selection path inside the same executor -- the
 rows gathered from the resident CSR on the device, the eager executors'
 scoring and a stable sort -- and the profile ledger records the route
-(``fused.<family>`` vs ``fused.<family>.select``).  Facet has no k and
+(``fused.<family>`` vs ``fused.<family>.select``).  Vector and hybrid
+groups score there with their kernels in scores mode
+(``vector_score_rows``/``hybrid_score_rows``: the same FMA chains, whole
+rows out) and rank the rows with the same stable sort.  Facet has no k and
 always takes its kernel.
 """
 
@@ -47,12 +50,10 @@ from repro_torch.core.query import profile
 from repro_torch.core.query.exec import (
     _bool_core,
     _finalize_facets,
-    _hybrid_core,
     _merge_segment_candidates,
     _range_core,
     _sort_core,
     _topk_stable,
-    _vector_core,
     bool_idfs,
     hybrid_params,
     query_vectors,
@@ -272,33 +273,65 @@ def exec_facet_fused(ctx, group: FamilyGroup, k: int) -> List[TopDocs]:
     return _finalize_facets(counts, totals, k)
 
 
-def _vector_segments(ctx):
+def vector_segments(ctx):
+    """The segments that hold a vector column; the others contribute
+    nothing to vector and hybrid queries."""
     return [seg for seg in ctx.segments if VECTOR_FIELD in seg.doc_values]
+
+
+def _ranked(scores, cnt, k: int):
+    """Scores mode -> (vals, segment-local ids, hits): the stable top-k of
+    whole rows (score desc, doc asc)."""
+    vals, ids = _topk_stable(scores, k)
+    return vals, ids, cnt.sum(-1)
+
+
+def vector_segment(ctx, seg, qvecs, k: int, cosine: bool, dim: int):
+    """One segment's vector candidates for B rows of ``qvecs`` (B, D_pad):
+    kernel ``vector_topk``'s tile winners for k <= MAX_K, else its scores
+    mode ranked whole.  Returns (vals (B, C), segment-local ids, hits (B,))."""
+    st = _tiled(ctx, seg)
+    args = (st[f"tiled.dv.{VECTOR_FIELD}"], st["tiled.live"], qvecs)
+    if kernel_enabled(k):
+        return _flat(*vk.vector_topk_tiles(*args, k, cosine, dim))
+    return _ranked(*vk.vector_score_rows(*args, cosine, dim), k)
+
+
+def hybrid_segment(ctx, seg, starts, lengths, idfs, alphas, qvecs, k: int,
+                   cosine: bool, dim: int):
+    """As ``vector_segment`` for hybrid rows, with kernel ``hybrid_topk``:
+    ``starts``/``lengths`` (B,) are the rows' coordinates into the
+    segment's tiled CSR ((0, 0) where the term is absent)."""
+    st = _tiled(ctx, seg)
+    args = (st["csr.docs"], st["csr.freqs"], st["tiled.dl_live"], starts, lengths,
+            idfs, ctx.avgdl, ctx.k1, ctx.b, st[f"tiled.dv.{VECTOR_FIELD}"], qvecs,
+            alphas)
+    if kernel_enabled(k):
+        return _flat(*vk.hybrid_topk_tiles(*args, k, cosine, dim))
+    return _ranked(*vk.hybrid_score_rows(*args, cosine, dim), k)
+
+
+def hybrid_coords(ctx, segs, terms, pad: int):
+    """Every segment's (starts, lengths) of one term per row, in one
+    upload: (0, 0) rows where a segment lacks every row's term."""
+    absent = np.zeros(len(terms) + pad, dtype=np.int32)
+    return _staged(ctx, [stage_term_meta(seg, terms, pad_rows=pad, tile=True)
+                         or CsrTileMeta(absent, absent, 1) for seg in segs])
 
 
 def exec_vector_fused(ctx, group: FamilyGroup, k: int) -> List[TopDocs]:
     n = len(group.queries)
     dim, cosine = group.key[1], group.key[2] == "cosine"
-    use_kernel = kernel_enabled(k)
-    segs = _vector_segments(ctx)
+    segs = vector_segments(ctx)
     if not segs:
         return _merge_segment_candidates([], n, k)
     qvecs = query_vectors(ctx, [q.vector for q in group.queries], bucket_batch(n),
                           vk.pad_dim(dim))
     per_seg = []
     for seg in segs:
-        st = _tiled(ctx, seg)
-        if use_kernel:
-            vals, ids, hits = _flat(*vk.vector_topk_tiles(
-                st[f"tiled.dv.{VECTOR_FIELD}"], st["tiled.live"], qvecs, k,
-                cosine, dim,
-            ))
-        else:
-            vals, ids, hits = _vector_core(
-                st[f"dv.{VECTOR_FIELD}"], st["live"], qvecs[:, :dim], k, cosine
-            )
+        vals, ids, hits = vector_segment(ctx, seg, qvecs, k, cosine, dim)
         per_seg.append((vals, ids.long() + seg.base_doc, hits))
-    profile.record(_tag("vector", use_kernel))
+    profile.record(_tag("vector", kernel_enabled(k)))
     return _merge_segment_candidates(per_seg, n, k)
 
 
@@ -306,35 +339,17 @@ def exec_hybrid_fused(ctx, group: FamilyGroup, k: int) -> List[TopDocs]:
     n = len(group.queries)
     rows = bucket_batch(n)
     dim, cosine = group.key[1], group.key[2] == "cosine"
-    use_kernel = kernel_enabled(k)
-    segs = _vector_segments(ctx)
+    segs = vector_segments(ctx)
     if not segs:
         return _merge_segment_candidates([], n, k)
-    terms = [q.term for q in group.queries]
-    absent = np.zeros(rows, dtype=np.int32)
-    metas = [stage_term_meta(seg, terms, pad_rows=rows - n, tile=use_kernel)
-             or CsrTileMeta(absent, absent, 1) for seg in segs]
-    coords = _staged(ctx, metas)
+    coords = hybrid_coords(ctx, segs, [q.term for q in group.queries], rows - n)
     qvecs = query_vectors(ctx, [q.vector.vector for q in group.queries], rows,
                           vk.pad_dim(dim))
     idfs, alphas = hybrid_params(ctx, group, rows)
     per_seg = []
-    for i, (seg, meta) in enumerate(zip(segs, metas)):
-        st = _tiled(ctx, seg)
-        starts, lengths = coords[i, 0], coords[i, 1]
-        if use_kernel:
-            vals, ids, hits = _flat(*vk.hybrid_topk_tiles(
-                st["csr.docs"], st["csr.freqs"], st["tiled.dl_live"], starts,
-                lengths, idfs, ctx.avgdl, ctx.k1, ctx.b,
-                st[f"tiled.dv.{VECTOR_FIELD}"], qvecs, alphas, k, cosine, dim,
-            ))
-        else:
-            docs, freqs = csr_rows(st["csr.docs"], st["csr.freqs"], starts,
-                                   lengths, meta.p)
-            vals, ids, hits = _hybrid_core(
-                docs, freqs, st["doc_lens"], st[f"dv.{VECTOR_FIELD}"], st["live"],
-                qvecs[:, :dim], idfs, ctx.avgdl, ctx.k1, ctx.b, alphas, k, cosine,
-            )
+    for i, seg in enumerate(segs):
+        vals, ids, hits = hybrid_segment(ctx, seg, coords[i, 0], coords[i, 1], idfs,
+                                         alphas, qvecs, k, cosine, dim)
         per_seg.append((vals, ids.long() + seg.base_doc, hits))
-    profile.record(_tag("hybrid", use_kernel))
+    profile.record(_tag("hybrid", kernel_enabled(k)))
     return _merge_segment_candidates(per_seg, n, k)

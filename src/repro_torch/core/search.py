@@ -13,9 +13,12 @@ and a heapq merge on the host, the oracle the batched executors are held
 to.  With ``fused=True`` its term scoring runs kernel ``bm25_topk`` (the
 reference's ``use_pallas`` branch); otherwise the eager ``_term_topk``.
 Both term kernels take k <= ``MAX_K``; a larger k takes the PyTorch path,
-the same rule as the batched executors.  The other families, vector and
-hybrid included, run the eager cores on the engine's device, as the
-reference runs its jnp cores there.
+the same rule as the batched executors.  With ``fused=True`` vector and
+hybrid queries run kernels ``vector_topk``/``hybrid_topk`` as a batch of
+one per segment (k <= ``MAX_K``; above it their scores mode and a stable
+top-k); with ``fused=False`` the eager cores.  The other families run the
+eager cores on the engine's device, as the reference runs its jnp cores
+there.
 
 Scoring is Lucene's BM25 (k1=0.9, b=0.4) with global collection
 statistics; ``avgdl``, ``k1``, ``b`` and each ``idf`` reach the scoring code
@@ -44,9 +47,16 @@ from repro_torch.core.query.exec import (
     _term_topk,
     _vector_core,
     execute_group,
+    merge_topk,
     query_vectors,
 )
-from repro_torch.core.query.fused import kernel_enabled
+from repro_torch.core.query.fused import (
+    hybrid_coords,
+    hybrid_segment,
+    kernel_enabled,
+    vector_segment,
+    vector_segments,
+)
 from repro_torch.core.query.plan import (
     plan_batch,
     stage_bool_postings,
@@ -66,6 +76,7 @@ from repro_torch.core.query.types import (
 )
 from repro_torch.core.segment import Segment
 from repro_torch.kernels import term_topk as kt
+from repro_torch.kernels import vector_topk as vk
 from repro_torch.kernels.runtime import resolve_device
 
 K1_DEFAULT = 0.9
@@ -360,41 +371,58 @@ class Searcher:
 
     def _search_vector(self, q: VectorQuery, k: int) -> TopDocs:
         """Exact dense retrieval, segment by segment: the oracle of the
-        batched vector executors and the kernel path."""
+        batched vector executors.  ``fused``: kernel ``vector_topk`` (or its
+        scores mode) on one row; else the eager core."""
+        cosine = q.metric == "cosine"
+        if self.fused:
+            qvec = query_vectors(self, [q.vector], 1, vk.pad_dim(q.dim))
+            return self._single_rows(
+                lambda i, seg: vector_segment(self, seg, qvec, k, cosine, q.dim), k)
         qvec = query_vectors(self, [q.vector], 1, q.dim)
-        total = 0
-        per_seg = []
-        for seg in self.segments:
-            vmat = _seg_vector(self, seg)
-            if vmat is None:
-                continue
-            vals, ids, hits = _vector_core(vmat, self._seg_dev(seg)["live"], qvec,
-                                           k, q.metric == "cosine")
-            total += int(hits[0])
-            per_seg.append(self._host(vals, ids, seg.base_doc))
-        return self._scored(per_seg, total, k)
+        return self._single_rows(
+            lambda i, seg: _vector_core(_seg_vector(self, seg),
+                                        self._seg_dev(seg)["live"], qvec, k, cosine), k)
 
     def _search_hybrid(self, q: HybridQuery, k: int) -> TopDocs:
         """BM25 (+) vector fusion, segment by segment, with the batched
-        executors' fixed normalisations; a lone query is one row."""
-        qvec = query_vectors(self, [q.vector.vector], 1, q.vector.dim)
+        executors' fixed normalisations; a lone query is one row.
+        ``fused``: kernel ``hybrid_topk`` (or its scores mode); else the
+        eager core."""
+        cosine = q.vector.metric == "cosine"
         idfs, alphas = (torch.tensor([v], dtype=torch.float32, device=self.device)
                         for v in (self.idf(q.term), q.alpha))
-        total = 0
-        per_seg = []
-        for seg in self.segments:
-            vmat = _seg_vector(self, seg)
-            if vmat is None:
-                continue
+        if self.fused:
+            qvec = query_vectors(self, [q.vector.vector], 1, vk.pad_dim(q.vector.dim))
+            segs = vector_segments(self)
+            coords = hybrid_coords(self, segs, [q.term], 0) if segs else None
+            return self._single_rows(
+                lambda i, seg: hybrid_segment(self, seg, coords[i, 0], coords[i, 1], idfs,
+                                              alphas, qvec, k, cosine, q.vector.dim), k)
+        qvec = query_vectors(self, [q.vector.vector], 1, q.vector.dim)
+
+        def eager(i, seg):
             staged = stage_term_postings(seg, [q.term])
             if staged is None:
                 staged = (np.zeros((1, 1), np.int32),) * 2
             st = self._seg_dev(seg)
-            vals, ids, hits = _hybrid_core(
-                *self._staged(staged), st["doc_lens"], vmat, st["live"], qvec,
-                idfs, self.avgdl, self.k1, self.b, alphas, k,
-                q.vector.metric == "cosine",
+            return _hybrid_core(
+                *self._staged(staged), st["doc_lens"], _seg_vector(self, seg),
+                st["live"], qvec, idfs, self.avgdl, self.k1, self.b, alphas, k,
+                cosine,
             )
+
+        return self._single_rows(eager, k)
+
+    def _single_rows(self, score_segment, k: int) -> TopDocs:
+        """One query row over the segments that hold vectors:
+        ``score_segment(i, seg)`` gives (vals, segment-local ids, hits) of
+        one row for the i-th of them; each segment's candidates come to the
+        host as its top-k and merge in the host heap."""
+        total = 0
+        per_seg = []
+        for i, seg in enumerate(vector_segments(self)):
+            vals, ids, hits = score_segment(i, seg)
+            vals, ids = merge_topk(vals, ids, k)
             total += int(hits[0])
             per_seg.append(self._host(vals, ids, seg.base_doc))
         return self._scored(per_seg, total, k)

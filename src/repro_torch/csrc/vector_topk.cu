@@ -36,6 +36,14 @@
 // and each of the 8 warps selects one row's top-k (warp_topk, no block
 // barriers).
 //
+// Scores mode (vector_score_rows, hybrid_score_rows): the same chains,
+// norms, blend and live mask, but each thread stores its 4 docs' scores
+// per row (-inf for dead and padded docs) straight into a (B, ND_pad)
+// float32 tensor in place of the tile top-k, for the callers that rank a
+// whole row themselves: k above MAX_K, in search_batch (the PyTorch
+// selection path) and in search_single.  The per-tile live counts are
+// written in both modes.
+//
 // Bound on an H100 (3.35 TB/s HBM, 67 TFLOP/s fp32 outside the tensor
 // cores): at a 50,176-doc segment, 32 rows and 768 components the column
 // is 154 MB (46 us) and the products 2.47 GFLOP (37 us): bytes by a little.
@@ -68,7 +76,8 @@ __global__ void __launch_bounds__(THREADS) vector_kernel(
     const int* __restrict__ lengths, const float* __restrict__ idfs,
     const float* __restrict__ alphas, float avgdl, float k1, float b,
     int n_rows, int n_tiles, int k, float* __restrict__ out_vals,
-    int* __restrict__ out_ids, int* __restrict__ out_cnt) {
+    int* __restrict__ out_ids, int* __restrict__ out_cnt,
+    float* __restrict__ out_scores) {
   extern __shared__ __align__(16) float smem[];
   float* vs = smem;
   float* qs = vs + KC * TILE;
@@ -198,7 +207,13 @@ __global__ void __launch_bounds__(THREADS) vector_kernel(
       }
       s_out[i] = alive[i] ? s : -CUDART_INF_F;
     }
-    *out = make_float4(s_out[0], s_out[1], s_out[2], s_out[3]);
+    const float4 s4 = make_float4(s_out[0], s_out[1], s_out[2], s_out[3]);
+    if (out_scores == nullptr) {
+      *out = s4;
+    } else if (row0 + r < n_rows) {  // scores mode: the row's scores out
+      *reinterpret_cast<float4*>(
+          out_scores + (int64_t)(row0 + r) * n_tiles * TILE + base + d0) = s4;
+    }
   }
   const int n_valid = block_count(c);  // its barrier publishes sc
 
@@ -207,8 +222,10 @@ __global__ void __launch_bounds__(THREADS) vector_kernel(
   if (row < n_rows) {
     const int64_t slot = (int64_t)row * n_tiles + blockIdx.y;
     if ((t & 31) == 0) out_cnt[slot] = n_valid;
-    warp_topk(sc + warp * TILE, n_valid, k, out_vals + slot * k,
-              out_ids + slot * k, PosFrom{base});
+    if (out_scores == nullptr) {
+      warp_topk(sc + warp * TILE, n_valid, k, out_vals + slot * k,
+                out_ids + slot * k, PosFrom{base});
+    }
   }
 }
 
@@ -218,7 +235,8 @@ static int launch(const float* vmat, int d_pad, int dim, const float* qvecs,
                   const int* csr_freqs, const int* starts, const int* lengths,
                   const float* idfs, const float* alphas, float avgdl,
                   float k1, float b, int n_rows, int n_tiles, int k,
-                  float* out_vals, int* out_ids, int* out_cnt, void* stream) {
+                  float* out_vals, int* out_ids, int* out_cnt,
+                  float* out_scores, void* stream) {
   if (n_rows <= 0 || n_tiles <= 0) return 0;
   const int smem = SMEM_FLOATS * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
@@ -228,7 +246,7 @@ static int launch(const float* vmat, int d_pad, int dim, const float* qvecs,
   vector_kernel<HYBRID><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       vmat, d_pad, dim, qvecs, doc_words, cosine, csr_docs, csr_freqs, starts,
       lengths, idfs, alphas, avgdl, k1, b, n_rows, n_tiles, k, out_vals,
-      out_ids, out_cnt);
+      out_ids, out_cnt, out_scores);
   return (int)cudaGetLastError();
 }
 
@@ -242,7 +260,8 @@ int vector_topk(const float* vmat, int d_pad, int dim, const float* qvecs,
                 float* out_vals, int* out_ids, int* out_cnt, void* stream) {
   return launch<false>(vmat, d_pad, dim, qvecs, live, cosine, nullptr, nullptr,
                        nullptr, nullptr, nullptr, nullptr, 0.0f, 0.0f, 0.0f,
-                       n_rows, n_tiles, k, out_vals, out_ids, out_cnt, stream);
+                       n_rows, n_tiles, k, out_vals, out_ids, out_cnt,
+                       nullptr, stream);
 }
 
 int hybrid_topk(const float* vmat, int d_pad, int dim, const float* qvecs,
@@ -253,7 +272,30 @@ int hybrid_topk(const float* vmat, int d_pad, int dim, const float* qvecs,
                 int* out_ids, int* out_cnt, void* stream) {
   return launch<true>(vmat, d_pad, dim, qvecs, dl_live, cosine, csr_docs,
                       csr_freqs, starts, lengths, idfs, alphas, avgdl, k1, b,
-                      n_rows, n_tiles, k, out_vals, out_ids, out_cnt, stream);
+                      n_rows, n_tiles, k, out_vals, out_ids, out_cnt,
+                      nullptr, stream);
+}
+
+// scores mode: out_scores (n_rows, n_tiles * TILE) float32, out_cnt as above
+int vector_score_rows(const float* vmat, int d_pad, int dim, const float* qvecs,
+                      const int* live, int cosine, int n_rows, int n_tiles,
+                      float* out_scores, int* out_cnt, void* stream) {
+  return launch<false>(vmat, d_pad, dim, qvecs, live, cosine, nullptr, nullptr,
+                       nullptr, nullptr, nullptr, nullptr, 0.0f, 0.0f, 0.0f,
+                       n_rows, n_tiles, 0, nullptr, nullptr, out_cnt,
+                       out_scores, stream);
+}
+
+int hybrid_score_rows(const float* vmat, int d_pad, int dim, const float* qvecs,
+                      const int* dl_live, int cosine, const int* csr_docs,
+                      const int* csr_freqs, const int* starts, const int* lengths,
+                      const float* idfs, const float* alphas, float avgdl,
+                      float k1, float b, int n_rows, int n_tiles,
+                      float* out_scores, int* out_cnt, void* stream) {
+  return launch<true>(vmat, d_pad, dim, qvecs, dl_live, cosine, csr_docs,
+                      csr_freqs, starts, lengths, idfs, alphas, avgdl, k1, b,
+                      n_rows, n_tiles, 0, nullptr, nullptr, out_cnt,
+                      out_scores, stream);
 }
 
 }  // extern "C"

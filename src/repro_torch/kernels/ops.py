@@ -2,8 +2,7 @@
 ``repro/kernels/ops.py``): staging to the kernels' block multiple, the
 kernel, and the reduction of its per-block outputs.
 
-``bm25_topk`` lives beside its kernel in ``kernels/term_topk.py``;
-``decode_attention`` comes with the slice that ports its kernel.
+``bm25_topk`` lives beside its kernel in ``kernels/term_topk.py``.
 """
 
 from __future__ import annotations
@@ -11,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import bitset
+from repro_torch.kernels import decode_attn as _decode
 
 
 def bitset_combine(bitmaps: torch.Tensor, mode: str = "and"):
@@ -26,4 +26,18 @@ def bitset_combine(bitmaps: torch.Tensor, mode: str = "and"):
     return combined[:w], counts.sum()
 
 
-__all__ = ["bitset_combine"]
+def decode_attention(q, k, v, kv_len=None, s_block=None):
+    """Grouped-query decode attention, the reference's signature.
+
+    q: (B, Hkv, G, D); k/v: (B, Hkv, S, D/Dv), any strides; kv_len: (B,)
+    valid lengths (None: all S).  Returns float32 (B, Hkv, G, Dv), scaled by
+    the true 1/sqrt(D).  The reference pads G, D and S to its TPU tiles and
+    slices the result back; the kernel takes the shapes as they are, so
+    nothing is padded.  ``s_block`` (the reference's S block) sets the
+    positions per block of the kernel's split pass."""
+    if kv_len is not None:
+        kv_len = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
+    return _decode.decode_attn(q, k, v, kv_len=kv_len, split=s_block)
+
+
+__all__ = ["bitset_combine", "decode_attention"]

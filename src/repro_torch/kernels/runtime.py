@@ -163,14 +163,20 @@ def library() -> ctypes.CDLL:
                 "vector_topk": [vp, i32, i32, vp, vp] + [i32] * 4 + [vp] * 4,
                 "hybrid_topk": ([vp, i32, i32, vp, vp, i32] + [vp] * 6
                                 + [f32] * 3 + [i32] * 3 + [vp] * 4),
+                "vector_score_rows": [vp, i32, i32, vp, vp] + [i32] * 3 + [vp] * 3,
+                "hybrid_score_rows": ([vp, i32, i32, vp, vp, i32] + [vp] * 6
+                                      + [f32] * 3 + [i32] * 2 + [vp] * 3),
                 "bitset_combine": [vp, i32, ctypes.c_longlong, i32] + [vp] * 3,
+                "decode_attn": ([vp] * 4 + [i32] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
+                                + [f32] + [i32] * 2 + [vp] * 4),
             }
             for name, argtypes in sigs.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = i32
             for name in ("kernels_tile", "kernels_max_k", "facet_shared_bins",
-                         "vector_rows", "vector_dim_align", "bitset_block"):
+                         "vector_rows", "vector_dim_align", "bitset_block",
+                         "decode_attn_tile", "decode_attn_max_acc"):
                 getattr(lib, name).restype = i32
             lib.cuda_error_string.argtypes = [i32]
             lib.cuda_error_string.restype = ctypes.c_char_p

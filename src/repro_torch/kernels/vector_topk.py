@@ -18,6 +18,13 @@ Both return per-tile winners ``(B, n_tiles, k)`` (segment-local doc ids;
 slots past a tile's live docs hold ``(-inf, -1)``) and per-tile live counts
 ``(B, n_tiles)``: every live doc is a hit (match-all-live).
 
+  ``vector_score_rows``  the same two kernels in scores mode (kernels
+  ``hybrid_score_rows``  ``vector_score_rows``/``hybrid_score_rows``): every
+                         (row, doc) score, -inf for dead and padded docs,
+                         as a ``(B, ND_pad)`` float32 tensor in place of the
+                         tile top-k, with the same live counts.  For callers
+                         that rank whole rows: k above ``MAX_K``.
+
 The math below (``similarity``, ``hybrid_dense``, ``hybrid_scores``) is also
 what the eager executors (``core/query/exec.py``) run, so the plain versions
 and the oracle share one definition:
@@ -71,7 +78,8 @@ DIM_ALIGN = 4
 ROWS_PER_BLOCK = 8
 
 #: kernel launches, by kernel name; reset with ``reset_launches``
-launches: Dict[str, int] = {"vector_topk": 0, "hybrid_topk": 0}
+launches: Dict[str, int] = {"vector_topk": 0, "hybrid_topk": 0,
+                            "vector_score_rows": 0, "hybrid_score_rows": 0}
 
 
 def reset_launches() -> None:
@@ -152,24 +160,35 @@ def _live_tiles(live, rows: int):
     return _tile_counts((live > 0)[None].expand(rows, -1).contiguous())
 
 
-def vector_topk_tiles_plain(vmat, live, qvecs, k: int, cosine: bool, dim: int):
-    alive = live > 0
-    score = torch.where(alive, similarity(vmat, qvecs, cosine, dim), -torch.inf)
-    vals, ids = _doc_tiles_topk(score, k)
-    return vals, ids, _live_tiles(live, qvecs.shape[0])
+def vector_score_rows_plain(vmat, live, qvecs, cosine: bool, dim: int):
+    score = torch.where(live > 0, similarity(vmat, qvecs, cosine, dim), -torch.inf)
+    return score, _live_tiles(live, qvecs.shape[0])
 
 
-def hybrid_topk_tiles_plain(csr_docs, csr_freqs, dl_live, starts, lengths, idfs,
-                            avgdl, k1, b, vmat, qvecs, alphas, k: int,
-                            cosine: bool, dim: int):
+def hybrid_score_rows_plain(csr_docs, csr_freqs, dl_live, starts, lengths, idfs,
+                            avgdl, k1, b, vmat, qvecs, alphas, cosine: bool,
+                            dim: int):
     p = max(int(lengths.max()), 1) if lengths.numel() else 1
     docs, freqs = csr_rows(csr_docs, csr_freqs, starts, lengths, p)
     avgdl, k1, b = scalars(csr_docs.device, avgdl, k1, b)
     dense = hybrid_dense(docs, freqs, idfs, dl_live >> 1, avgdl, k1, b)
     score = hybrid_scores(dense, similarity(vmat, qvecs, cosine, dim), alphas, cosine)
     score = torch.where((dl_live & 1) > 0, score, -torch.inf)
-    vals, ids = _doc_tiles_topk(score, k)
-    return vals, ids, _live_tiles(dl_live & 1, qvecs.shape[0])
+    return score, _live_tiles(dl_live & 1, qvecs.shape[0])
+
+
+def vector_topk_tiles_plain(vmat, live, qvecs, k: int, cosine: bool, dim: int):
+    score, cnt = vector_score_rows_plain(vmat, live, qvecs, cosine, dim)
+    return (*_doc_tiles_topk(score, k), cnt)
+
+
+def hybrid_topk_tiles_plain(csr_docs, csr_freqs, dl_live, starts, lengths, idfs,
+                            avgdl, k1, b, vmat, qvecs, alphas, k: int,
+                            cosine: bool, dim: int):
+    score, cnt = hybrid_score_rows_plain(csr_docs, csr_freqs, dl_live, starts,
+                                         lengths, idfs, avgdl, k1, b, vmat,
+                                         qvecs, alphas, cosine, dim)
+    return (*_doc_tiles_topk(score, k), cnt)
 
 
 # ---------------------------------------------------------------------------
@@ -223,6 +242,32 @@ def _winners(rows, n_tiles, k, dev):
             torch.empty((rows, n_tiles), dtype=torch.int32, device=dev))
 
 
+def _check_vector_args(vmat, live, qvecs, dim: int) -> int:
+    dev = vmat.device
+    n_tiles = _check_vectors(vmat, qvecs, dim, dev)
+    check_tensor("live", live, torch.int32, dev)
+    if live.shape[0] != vmat.shape[0]:
+        raise ValueError("live must have one entry per vector row")
+    return n_tiles
+
+
+def _check_hybrid_args(csr_docs, csr_freqs, dl_live, starts, lengths, idfs,
+                       vmat, qvecs, alphas, dim: int) -> int:
+    dev = vmat.device
+    n_tiles = _check_vectors(vmat, qvecs, dim, dev)
+    for name, t in (("csr_docs", csr_docs), ("csr_freqs", csr_freqs),
+                    ("dl_live", dl_live), ("starts", starts), ("lengths", lengths)):
+        check_tensor(name, t, torch.int32, dev)
+    for name, t in (("idfs", idfs), ("alphas", alphas)):
+        check_tensor(name, t, torch.float32, dev)
+    rows = qvecs.shape[0]
+    if any(t.shape[0] != rows for t in (starts, lengths, idfs, alphas)):
+        raise ValueError("starts, lengths, idfs and alphas need one entry per row")
+    if dl_live.shape[0] != vmat.shape[0]:
+        raise ValueError("dl_live must have one entry per vector row")
+    return n_tiles
+
+
 def vector_topk_tiles(vmat, live, qvecs, k: int, cosine: bool, dim: int):
     """Per-tile top-k of B query vectors over a segment's vector column.
 
@@ -230,20 +275,32 @@ def vector_topk_tiles(vmat, live, qvecs, k: int, cosine: bool, dim: int):
     float32; ``dim``: the components that count (the rest are zeros).
     Returns (vals (B, ND_pad/TILE, k) float32 similarities, ids
     segment-local doc ids, cnt (B, ND_pad/TILE) live docs per tile)."""
-    dev = vmat.device
-    n_tiles = _check_vectors(vmat, qvecs, dim, dev)
-    check_tensor("live", live, torch.int32, dev)
-    if live.shape[0] != vmat.shape[0]:
-        raise ValueError("live must have one entry per vector row")
+    n_tiles = _check_vector_args(vmat, live, qvecs, dim)
     check_k(k)
-    if dev.type == "cpu":
+    if vmat.device.type == "cpu":
         return vector_topk_tiles_plain(vmat, live, qvecs, k, cosine, dim)
     rows = qvecs.shape[0]
-    vals, ids, cnt = _winners(rows, n_tiles, k, dev)
+    vals, ids, cnt = _winners(rows, n_tiles, k, vmat.device)
     _launch("vector_topk", vals, vmat.data_ptr(), vmat.shape[1], dim,
             qvecs.data_ptr(), live.data_ptr(), int(cosine), rows, n_tiles, k,
             vals.data_ptr(), ids.data_ptr(), cnt.data_ptr())
     return vals, ids, cnt
+
+
+def vector_score_rows(vmat, live, qvecs, cosine: bool, dim: int):
+    """Scores mode of ``vector_topk_tiles``: (scores (B, ND_pad) float32,
+    -inf for dead and padded docs; cnt (B, ND_pad/TILE) live docs per
+    tile)."""
+    n_tiles = _check_vector_args(vmat, live, qvecs, dim)
+    if vmat.device.type == "cpu":
+        return vector_score_rows_plain(vmat, live, qvecs, cosine, dim)
+    rows = qvecs.shape[0]
+    scores = torch.empty((rows, vmat.shape[0]), dtype=torch.float32, device=vmat.device)
+    cnt = torch.empty((rows, n_tiles), dtype=torch.int32, device=vmat.device)
+    _launch("vector_score_rows", scores, vmat.data_ptr(), vmat.shape[1], dim,
+            qvecs.data_ptr(), live.data_ptr(), int(cosine), rows, n_tiles,
+            scores.data_ptr(), cnt.data_ptr())
+    return scores, cnt
 
 
 def hybrid_topk_tiles(csr_docs, csr_freqs, dl_live, starts, lengths, idfs,
@@ -257,30 +314,44 @@ def hybrid_topk_tiles(csr_docs, csr_freqs, dl_live, starts, lengths, idfs,
     idfs/alphas: (B,) float32; vmat/qvecs/dim as ``vector_topk_tiles``.
     Returns (vals (B, ND_pad/TILE, k) float32 blended scores, ids, cnt live
     docs per tile)."""
-    dev = vmat.device
-    n_tiles = _check_vectors(vmat, qvecs, dim, dev)
-    for name, t in (("csr_docs", csr_docs), ("csr_freqs", csr_freqs),
-                    ("dl_live", dl_live), ("starts", starts), ("lengths", lengths)):
-        check_tensor(name, t, torch.int32, dev)
-    for name, t in (("idfs", idfs), ("alphas", alphas)):
-        check_tensor(name, t, torch.float32, dev)
-    rows = qvecs.shape[0]
-    if any(t.shape[0] != rows for t in (starts, lengths, idfs, alphas)):
-        raise ValueError("starts, lengths, idfs and alphas need one entry per row")
-    if dl_live.shape[0] != vmat.shape[0]:
-        raise ValueError("dl_live must have one entry per vector row")
+    n_tiles = _check_hybrid_args(csr_docs, csr_freqs, dl_live, starts, lengths,
+                                 idfs, vmat, qvecs, alphas, dim)
     check_k(k)
-    if dev.type == "cpu":
+    if vmat.device.type == "cpu":
         return hybrid_topk_tiles_plain(csr_docs, csr_freqs, dl_live, starts,
                                        lengths, idfs, avgdl, k1, b, vmat,
                                        qvecs, alphas, k, cosine, dim)
-    vals, ids, cnt = _winners(rows, n_tiles, k, dev)
+    rows = qvecs.shape[0]
+    vals, ids, cnt = _winners(rows, n_tiles, k, vmat.device)
     _launch("hybrid_topk", vals, vmat.data_ptr(), vmat.shape[1], dim,
             qvecs.data_ptr(), dl_live.data_ptr(), int(cosine),
             csr_docs.data_ptr(), csr_freqs.data_ptr(), starts.data_ptr(),
             lengths.data_ptr(), idfs.data_ptr(), alphas.data_ptr(), avgdl, k1,
             b, rows, n_tiles, k, vals.data_ptr(), ids.data_ptr(), cnt.data_ptr())
     return vals, ids, cnt
+
+
+def hybrid_score_rows(csr_docs, csr_freqs, dl_live, starts, lengths, idfs,
+                      avgdl: float, k1: float, b: float, vmat, qvecs, alphas,
+                      cosine: bool, dim: int):
+    """Scores mode of ``hybrid_topk_tiles``: (scores (B, ND_pad) float32
+    blended scores, -inf for dead and padded docs; cnt live docs per
+    tile)."""
+    n_tiles = _check_hybrid_args(csr_docs, csr_freqs, dl_live, starts, lengths,
+                                 idfs, vmat, qvecs, alphas, dim)
+    if vmat.device.type == "cpu":
+        return hybrid_score_rows_plain(csr_docs, csr_freqs, dl_live, starts,
+                                       lengths, idfs, avgdl, k1, b, vmat,
+                                       qvecs, alphas, cosine, dim)
+    rows = qvecs.shape[0]
+    scores = torch.empty((rows, vmat.shape[0]), dtype=torch.float32, device=vmat.device)
+    cnt = torch.empty((rows, n_tiles), dtype=torch.int32, device=vmat.device)
+    _launch("hybrid_score_rows", scores, vmat.data_ptr(), vmat.shape[1], dim,
+            qvecs.data_ptr(), dl_live.data_ptr(), int(cosine),
+            csr_docs.data_ptr(), csr_freqs.data_ptr(), starts.data_ptr(),
+            lengths.data_ptr(), idfs.data_ptr(), alphas.data_ptr(), avgdl, k1,
+            b, rows, n_tiles, scores.data_ptr(), cnt.data_ptr())
+    return scores, cnt
 
 
 __all__ = [
@@ -294,6 +365,10 @@ __all__ = [
     "hybrid_scores",
     "vector_topk_tiles",
     "vector_topk_tiles_plain",
+    "vector_score_rows",
+    "vector_score_rows_plain",
     "hybrid_topk_tiles",
     "hybrid_topk_tiles_plain",
+    "hybrid_score_rows",
+    "hybrid_score_rows_plain",
 ]

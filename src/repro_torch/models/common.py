@@ -1,0 +1,73 @@
+"""Shared building blocks: RMS norm, RoPE, initializers (port of
+``repro/models/common.py``; ``layer_norm`` and the small MLPs come with
+the recsys slice).
+
+Initializers take an explicit ``torch.Generator`` and draw on its device;
+the numbers differ from ``jax.random``'s for the same seed, so the tests
+carry the reference's weights across (``core/interop.py``) instead.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+
+
+def round_up(n: int, m: int) -> int:
+    return ((n + m - 1) // m) * m
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """``x * rsqrt(mean(x^2) + eps)`` in float32, cast back to ``x``'s
+    dtype, then ``* gamma`` (PyTorch's ``rms_norm`` over float32 computes
+    the reference's statistics; the scale stays outside it, in x's dtype)."""
+    return F.rms_norm(x.float(), x.shape[-1:], eps=eps).to(x.dtype) * gamma
+
+
+def dense_init(generator: torch.Generator, shape: Sequence[int], in_axis: int = -2,
+               dtype=torch.float32) -> torch.Tensor:
+    """LeCun-normal over the fan-in axis."""
+    w = torch.randn(tuple(shape), generator=generator, device=generator.device)
+    return (w / math.sqrt(shape[in_axis])).to(dtype)
+
+
+def embed_init(generator: torch.Generator, shape: Sequence[int],
+               dtype=torch.float32) -> torch.Tensor:
+    w = torch.randn(tuple(shape), generator=generator, device=generator.device)
+    return (w * 0.02).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(dim: int, theta: float = 10000.0, device=None) -> torch.Tensor:
+    exponent = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
+    return 1.0 / torch.pow(theta, exponent)
+
+
+def rope_cos_sin(positions: torch.Tensor, dim: int, theta: float = 10000.0):
+    """(cos, sin) of the rotation angles, each (..., S, 1, D/2) float32 for
+    positions (..., S): computed once, they rotate every head and layer
+    at those positions."""
+    ang = positions[..., None].float() * rope_freqs(dim, theta, positions.device)
+    return torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+
+
+def rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """RoPE of x (..., S, H, D) by ``rope_cos_sin``'s angles: float32 on
+    split halves, cast back to ``x``'s dtype."""
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x: (..., S, H, D) with D even; positions: broadcastable to (..., S).
+    In float32 on split halves, cast back to ``x``'s dtype."""
+    return rotate(x, *rope_cos_sin(positions, x.shape[-1], theta))

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import bitset as kb
+from repro_torch.kernels import decode_attn as kd
 from repro_torch.kernels import doc_topk as dk
 from repro_torch.kernels import ops
 from repro_torch.kernels import term_topk as kt
@@ -215,6 +216,124 @@ def test_vector_kernels_match_plain_on_card(card, dim, cosine):
         torch.cuda.synchronize()
         assert vk.launches["hybrid_topk"] == n0 + 1
         _equal(got, vk.hybrid_topk_tiles_plain(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dim", [24, 768])
+@pytest.mark.parametrize("cosine", [False, True])
+def test_vector_scores_mode_matches_plain_on_card(card, dim, cosine):
+    """vector_score_rows and hybrid_score_rows (the kernels' scores mode)
+    against their plain versions: every score and live count, 0 ULP, with
+    vectorless rows, dead and padded docs, B = 1 and B = 11."""
+    rng = np.random.default_rng(100 + dim + cosine)
+    n_docs, nd_pad = 6000, 6 * kt.TILE
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(card)
+
+    dp = vk.pad_dim(dim)
+    vmat = np.zeros((nd_pad, dp), np.float32)
+    vmat[:n_docs, :dim] = rng.standard_normal((n_docs, dim))
+    vmat[: n_docs : 7] = 0
+    live = (rng.random(nd_pad) > 0.2).astype(np.int32)
+    live[n_docs:] = 0
+    dl = rng.integers(1, 400, nd_pad).astype(np.int32)
+    for rows in (1, 11):
+        qvecs = np.zeros((rows, dp), np.float32)
+        qvecs[:, :dim] = rng.standard_normal((rows, dim))
+        args = (dev(vmat), dev(live), dev(qvecs), cosine, dim)
+        n0 = vk.launches["vector_score_rows"]
+        got = vk.vector_score_rows(*args)
+        torch.cuda.synchronize()
+        assert vk.launches["vector_score_rows"] == n0 + 1
+        assert got[0].shape == (rows, nd_pad)
+        _equal(got, vk.vector_score_rows_plain(*args))
+        cd, cf, starts, lengths = _csr(rng, rows + 1, 1, n_docs)
+        starts, lengths = starts[:rows, 0], lengths[:rows, 0]
+        alphas = rng.uniform(0.0, 1.0, rows).astype(np.float32)
+        args = (dev(cd), dev(cf), dev((dl << 1) | live), dev(starts), dev(lengths),
+                dev(rng.uniform(0.5, 8.0, rows).astype(np.float32)), AVGDL, K1, B,
+                dev(vmat), dev(qvecs), dev(alphas), cosine, dim)
+        n0 = vk.launches["hybrid_score_rows"]
+        got = vk.hybrid_score_rows(*args)
+        torch.cuda.synchronize()
+        assert vk.launches["hybrid_score_rows"] == n0 + 1
+        _equal(got, vk.hybrid_score_rows_plain(*args))
+
+
+DECODE_SHAPES = [  # the reference's (tests/test_kernels.py:55-62) + the engine's
+    (1, 1, 1, 64, 256, 64),
+    (2, 2, 5, 96, 700, 80),
+    (1, 1, 16, 320, 1024, 128),
+    (4, 8, 4, 128, 512, 128),
+    (8, 2, 6, 128, 512, 128),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,hkv,g,d,s,dv", DECODE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attn_matches_plain_on_card(card, b, hkv, g, d, s, dv, dtype):
+    """K10 against its plain version: ragged kv_len with a row at 0 (-> 0)
+    and one at S, contiguous and through the model's (B, S, Hkv, D) cache
+    layout as a transposed view, q bf16 over a float32 cache, and an
+    explicit split width."""
+    rng = np.random.default_rng(b * 100 + g)
+
+    def dev(shape, dt):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(card, dt)
+
+    q, k, v = dev((b, hkv, g, d), dtype), dev((b, hkv, s, d), dtype), dev((b, hkv, s, dv), dtype)
+    kvl = rng.integers(1, s + 1, b).astype(np.int32)
+    kvl[0] = s
+    if b > 1:
+        kvl[1] = 0
+    kvl = torch.from_numpy(kvl).to(card)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    scale = 1.0 / np.sqrt(d)
+    cases = [(q, k, v, None)]
+    cases.append((q, k.transpose(1, 2).contiguous().transpose(1, 2),
+                   v.transpose(1, 2).contiguous().transpose(1, 2), None))
+    cases.append((q, k, v, 96))
+    if dtype == torch.float32:
+        cases.append((q.bfloat16(), k, v, None))
+    for qq, kk, vv, split in cases:
+        n0 = kd.launches["decode_attn"]
+        got = kd.decode_attn(qq, kk, vv, kvl, split=split)
+        torch.cuda.synchronize()
+        assert kd.launches["decode_attn"] == n0 + 1
+        want = kd.decode_attn_plain(qq, kk, vv, kvl, scale)
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+        if b > 1:
+            assert torch.equal(got[1], torch.zeros_like(got[1]))
+
+
+@pytest.mark.gpu
+def test_decode_step_on_card_matches_cpu(card):
+    """A tiny float32 model's decode steps at ragged lengths: the card
+    (K10 in every layer) against the CPU within 1e-4 on the logits."""
+    from repro_torch.models import transformer as tf
+
+    cfg = tf.LMConfig("tiny", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+                      head_dim=16, d_ff=96, vocab=300, qkv_bias=True,
+                      dtype=torch.float32, param_dtype=torch.float32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params = tf.init_lm_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    on_card = {n: ({k: t.to(card) for k, t in v.items()} if n == "layers" else v.to(card))
+               for n, v in params.items()}
+    caches = [tf.init_kv_cache(cfg, 3, 32, dtype=torch.float32, device=d)
+              for d in ("cpu", card)]
+    rng = np.random.default_rng(0)
+    kvl = np.asarray([0, 4, 9], np.int32)
+    n0 = kd.launches["decode_attn"]
+    for _ in range(6):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, 3))
+        want, _ = tf.lm_decode_step(params, caches[0], toks, torch.from_numpy(kvl), cfg)
+        got, _ = tf.lm_decode_step(on_card, caches[1], toks.to(card),
+                                   torch.from_numpy(kvl).to(card), cfg)
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+        kvl += 1
+    assert kd.launches["decode_attn"] == n0 + 6 * cfg.n_layers
 
 
 @pytest.mark.gpu
