@@ -78,7 +78,8 @@ Phases (any failure raises and the script exits non-zero):
               alone gives its batched tokens (or differs first where the
               margin is under the bound).  Then K10 against its plain
               version (2e-5 float32, 2e-2 bf16) at the engine's shape and at
-              a 32,768-position cache, with SDPA as the library call.
+              a 32,768-position cache, with SDPA as the library call, and
+              one launch a call in the trace.
 
 The line before the last is the ``{"kernels": [...]}`` record of all ten
 kernels; the last is ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -249,6 +250,32 @@ def cuda_ms(fn, iters: int, warmup: int = 3):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters, host_ms < spin.elapsed_time(t0)
+
+
+def kernel_phases(fn, iters: int = 20) -> dict:
+    """The kernels that ``fn`` launches, by name: device ms per launch and
+    launches per call, from a torch.profiler trace of ``iters`` calls after
+    one warm-up (per launch, not per call: a trace that drops events still
+    reads right)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total: dict = {}
+    count: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            key = e.name[:60]
+            total[key] = total.get(key, 0.0) + e.time_range.elapsed_us() / 1e3
+            count[key] = count.get(key, 0) + 1
+    return {key: {"ms": total[key] / count[key], "traced": count[key], "calls": iters}
+            for key in total}
 
 
 def resident_bytes(tensors) -> int:
@@ -496,6 +523,7 @@ def kernel_record(name, source, launches, fn, plain, args, library, n_bytes,
     if winners_k is not None:
         n_bytes += int(np.minimum(got[2], winners_k).sum()) * 8
     ms, q = cuda_ms(lambda: fn(*args), 50)
+    phases = kernel_phases(lambda: fn(*args))
     plain_ms, pq = cuda_ms(lambda: plain(*args), plain_iters, plain_warmup)
     lib_ms, lq = cuda_ms(library, 50) if library is not None else (None, None)
     b_ms, b_by = bound(n_bytes, n_ops)
@@ -504,7 +532,7 @@ def kernel_record(name, source, launches, fn, plain, args, library, n_bytes,
         "replaces": REPLACES[name], "launches": launches,
         "max_abs_err": max_abs_err(got[0], want[0]), "bit_equal": True,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": lib_ms, "queued_ahead": [q, pq, lq],
+        "library_ms": lib_ms, "queued_ahead": [q, pq, lq], "phases_ms": phases,
         "shape": dict(shape, bytes=n_bytes, ops=n_ops),
     }
 
@@ -1098,6 +1126,9 @@ def decode_kernel_record(launches: int, eng) -> dict:
         torch.testing.assert_close(got, want, rtol=tol, atol=tol)
         err = float((got - want).abs().max())
         ms, mq = cuda_ms(lambda: kd.decode_attn(q, k, v, kvl), iters)
+        phases = kernel_phases(lambda: kd.decode_attn(q, k, v, kvl))
+        if len(phases) != 1:  # one launch a call: the combine is folded in
+            raise AssertionError(f"decode_attn ran {sorted(phases)} on the card")
         plain_ms, pq = cuda_ms(lambda: kd.decode_attn_plain(q, k, v, kvl, 1.0 / np.sqrt(d)),
                                plain_iters, 1)
         qs = q.reshape(b, h * g, 1, d).to(k.dtype)
@@ -1116,7 +1147,7 @@ def decode_kernel_record(launches: int, eng) -> dict:
             "max_abs_err": err, "tolerance": tol, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib_ms, "queued_ahead": [mq, pq, lq],
+            "library_ms": lib_ms, "queued_ahead": [mq, pq, lq], "phases_ms": phases,
             "shape": dict(shape, B=b, Hkv=h, G=g, D=d, S=s, positions=n_pos,
                           q=str(q.dtype), kv=str(k.dtype), bytes=n_bytes, ops=n_ops,
                           library="scaled_dot_product_attention(enable_gqa, bool mask)"),
@@ -1149,7 +1180,7 @@ def public(record: dict) -> dict:
     queue notes, nested records likewise."""
     out = {}
     for key, val in record.items():
-        if key in ("shape", "queued_ahead"):
+        if key in ("shape", "queued_ahead", "phases_ms"):
             continue
         if isinstance(val, dict) and "ms" in val:
             val = public(val)

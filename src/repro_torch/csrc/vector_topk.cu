@@ -7,191 +7,282 @@
 //   hybrid_topk  replaces repro/kernels/vector_topk.py::hybrid_topk_tiles
 //                and the XLA scatter prologue that feeds it
 //                (repro/core/query/fused.py:312-325): each row's term
-//                postings in the tile (one CSR sub-range, found by two
-//                binary searches) are scored with the one-FMA BM25 into
-//                shared dense[] (0 for docs without the term; docs are
-//                unique in a row, so no atomics and no (B, ND_pad) buffer
-//                in device memory), then the similarity, the blend of
+//                postings among a block's docs (one CSR sub-range, found by
+//                two binary searches) are scored with the one-FMA BM25 in
+//                shared memory (0 for docs without the term; docs are
+//                unique in a row, so no atomics and no dense BM25 in
+//                device memory), then the similarity, the blend of
 //                t = s/(s+1) and vnorm(c) with the one FMA XLA:CPU puts in
 //                the reference's a*t + (1-a)*vnorm -- fma(a, t, (1-a) *
 //                c/(1+|c|)) for dot, fma(1-a, (c+1)*0.5, a*t) for cosine --
 //                the live mask and the top-k.
 //
-// One thread block of 256 threads owns a 1,024-doc tile and VROWS = 8
-// query rows: grid (ceil(B / 8), n_tiles), row groups fastest, so the
-// blocks that read one tile of the column run together and the re-reads
-// hit L2.  Thread t accumulates docs 4t .. 4t+3 against the 8 rows (32
-// accumulators in registers): the column is staged through shared memory
-// KC = 16 components at a time (16-byte loads, transposed to
-// component-major so the inner loop reads conflict-free), and each
-// (row, doc) score is one sequential __fmaf_rn chain over the components
-// j = 0 .. dim-1 from 0.0 -- the order the plain version
-// (repro_torch/kernels/vector_topk.py::similarity) computes and, up to 32
-// components, the one XLA:CPU gives the reference.  Cosine norms are chains
-// of the same kind (vv per doc by its thread, qq per row by thread r), then
-// __fsqrt_rn, __fmul_rn and __fdiv_rn, 0 where den <= 0.  Lanes past dim
-// (the D_pad padding) are loaded but never added.  Every step is IEEE
-// round-to-nearest: the library is built with -fmad=false and the only
-// fused multiply-adds are the explicit ones.  Scores go to shared memory
-// and each of the 8 warps selects one row's top-k (warp_topk, no block
-// barriers).
+// What bounds it on an H100 (3.35 TB/s HBM, 67 TFLOP/s float32 outside the
+// tensor cores): at a 50,176-doc segment, 32 rows and 768 components the
+// column is 154 MB (46 us) and the products 2.47 GFLOP (37 us) -- bytes by
+// a little, so the column has to stream at full rate while the FMA pipe
+// issues near its peak.  No tensor cores, no TF32: their products round
+// differently from the chain.
 //
-// Scores mode (vector_score_rows, hybrid_score_rows): the same chains,
-// norms, blend and live mask, but each thread stores its 4 docs' scores
-// per row (-inf for dead and padded docs) straight into a (B, ND_pad)
-// float32 tensor in place of the tile top-k, for the callers that rank a
-// whole row themselves: k above MAX_K, in search_batch (the PyTorch
-// selection path) and in search_single.  The per-tile live counts are
-// written in both modes.
+// The score pass, a register-tiled product on the CUDA cores.  A block of
+// 128 threads takes 128 docs and every row of a group of up to VROWS = 32
+// (the column is read once from device memory per group); grid (row
+// groups, ND_pad / 128), row groups fastest.  Thread (warp w, lane l)
+// holds 8 rows (8w .. 8w+7) x 4 docs (l, l+32, l+64, l+96): 32 sequential
+// __fmaf_rn chains in registers.
+//   * The column and the query rows stream through a ring of VSTAGES
+//     shared-memory stages of KC = 32 components (128 contiguous bytes of a
+//     doc) by cp.async 16-byte copies, two stages ahead: one barrier per
+//     stage, the copies of the next stages overlapping the FMAs.  Docs are
+//     staged at a 36-float pitch, so the 16-byte reads of a quarter-warp
+//     (8 docs) hit 32 distinct banks; query reads are broadcasts.
+//   * Each (row, doc) score is one sequential __fmaf_rn chain over the
+//     components j = 0 .. dim-1 from 0.0, 4 components at a time in order
+//     (x, y, z, w) -- the order the plain version
+//     (repro_torch/kernels/vector_topk.py::similarity) computes and, up to
+//     32 components, the one XLA:CPU gives the reference.  Components past
+//     dim are never copied or added.  Cosine norms are chains of the same
+//     kind: vv of doc l + 32w by thread (w, l), qq of row 8w + l by lane
+//     l < 8 of warp w; then __fsqrt_rn, __fmul_rn and __fdiv_rn, 0 where
+//     den <= 0.  Every step is IEEE round-to-nearest: the library is built
+//     with -fmad=false and the only fused multiply-adds are the explicit
+//     ones.
+//   * Hybrid: two binary searches a row find its postings among the
+//     block's docs while the first copies fly; after the component loop
+//     the one-FMA BM25 of those postings goes into the freed ring (dense
+//     BM25, 0 for docs without the term), then the blend.
+//   * The per-tile live counts: the first block of each 1,024-doc tile
+//     writes them for its rows.
 //
-// Bound on an H100 (3.35 TB/s HBM, 67 TFLOP/s fp32 outside the tensor
-// cores): at a 50,176-doc segment, 32 rows and 768 components the column
-// is 154 MB (46 us) and the products 2.47 GFLOP (37 us): bytes by a little.
-// This design reads the column once per row group (4 times at B = 32),
-// from L2 after the first; its inner loop is 32 FMAs per three 16-byte
-// shared loads.  On an H100 80GB HBM3 at 700 W it takes ~0.41 ms at that
-// shape (chip_smoke.py), 11% of the bound: the staging is not overlapped
-// with the FMAs (a barrier every 16 components, ~1.5 blocks per SM), the
-// likely limit.  No tensor cores: their products round differently from
-// the chain.
+// Scores mode (vector_score_rows, hybrid_score_rows) is the score pass
+// alone: every (row, doc) score, -inf for dead and padded docs, into a
+// (B, ND_pad) float32 tensor, for the callers that rank a whole row
+// themselves (k above MAX_K, search_single).  Top-k mode (vector_topk,
+// hybrid_topk) writes the scores to a scratch tensor and a second launch,
+// tile_select_kernel, selects each (row, 1,024-doc tile)'s top-k with
+// warp_topk (a warp a row).  Folding the selection into the score pass
+// through clusters of the tile's 8 blocks (distributed shared memory) was
+// measured slower: 8-block clusters must be co-scheduled on one GPC and the
+// grid no longer ran in one wave (PERF.md, PR 15).
+//
+// On an H100 80GB HBM3 at 700 W (chip_smoke.py; PERF.md has the table), at
+// that shape: 0.096 ms in scores mode (50% of the bound; torch.mm 0.086
+// ms), 0.110 ms in top-k mode (the select launch 0.013 ms of it); 3 blocks
+// of 4 warps an SM (registers and shared memory).
 
+#include "async_copy.cuh"
 #include "tile_topk.cuh"
 
-#define VROWS 8       // query rows per block; one warp selects each
-#define KC 16         // components staged per step
-#define DIM_ALIGN 4   // components per 16-byte load; D_pad % DIM_ALIGN == 0
-#define DOCS (TILE / THREADS)  // docs per thread (4: one float4)
+#define VROWS 32      // query rows per block: 4 warps x RT rows
+#define VDOCS 128     // docs per block: lanes l, l + 32, l + 64, l + 96
+#define VTHREADS 128
+#define RT 8          // rows of a thread's register tile
+#define DT 4          // docs of a thread's register tile
+#define KC 32         // components per ring stage: 128 contiguous bytes of a doc
+#define VPITCH 36     // floats per staged doc: 16-byte reads of 8 lanes hit 32 banks
+#define VSTAGES 3     // ring depth: copies VSTAGES - 1 stages ahead
+#define DIM_ALIGN 4   // components per 16-byte copy; D_pad % DIM_ALIGN == 0
+#define VSTAGE (VDOCS * VPITCH + VROWS * KC)  // floats of one stage: docs, then queries
 
-// dynamic shared memory, in floats: vs[KC][TILE] staged components,
-// qs[KC][VROWS] staged query components, sc[VROWS][TILE] scores (the dense
-// BM25 first, for hybrid_topk), qq[VROWS] query norms
-#define SMEM_FLOATS (KC * TILE + KC * VROWS + VROWS * TILE + VROWS)
+// dynamic shared memory, in floats: the ring (after the component loop,
+// hybrid: sc[VROWS][VDOCS] dense BM25), vv[VDOCS] doc norms, qq[VROWS]
+// query norms
+#define SMEM_FLOATS (VSTAGES * VSTAGE + VDOCS + VROWS)
+
+// one fused multiply-add chain step per (row, doc) of the register tile,
+// components in order: x, y, z, w
+__device__ __forceinline__ void fma4(float& acc, const float4 v, const float4 q) {
+  acc = __fmaf_rn(v.x, q.x, acc);
+  acc = __fmaf_rn(v.y, q.y, acc);
+  acc = __fmaf_rn(v.z, q.z, acc);
+  acc = __fmaf_rn(v.w, q.w, acc);
+}
 
 template <bool HYBRID>
-__global__ void __launch_bounds__(THREADS) vector_kernel(
+__global__ void __launch_bounds__(VTHREADS, 3) vector_score_kernel(
     const float* __restrict__ vmat, int d_pad, int dim,
     const float* __restrict__ qvecs, const int* __restrict__ doc_words,
     int cosine, const int* __restrict__ csr_docs,
     const int* __restrict__ csr_freqs, const int* __restrict__ starts,
     const int* __restrict__ lengths, const float* __restrict__ idfs,
     const float* __restrict__ alphas, float avgdl, float k1, float b,
-    int n_rows, int n_tiles, int k, float* __restrict__ out_vals,
-    int* __restrict__ out_ids, int* __restrict__ out_cnt,
-    float* __restrict__ out_scores) {
+    int n_rows, int n_tiles, float* __restrict__ out_scores,
+    int* __restrict__ out_cnt) {
   extern __shared__ __align__(16) float smem[];
-  float* vs = smem;
-  float* qs = vs + KC * TILE;
-  float* sc = qs + KC * VROWS;
-  float* qq_s = sc + VROWS * TILE;
+  float* ring = smem;
+  float* vv_s = ring + VSTAGES * VSTAGE;
+  float* qq_s = vv_s + VDOCS;
+  float* sc = ring;  // HYBRID, after the component loop
   __shared__ int range[2 * VROWS];
-  const int t = threadIdx.x;
+  __shared__ int warp_c[VTHREADS / 32];
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
   const int row0 = blockIdx.x * VROWS;
-  const int base = blockIdx.y * TILE;
-  const int d0 = t * DOCS;  // this thread's docs in the tile
+  const int base = blockIdx.y * VDOCS;
+  const int n_stages = (dim + KC - 1) / KC;
+
+  // stage st: components [st * KC, st * KC + KC) of the block's docs and
+  // rows, 16 bytes a copy; copies past dim are skipped (never read)
+  auto issue = [&](int st) {
+    if (st < n_stages) {
+      float* vs = ring + (st % VSTAGES) * VSTAGE;
+      float* qs = vs + VDOCS * VPITCH;
+      const int j0 = st * KC;
+      #pragma unroll
+      for (int i = t; i < VDOCS * (KC / 4); i += VTHREADS) {
+        const int doc = i / (KC / 4), c = (i % (KC / 4)) * 4;
+        if (j0 + c < dim)
+          cp_async16(vs + doc * VPITCH + c, vmat + (int64_t)(base + doc) * d_pad + j0 + c);
+      }
+      #pragma unroll
+      for (int i = t; i < VROWS * (KC / 4); i += VTHREADS) {
+        const int r = i / (KC / 4), c = (i % (KC / 4)) * 4;
+        if (row0 + r < n_rows && j0 + c < dim)
+          cp_async16(qs + r * KC + c, qvecs + (int64_t)(row0 + r) * d_pad + j0 + c);
+      }
+    }
+    cp_async_commit();  // one group per stage index, empty past the end
+  };
+  #pragma unroll
+  for (int st = 0; st < VSTAGES - 1; ++st) issue(st);
+
+  if (HYBRID && t < 2 * VROWS) {  // each row's postings in the block's docs
+    const int r = row0 + (t >> 1);
+    range[t] = r < n_rows
+        ? lower_bound(csr_docs + starts[r], lengths[r], base + (t & 1) * VDOCS)
+        : 0;
+  }  // published by the first barrier of the component loop
+
+  // thread (warp, lane): rows warp * RT .. + RT - 1 of the group, docs
+  // lane + 32 i of the block; each (row, doc) one sequential chain
+  float acc[RT][DT];
+  #pragma unroll
+  for (int i = 0; i < DT; ++i) {
+    #pragma unroll
+    for (int r = 0; r < RT; ++r) acc[r][i] = 0.0f;
+  }
+  float vv = 0.0f;  // cosine: the norm chain of doc lane + 32 * warp
+  float qq = 0.0f;  // lanes < RT: the norm chain of row warp * RT + lane
+  const bool active = row0 + warp * RT < n_rows;  // warp-uniform
+  const int qrow = warp * RT + (lane & (RT - 1));
+  const int vdoc = (lane + 32 * warp) * VPITCH;
+
+  for (int st = 0; st < n_stages; ++st) {
+    cp_async_wait<VSTAGES - 2>();  // this thread's copies of stage st landed
+    __syncthreads();  // everyone's landed; the buffer of stage st - 1 is free
+    issue(st + VSTAGES - 1);
+    const float* vs = ring + (st % VSTAGES) * VSTAGE;
+    const float* qs = vs + VDOCS * VPITCH;
+    const int n = dim - st * KC < KC ? dim - st * KC : KC;
+    const int nq = n & ~3;
+    if (cosine) {  // every warp, one doc a thread: the doc norms
+      for (int jj = 0; jj < nq; jj += 4) {
+        const float4 v4 = *reinterpret_cast<const float4*>(vs + vdoc + jj);
+        fma4(vv, v4, v4);
+      }
+      for (int jj = nq; jj < n; ++jj) vv = __fmaf_rn(vs[vdoc + jj], vs[vdoc + jj], vv);
+    }
+    if (!active) continue;
+    #pragma unroll 4
+    for (int jj = 0; jj < nq; jj += 4) {
+      float4 v4[DT];
+      #pragma unroll
+      for (int i = 0; i < DT; ++i)
+        v4[i] = *reinterpret_cast<const float4*>(vs + (lane + 32 * i) * VPITCH + jj);
+      #pragma unroll
+      for (int r = 0; r < RT; ++r) {
+        const float4 q4 = *reinterpret_cast<const float4*>(qs + (warp * RT + r) * KC + jj);
+        #pragma unroll
+        for (int i = 0; i < DT; ++i) fma4(acc[r][i], v4[i], q4);
+      }
+      if (cosine && lane < RT) {
+        const float4 q4 = *reinterpret_cast<const float4*>(qs + qrow * KC + jj);
+        fma4(qq, q4, q4);
+      }
+    }
+    for (int jj = nq; jj < n; ++jj) {  // the last 1-3 components of dim
+      float v[DT];
+      #pragma unroll
+      for (int i = 0; i < DT; ++i) v[i] = vs[(lane + 32 * i) * VPITCH + jj];
+      #pragma unroll
+      for (int r = 0; r < RT; ++r) {
+        const float q = qs[(warp * RT + r) * KC + jj];
+        #pragma unroll
+        for (int i = 0; i < DT; ++i) acc[r][i] = __fmaf_rn(v[i], q, acc[r][i]);
+      }
+      if (cosine && lane < RT) {
+        const float x = qs[qrow * KC + jj];
+        qq = __fmaf_rn(x, x, qq);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  if (cosine) {
+    vv_s[lane + 32 * warp] = vv;
+    if (active && lane < RT) qq_s[qrow] = qq;
+  }
+  __syncthreads();  // the ring is free
 
   if (HYBRID) {  // doc_words is dl_live: (doc_len << 1) | live
-    for (int i = t; i < VROWS * TILE; i += THREADS) sc[i] = 0.0f;
-    if (t < 2 * VROWS) {
-      const int r = row0 + (t >> 1);
-      range[t] = r < n_rows
-          ? lower_bound(csr_docs + starts[r], lengths[r], base + (t & 1) * TILE)
-          : 0;
-    }
+    for (int i = t; i < VROWS * VDOCS; i += VTHREADS) sc[i] = 0.0f;
     __syncthreads();
-    for (int rr = 0; rr < VROWS && row0 + rr < n_rows; ++rr) {
+    // four threads a row, each every fourth of the row's postings here
+    const int rr = t >> 2;
+    if (row0 + rr < n_rows) {
       const int r = row0 + rr;
       const int* docs = csr_docs + starts[r];
       const int* freqs = csr_freqs + starts[r];
       const float idf = idfs[r];
       const int hi = range[2 * rr + 1];
-      for (int i = range[2 * rr] + t; i < hi; i += THREADS) {
+      for (int i = range[2 * rr] + (t & 3); i < hi; i += 4) {
         const int f = freqs[i];
         if (f > 0) {
           const int d = docs[i];
-          sc[rr * TILE + d - base] = bm25_score(f, doc_words[d] >> 1, idf, avgdl, k1, b);
+          sc[rr * VDOCS + d - base] = bm25_score(f, doc_words[d] >> 1, idf, avgdl, k1, b);
         }
       }
-    }
-    // published by the first barrier of the component loop
-  }
-
-  float acc[VROWS][DOCS];
-  float vv[DOCS];
-  #pragma unroll
-  for (int i = 0; i < DOCS; ++i) {
-    vv[i] = 0.0f;
-    #pragma unroll
-    for (int r = 0; r < VROWS; ++r) acc[r][i] = 0.0f;
-  }
-  float qq = 0.0f;  // threads r < VROWS: the norm chain of row row0 + r
-
-  for (int j0 = 0; j0 < dim; j0 += KC) {
-    for (int idx = t; idx < TILE * (KC / 4); idx += THREADS) {
-      const int doc = idx % TILE;
-      const int c = (idx / TILE) * 4;
-      float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (j0 + c < d_pad) {
-        x = *reinterpret_cast<const float4*>(vmat + (int64_t)(base + doc) * d_pad + j0 + c);
-      }
-      vs[(c + 0) * TILE + doc] = x.x;
-      vs[(c + 1) * TILE + doc] = x.y;
-      vs[(c + 2) * TILE + doc] = x.z;
-      vs[(c + 3) * TILE + doc] = x.w;
-    }
-    if (t < KC * VROWS) {
-      const int c = t / VROWS;
-      const int r = row0 + t % VROWS;
-      qs[t] = (r < n_rows && j0 + c < d_pad) ? qvecs[(int64_t)r * d_pad + j0 + c] : 0.0f;
     }
     __syncthreads();
-    const int n = dim - j0 < KC ? dim - j0 : KC;
-    #pragma unroll 4
-    for (int jj = 0; jj < n; ++jj) {
-      const float4 v4 = *reinterpret_cast<const float4*>(vs + jj * TILE + d0);
-      const float4 qa = *reinterpret_cast<const float4*>(qs + jj * VROWS);
-      const float4 qb = *reinterpret_cast<const float4*>(qs + jj * VROWS + 4);
-      const float v[DOCS] = {v4.x, v4.y, v4.z, v4.w};
-      const float q[VROWS] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
-      #pragma unroll
-      for (int r = 0; r < VROWS; ++r) {
-        #pragma unroll
-        for (int i = 0; i < DOCS; ++i) acc[r][i] = __fmaf_rn(v[i], q[r], acc[r][i]);
-      }
-      if (cosine) {
-        #pragma unroll
-        for (int i = 0; i < DOCS; ++i) vv[i] = __fmaf_rn(v[i], v[i], vv[i]);
-        if (t < VROWS) {
-          const float x = qs[jj * VROWS + t];
-          qq = __fmaf_rn(x, x, qq);
-        }
-      }
-    }
-    __syncthreads();  // vs/qs are restaged next step
   }
-  if (t < VROWS) qq_s[t] = qq;
-  __syncthreads();
 
-  // epilogue: similarity (cosine), blend (hybrid), live mask, into sc
-  int c = 0;
-  bool alive[DOCS];
-  float vroot[DOCS];
-  #pragma unroll
-  for (int i = 0; i < DOCS; ++i) {
-    const int w = doc_words[base + d0 + i];
-    alive[i] = HYBRID ? (w & 1) : (w > 0);
-    c += alive[i];
-    vroot[i] = __fsqrt_rn(vv[i]);
-  }
-  #pragma unroll
-  for (int r = 0; r < VROWS; ++r) {
-    float4* out = reinterpret_cast<float4*>(sc + r * TILE + d0);
-    const float4 dense = HYBRID ? *out : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    const float s_in[DOCS] = {dense.x, dense.y, dense.z, dense.w};
-    const float qroot = __fsqrt_rn(qq_s[r]);
-    const float a = HYBRID && row0 + r < n_rows ? alphas[row0 + r] : 0.0f;
-    float s_out[DOCS];
+  // the live count of the 1,024-doc tile, by the tile's first block, for
+  // every row of the group (live does not depend on the row)
+  if ((base & (TILE - 1)) == 0) {
+    int c = 0;
+    for (int i = t; i < TILE; i += VTHREADS) {
+      const int w = doc_words[base + i];
+      c += HYBRID ? (w & 1) : (w > 0);
+    }
     #pragma unroll
-    for (int i = 0; i < DOCS; ++i) {
+    for (int off = 16; off > 0; off >>= 1) c += __shfl_down_sync(0xffffffffu, c, off);
+    if (lane == 0) warp_c[warp] = c;
+    __syncthreads();
+    int total = 0;
+    #pragma unroll
+    for (int w = 0; w < VTHREADS / 32; ++w) total += warp_c[w];
+    for (int r = t; r < VROWS && row0 + r < n_rows; r += VTHREADS)
+      out_cnt[(int64_t)(row0 + r) * n_tiles + base / TILE] = total;
+  }
+
+  // similarity (cosine), blend (hybrid), live mask: the scores out
+  if (!active) return;
+  bool alive[DT];
+  float vroot[DT];
+  #pragma unroll
+  for (int i = 0; i < DT; ++i) {
+    const int w = doc_words[base + lane + 32 * i];
+    alive[i] = HYBRID ? (w & 1) : (w > 0);
+    vroot[i] = __fsqrt_rn(vv_s[lane + 32 * i]);
+  }
+  const int64_t nd_pad = (int64_t)n_tiles * TILE;
+  #pragma unroll
+  for (int r = 0; r < RT; ++r) {
+    const int row = row0 + warp * RT + r;
+    if (row >= n_rows) break;
+    const float qroot = __fsqrt_rn(qq_s[warp * RT + r]);
+    const float a = HYBRID ? alphas[row] : 0.0f;
+    #pragma unroll
+    for (int i = 0; i < DT; ++i) {
+      const int doc = lane + 32 * i;
       float sim = acc[r][i];
       if (cosine) {
         const float den = __fmul_rn(vroot[i], qroot);
@@ -199,34 +290,37 @@ __global__ void __launch_bounds__(THREADS) vector_kernel(
       }
       float s = sim;
       if (HYBRID) {
-        const float tn = __fdiv_rn(s_in[i], __fadd_rn(s_in[i], 1.0f));
+        const float s_in = sc[(warp * RT + r) * VDOCS + doc];
+        const float tn = __fdiv_rn(s_in, __fadd_rn(s_in, 1.0f));
         const float om = __fsub_rn(1.0f, a);
         s = cosine
             ? __fmaf_rn(om, __fmul_rn(__fadd_rn(sim, 1.0f), 0.5f), __fmul_rn(a, tn))
             : __fmaf_rn(a, tn, __fmul_rn(om, __fdiv_rn(sim, __fadd_rn(1.0f, fabsf(sim)))));
       }
-      s_out[i] = alive[i] ? s : -CUDART_INF_F;
-    }
-    const float4 s4 = make_float4(s_out[0], s_out[1], s_out[2], s_out[3]);
-    if (out_scores == nullptr) {
-      *out = s4;
-    } else if (row0 + r < n_rows) {  // scores mode: the row's scores out
-      *reinterpret_cast<float4*>(
-          out_scores + (int64_t)(row0 + r) * n_tiles * TILE + base + d0) = s4;
+      out_scores[row * nd_pad + base + doc] = alive[i] ? s : -CUDART_INF_F;
     }
   }
-  const int n_valid = block_count(c);  // its barrier publishes sc
+}
 
-  const int warp = t >> 5;
-  const int row = row0 + warp;
-  if (row < n_rows) {
-    const int64_t slot = (int64_t)row * n_tiles + blockIdx.y;
-    if ((t & 31) == 0) out_cnt[slot] = n_valid;
-    if (out_scores == nullptr) {
-      warp_topk(sc + warp * TILE, n_valid, k, out_vals + slot * k,
-                out_ids + slot * k, PosFrom{base});
-    }
-  }
+// Top-k mode's second launch: warp w of block (x, tile) selects row
+// x * WARPS + w's top-k of the 1,024-doc tile from the scores the score
+// pass wrote (-inf for dead docs), with the tile's live count as n_valid.
+__global__ void __launch_bounds__(THREADS) tile_select_kernel(
+    const float* __restrict__ scores, const int* __restrict__ cnt, int n_rows,
+    int n_tiles, int k, float* __restrict__ out_vals, int* __restrict__ out_ids) {
+  __shared__ __align__(16) float s[WARPS][TILE];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x * WARPS + warp, tile = blockIdx.y;
+  if (row >= n_rows) return;  // no block barrier below
+  const float4* src = reinterpret_cast<const float4*>(
+      scores + ((int64_t)row * n_tiles + tile) * TILE);
+  float4* dst = reinterpret_cast<float4*>(s[warp]);
+  #pragma unroll
+  for (int i = lane; i < TILE / 4; i += 32) dst[i] = src[i];
+  __syncwarp();
+  const int64_t slot = (int64_t)row * n_tiles + tile;
+  warp_topk(s[warp], cnt[slot], k, out_vals + slot * k, out_ids + slot * k,
+            PosFrom{tile * TILE});
 }
 
 template <bool HYBRID>
@@ -235,45 +329,54 @@ static int launch(const float* vmat, int d_pad, int dim, const float* qvecs,
                   const int* csr_freqs, const int* starts, const int* lengths,
                   const float* idfs, const float* alphas, float avgdl,
                   float k1, float b, int n_rows, int n_tiles, int k,
-                  float* out_vals, int* out_ids, int* out_cnt,
-                  float* out_scores, void* stream) {
+                  float* scores, float* out_vals, int* out_ids, int* out_cnt,
+                  void* stream) {
   if (n_rows <= 0 || n_tiles <= 0) return 0;
   const int smem = SMEM_FLOATS * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      vector_kernel<HYBRID>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      vector_score_kernel<HYBRID>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((n_rows + VROWS - 1) / VROWS, n_tiles);
-  vector_kernel<HYBRID><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+  cudaStream_t s = (cudaStream_t)stream;
+  // row groups fastest: the blocks that read one doc range run together
+  const dim3 grid((n_rows + VROWS - 1) / VROWS, n_tiles * (TILE / VDOCS));
+  vector_score_kernel<HYBRID><<<grid, VTHREADS, smem, s>>>(
       vmat, d_pad, dim, qvecs, doc_words, cosine, csr_docs, csr_freqs, starts,
-      lengths, idfs, alphas, avgdl, k1, b, n_rows, n_tiles, k, out_vals,
-      out_ids, out_cnt, out_scores);
+      lengths, idfs, alphas, avgdl, k1, b, n_rows, n_tiles, scores, out_cnt);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || out_vals == nullptr) return (int)err;
+  tile_select_kernel<<<dim3((n_rows + WARPS - 1) / WARPS, n_tiles), THREADS, 0, s>>>(
+      scores, out_cnt, n_rows, n_tiles, k, out_vals, out_ids);
   return (int)cudaGetLastError();
 }
 
 extern "C" {
 
 int vector_rows() { return VROWS; }
+int vector_docs() { return VDOCS; }
 int vector_dim_align() { return DIM_ALIGN; }
 
+// top-k mode: scores (n_rows, n_tiles * TILE) float32 scratch that the
+// score pass fills and the select launch reads
 int vector_topk(const float* vmat, int d_pad, int dim, const float* qvecs,
                 const int* live, int cosine, int n_rows, int n_tiles, int k,
-                float* out_vals, int* out_ids, int* out_cnt, void* stream) {
+                float* scores, float* out_vals, int* out_ids, int* out_cnt,
+                void* stream) {
   return launch<false>(vmat, d_pad, dim, qvecs, live, cosine, nullptr, nullptr,
                        nullptr, nullptr, nullptr, nullptr, 0.0f, 0.0f, 0.0f,
-                       n_rows, n_tiles, k, out_vals, out_ids, out_cnt,
-                       nullptr, stream);
+                       n_rows, n_tiles, k, scores, out_vals, out_ids, out_cnt,
+                       stream);
 }
 
 int hybrid_topk(const float* vmat, int d_pad, int dim, const float* qvecs,
                 const int* dl_live, int cosine, const int* csr_docs,
                 const int* csr_freqs, const int* starts, const int* lengths,
                 const float* idfs, const float* alphas, float avgdl, float k1,
-                float b, int n_rows, int n_tiles, int k, float* out_vals,
-                int* out_ids, int* out_cnt, void* stream) {
+                float b, int n_rows, int n_tiles, int k, float* scores,
+                float* out_vals, int* out_ids, int* out_cnt, void* stream) {
   return launch<true>(vmat, d_pad, dim, qvecs, dl_live, cosine, csr_docs,
                       csr_freqs, starts, lengths, idfs, alphas, avgdl, k1, b,
-                      n_rows, n_tiles, k, out_vals, out_ids, out_cnt,
-                      nullptr, stream);
+                      n_rows, n_tiles, k, scores, out_vals, out_ids, out_cnt,
+                      stream);
 }
 
 // scores mode: out_scores (n_rows, n_tiles * TILE) float32, out_cnt as above
@@ -282,8 +385,8 @@ int vector_score_rows(const float* vmat, int d_pad, int dim, const float* qvecs,
                       float* out_scores, int* out_cnt, void* stream) {
   return launch<false>(vmat, d_pad, dim, qvecs, live, cosine, nullptr, nullptr,
                        nullptr, nullptr, nullptr, nullptr, 0.0f, 0.0f, 0.0f,
-                       n_rows, n_tiles, 0, nullptr, nullptr, out_cnt,
-                       out_scores, stream);
+                       n_rows, n_tiles, 0, out_scores, nullptr, nullptr, out_cnt,
+                       stream);
 }
 
 int hybrid_score_rows(const float* vmat, int d_pad, int dim, const float* qvecs,
@@ -294,8 +397,8 @@ int hybrid_score_rows(const float* vmat, int d_pad, int dim, const float* qvecs,
                       float* out_scores, int* out_cnt, void* stream) {
   return launch<true>(vmat, d_pad, dim, qvecs, dl_live, cosine, csr_docs,
                       csr_freqs, starts, lengths, idfs, alphas, avgdl, k1, b,
-                      n_rows, n_tiles, 0, nullptr, nullptr, out_cnt,
-                      out_scores, stream);
+                      n_rows, n_tiles, 0, out_scores, nullptr, nullptr, out_cnt,
+                      stream);
 }
 
 }  // extern "C"

@@ -34,7 +34,7 @@ def decode_attention(q, k, v, kv_len=None, s_block=None):
     the true 1/sqrt(D).  The reference pads G, D and S to its TPU tiles and
     slices the result back; the kernel takes the shapes as they are, so
     nothing is padded.  ``s_block`` (the reference's S block) sets the
-    positions per block of the kernel's split pass."""
+    positions each block of the kernel takes (rounded up to its tile)."""
     if kv_len is not None:
         kv_len = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
     return _decode.decode_attn(q, k, v, kv_len=kv_len, split=s_block)

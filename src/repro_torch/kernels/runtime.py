@@ -160,23 +160,24 @@ def library() -> ctypes.CDLL:
                 "sort_topk": [vp] * 6 + [i32] * 3 + [vp] * 4,
                 "range_topk": [vp] * 4 + [i32] * 3 + [vp] * 4,
                 "facet_hist": [vp] * 6 + [i32] * 4 + [vp] * 3,
-                "vector_topk": [vp, i32, i32, vp, vp] + [i32] * 4 + [vp] * 4,
+                "vector_topk": [vp, i32, i32, vp, vp] + [i32] * 4 + [vp] * 5,
                 "hybrid_topk": ([vp, i32, i32, vp, vp, i32] + [vp] * 6
-                                + [f32] * 3 + [i32] * 3 + [vp] * 4),
+                                + [f32] * 3 + [i32] * 3 + [vp] * 5),
                 "vector_score_rows": [vp, i32, i32, vp, vp] + [i32] * 3 + [vp] * 3,
                 "hybrid_score_rows": ([vp, i32, i32, vp, vp, i32] + [vp] * 6
                                       + [f32] * 3 + [i32] * 2 + [vp] * 3),
                 "bitset_combine": [vp, i32, ctypes.c_longlong, i32] + [vp] * 3,
                 "decode_attn": ([vp] * 4 + [i32] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
-                                + [f32] + [i32] * 2 + [vp] * 4),
+                                + [f32] + [i32] * 7 + [vp] * 5),
+                "decode_attn_blocks_per_sm": [i32] * 9,
             }
             for name, argtypes in sigs.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = i32
             for name in ("kernels_tile", "kernels_max_k", "facet_shared_bins",
-                         "vector_rows", "vector_dim_align", "bitset_block",
-                         "decode_attn_tile", "decode_attn_max_acc"):
+                         "vector_rows", "vector_docs", "vector_dim_align", "bitset_block",
+                         "decode_attn_tile", "decode_attn_stages", "decode_attn_warps"):
                 getattr(lib, name).restype = i32
             lib.cuda_error_string.argtypes = [i32]
             lib.cuda_error_string.restype = ctypes.c_char_p

@@ -48,8 +48,17 @@ TILE multiple (dead zero rows past the segment) and D_pad a multiple of
 ``DIM_ALIGN`` (zero components the kernels load but never add: they reduce
 over exactly ``dim`` components); query vectors are ``(B, D_pad)``.
 
+The kernels (``csrc/vector_topk.cu``) are bound by the column's bytes and,
+nearly as much, by the FMA pipe: a block of the score pass takes 128 docs
+and every row of a group of up to ``ROWS_PER_BLOCK`` (the column is read
+once per group), streams the column and the queries through a ring of
+shared-memory stages by asynchronous 16-byte copies, and keeps an 8 x 4
+(rows x docs) tile of sequential FMA chains per thread.  Top-k mode adds a
+second launch that selects each tile's winners from the scores.
+
 Every wrapper takes the plain version for CPU tensors only; a CUDA tensor
-launches the kernel or raises.  ``launches`` counts kernel launches.
+launches the kernel or raises.  ``launches`` counts calls that launched
+the kernels (one per call; top-k mode's two launches count once).
 """
 
 from __future__ import annotations
@@ -74,8 +83,10 @@ from repro_torch.kernels.term_topk import (
 #: components per 16-byte load of the kernels (``DIM_ALIGN`` in the .cu):
 #: the tiled vector column and the query rows pad D to a multiple of it
 DIM_ALIGN = 4
-#: query rows per thread block (``VROWS`` in the .cu), checked once
-ROWS_PER_BLOCK = 8
+#: query rows and docs per block of the score pass (``VROWS``, ``VDOCS``
+#: in the .cu), checked once
+ROWS_PER_BLOCK = 32
+DOCS_PER_BLOCK = 128
 
 #: kernel launches, by kernel name; reset with ``reset_launches``
 launches: Dict[str, int] = {"vector_topk": 0, "hybrid_topk": 0,
@@ -220,10 +231,10 @@ _checked = []  # the library once its constants matched this module's
 def _library():
     lib = library()
     if not _checked:
-        built = (lib.vector_rows(), lib.vector_dim_align())
-        if built != (ROWS_PER_BLOCK, DIM_ALIGN):
-            raise RuntimeError(f"csrc VROWS/DIM_ALIGN {built} != "
-                               f"{(ROWS_PER_BLOCK, DIM_ALIGN)}")
+        built = (lib.vector_rows(), lib.vector_docs(), lib.vector_dim_align())
+        if built != (ROWS_PER_BLOCK, DOCS_PER_BLOCK, DIM_ALIGN):
+            raise RuntimeError(f"csrc VROWS/VDOCS/DIM_ALIGN {built} != "
+                               f"{(ROWS_PER_BLOCK, DOCS_PER_BLOCK, DIM_ALIGN)}")
         _checked.append(lib)
     return lib
 
@@ -237,7 +248,10 @@ def _launch(name, out, *args):
 
 
 def _winners(rows, n_tiles, k, dev):
-    return (torch.empty((rows, n_tiles, k), dtype=torch.float32, device=dev),
+    """The top-k mode's outputs: vals, ids, cnt, and the (B, ND_pad) score
+    scratch between its two launches."""
+    return (torch.empty((rows, n_tiles * TILE), dtype=torch.float32, device=dev),
+            torch.empty((rows, n_tiles, k), dtype=torch.float32, device=dev),
             torch.empty((rows, n_tiles, k), dtype=torch.int32, device=dev),
             torch.empty((rows, n_tiles), dtype=torch.int32, device=dev))
 
@@ -280,10 +294,10 @@ def vector_topk_tiles(vmat, live, qvecs, k: int, cosine: bool, dim: int):
     if vmat.device.type == "cpu":
         return vector_topk_tiles_plain(vmat, live, qvecs, k, cosine, dim)
     rows = qvecs.shape[0]
-    vals, ids, cnt = _winners(rows, n_tiles, k, vmat.device)
+    scratch, vals, ids, cnt = _winners(rows, n_tiles, k, vmat.device)
     _launch("vector_topk", vals, vmat.data_ptr(), vmat.shape[1], dim,
             qvecs.data_ptr(), live.data_ptr(), int(cosine), rows, n_tiles, k,
-            vals.data_ptr(), ids.data_ptr(), cnt.data_ptr())
+            scratch.data_ptr(), vals.data_ptr(), ids.data_ptr(), cnt.data_ptr())
     return vals, ids, cnt
 
 
@@ -322,12 +336,13 @@ def hybrid_topk_tiles(csr_docs, csr_freqs, dl_live, starts, lengths, idfs,
                                        lengths, idfs, avgdl, k1, b, vmat,
                                        qvecs, alphas, k, cosine, dim)
     rows = qvecs.shape[0]
-    vals, ids, cnt = _winners(rows, n_tiles, k, vmat.device)
+    scratch, vals, ids, cnt = _winners(rows, n_tiles, k, vmat.device)
     _launch("hybrid_topk", vals, vmat.data_ptr(), vmat.shape[1], dim,
             qvecs.data_ptr(), dl_live.data_ptr(), int(cosine),
             csr_docs.data_ptr(), csr_freqs.data_ptr(), starts.data_ptr(),
             lengths.data_ptr(), idfs.data_ptr(), alphas.data_ptr(), avgdl, k1,
-            b, rows, n_tiles, k, vals.data_ptr(), ids.data_ptr(), cnt.data_ptr())
+            b, rows, n_tiles, k, scratch.data_ptr(), vals.data_ptr(), ids.data_ptr(),
+            cnt.data_ptr())
     return vals, ids, cnt
 
 
@@ -356,6 +371,7 @@ def hybrid_score_rows(csr_docs, csr_freqs, dl_live, starts, lengths, idfs,
 
 __all__ = [
     "DIM_ALIGN",
+    "DOCS_PER_BLOCK",
     "ROWS_PER_BLOCK",
     "launches",
     "reset_launches",

@@ -86,13 +86,15 @@ def test_kernels_match_plain_on_card(card, k):
 
 
 def _csr(rng, rows, n_terms, n_docs):
-    """Doc-sorted postings of (rows, n_terms) lists as one CSR padded with a
-    tile of zeros; row 0 term 0 holds doc 0, the last row is empty."""
+    """Doc-sorted postings of (rows, n_terms) lists (1-2,999 docs each, fewer
+    than n_docs) as one CSR padded with a tile of zeros; row 0 term 0 holds
+    doc 0, the last row is empty."""
     docs, freqs = [], []
     lengths = np.zeros((rows, n_terms), np.int32)
     for r in range(rows - 1):
         for t in range(n_terms):
-            d = np.sort(rng.choice(n_docs, size=int(rng.integers(1, 3000)), replace=False))
+            d = np.sort(rng.choice(n_docs, size=int(rng.integers(1, min(3000, n_docs))),
+                                   replace=False))
             if r == 0 and t == 0:
                 d = np.unique(np.concatenate([[0], d]))
             docs.append(d)
@@ -261,6 +263,56 @@ def test_vector_scores_mode_matches_plain_on_card(card, dim, cosine):
         _equal(got, vk.hybrid_score_rows_plain(*args))
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dim", [24, 100, 768])
+@pytest.mark.parametrize("rows", [1, 32, 33])
+def test_vector_kernel_row_groups_and_dims_on_card(card, dim, rows):
+    """The score pass's row groups (B = 1, one full group of 32, 33: a
+    second group of one row) and component stages (dim 100 is not a
+    multiple of the 16-component stage, 24 ends mid-stage), over a one-tile
+    and a three-tile segment: K7, K8 and both scores modes, dot and cosine,
+    against their plain versions, 0 ULP."""
+    rng = np.random.default_rng(1000 * rows + dim)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(card)
+
+    dp = vk.pad_dim(dim)
+    for n_tiles in (1, 3):
+        nd_pad = n_tiles * kt.TILE
+        n_docs = nd_pad - 100
+        vmat = np.zeros((nd_pad, dp), np.float32)
+        vmat[:n_docs, :dim] = rng.standard_normal((n_docs, dim))
+        vmat[: n_docs : 9] = 0  # vectorless docs
+        qvecs = np.zeros((rows, dp), np.float32)
+        qvecs[:, :dim] = rng.standard_normal((rows, dim))
+        live = (rng.random(nd_pad) > 0.2).astype(np.int32)
+        live[n_docs:] = 0
+        dl = rng.integers(1, 400, nd_pad).astype(np.int32)
+        cd, cf, starts, lengths = _csr(rng, rows + 1, 1, n_docs)
+        starts, lengths = starts[:rows, 0], lengths[:rows, 0]
+        idfs = rng.uniform(0.5, 8.0, rows).astype(np.float32)
+        alphas = rng.uniform(0.0, 1.0, rows).astype(np.float32)
+        for cosine in (False, True):
+            vec = (dev(vmat), dev(live), dev(qvecs))
+            hyb = (dev(cd), dev(cf), dev((dl << 1) | live), dev(starts), dev(lengths),
+                   dev(idfs), AVGDL, K1, B, dev(vmat), dev(qvecs), dev(alphas))
+            for name, fn, plain, args in (
+                    ("vector_topk", vk.vector_topk_tiles, vk.vector_topk_tiles_plain,
+                     vec + (10, cosine, dim)),
+                    ("vector_score_rows", vk.vector_score_rows,
+                     vk.vector_score_rows_plain, vec + (cosine, dim)),
+                    ("hybrid_topk", vk.hybrid_topk_tiles, vk.hybrid_topk_tiles_plain,
+                     hyb + (10, cosine, dim)),
+                    ("hybrid_score_rows", vk.hybrid_score_rows,
+                     vk.hybrid_score_rows_plain, hyb + (cosine, dim))):
+                n0 = vk.launches[name]
+                got = fn(*args)
+                torch.cuda.synchronize()
+                assert vk.launches[name] == n0 + 1
+                _equal(got, plain(*args))
+
+
 DECODE_SHAPES = [  # the reference's (tests/test_kernels.py:55-62) + the engine's
     (1, 1, 1, 64, 256, 64),
     (2, 2, 5, 96, 700, 80),
@@ -306,6 +358,57 @@ def test_decode_attn_matches_plain_on_card(card, b, hkv, g, d, s, dv, dtype):
         torch.testing.assert_close(got, want, rtol=tol, atol=tol)
         if b > 1:
             assert torch.equal(got[1], torch.zeros_like(got[1]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attn_edges_on_card(card, dtype):
+    """K10's schedule and ring edges against its plain version, through the
+    model's cache layout: rows ending mid-stage, exactly at a ring-stage
+    boundary and at a 64-position chunk boundary, a row at 0 (-> 0) and one
+    at S; the default schedule, blocks of 1,024 positions that span
+    segment ends, and 64-position blocks (most of a short row's pieces
+    combined by the last to finish); the same call three times gives equal
+    results, so the ticket counters are back at 0 after each call."""
+    b, hkv, g, d, s = 7, 2, 6, 128, 1000
+    rng = np.random.default_rng(7)
+    plan = kd.kernel_plan(g, d, d, torch.tensor([], dtype=dtype).element_size())
+
+    def dev(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(card, dtype)
+
+    q = dev((b, hkv, g, d))
+    k, v = (dev((b, s, hkv, d)).transpose(1, 2) for _ in range(2))
+    kvl = torch.tensor([0, s, 37, 3 * plan.tp, kd.TILE, 2 * kd.TILE + 1, 1],
+                       dtype=torch.int32, device=card)
+    want = kd.decode_attn_plain(q, k, v, kvl, 1.0 / np.sqrt(d))
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    for split in (None, s, kd.TILE):
+        n0 = kd.launches["decode_attn"]
+        runs = [kd.decode_attn(q, k, v, kvl, split=split) for _ in range(3)]
+        torch.cuda.synchronize()
+        assert kd.launches["decode_attn"] == n0 + 3
+        torch.testing.assert_close(runs[0], want, rtol=tol, atol=tol)
+        assert torch.equal(runs[0][0], torch.zeros_like(runs[0][0]))
+        assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
+
+
+@pytest.mark.gpu
+def test_decode_attn_rejects_kv_it_cannot_stream_on_card(card):
+    """On the card K/V need a last stride of 1 and 16-byte aligned rows of
+    whole 16-byte slices: anything else raises ValueError, launching
+    nothing."""
+    q = torch.zeros(2, 1, 4, 64, device=card)
+    k = torch.zeros(2, 1, 32, 64, device=card)
+    kvl = torch.tensor([3, 32], dtype=torch.int32, device=card)
+    n0 = kd.launches["decode_attn"]
+    with pytest.raises(ValueError, match="last stride"):
+        kd.decode_attn(q, torch.zeros(2, 1, 64, 32, device=card).transpose(2, 3), k, kvl)
+    with pytest.raises(ValueError, match="aligned"):
+        kd.decode_attn(q, k, torch.zeros(2, 1, 32, 65, device=card)[..., 1:], kvl)
+    with pytest.raises(ValueError, match="aligned"):
+        kd.decode_attn(q, torch.zeros(2, 1, 32, 66, device=card)[..., :64], k, kvl)
+    assert kd.launches["decode_attn"] == n0
 
 
 @pytest.mark.gpu

@@ -155,20 +155,110 @@ def test_wrapper_rejects_bad_inputs():
     assert kd.launches == {"decode_attn": 0}  # CPU tensors never launch
 
 
-@pytest.mark.parametrize("bh,s,sms,want", [
-    (16, 512, 132, (32, 16)),      # the engine: 8 rows x 2 KV heads
-    (16, 32768, 132, (1024, 32)),  # decode_32k cut to 8 rows
-    (512, 4096, 132, (2048, 2)),   # many rows: few blocks per (row, head)
-    (1, 20, 132, (32, 1)),
+@pytest.mark.parametrize("segments,s,slots,split,want", [
+    (16, 512, 396, None, (396, 0)),     # the engine: one block a slot, even shares
+    (16, 32768, 396, None, (396, 0)),   # decode_32k cut to 8 rows
+    (14, 1000, 396, 64, (219, 64)),
+    (1, 20, 396, 1, (1, 64)),
 ])
-def test_split_plan(bh, s, sms, want):
-    assert kd.split_plan(bh, s, sms) == want
-    chunk, n = kd.split_plan(bh, s, sms)
-    assert chunk % kd.TILE == 0 and chunk * n >= s > chunk * (n - 1)
+def test_split_plan(segments, s, slots, split, want):
+    assert kd.split_plan(segments, s, slots, split) == want
 
 
 def test_split_width_from_s_block():
-    assert kd.split_plan(16, 1000, 132, split=100) == (128, 8)
+    """ops.decode_attention's s_block: the width rounded up to TILE, enough
+    blocks for every segment at full length."""
+    assert kd.split_plan(16, 1000, 396, split=100) == (125, 128)
+
+
+@pytest.mark.parametrize("kv_len,hn,n_blocks,width", [
+    ([200, 0, 37, 512, 1], 2, 24, 0),           # ragged rows, an empty one
+    ([200, 0, 37, 223, 1], 2, 20, 0),           # short rows, one block a chunk
+    ([32768, 16384, 20000, 31000], 2, 396, 0),  # every block a full share
+    ([1000] * 7, 2, 14, 1024),                  # blocks across segments
+    ([5, 130, 64], 3, 50, 64),
+])
+def test_block_ranges_cover_every_position_once(kv_len, hn, n_blocks, width):
+    """The kernel's schedule: every position of every (row, segment) in
+    exactly one block, no block past the grid, no block above its share (a
+    TILE multiple) -- or, with short rows, one block a TILE-aligned chunk of
+    one segment -- and pieces numbered block + segment unique."""
+    ranges = kd.block_ranges(kv_len, hn, n_blocks, width)
+    seen = {}
+    for blk, row, j, a, e in ranges:
+        assert 0 <= blk < n_blocks and 0 <= a < e <= kv_len[row]
+        seen.setdefault((row, j), []).append((a, e))
+    for row, n in enumerate(kv_len):
+        for j in range(hn):
+            spans = sorted(seen.get((row, j), []))
+            covered = [p for a, e in spans for p in range(a, e)]
+            assert covered == list(range(n))
+    per_block = {}
+    for blk, _, _, a, e in ranges:
+        per_block[blk] = per_block.get(blk, 0) + e - a
+    if not width and sum(-(-n // kd.TILE) for n in kv_len) * hn <= n_blocks:
+        # short rows: a block a TILE-aligned chunk of one segment
+        assert sorted(per_block) == list(range(len(ranges)))
+        assert all(a % kd.TILE == 0 and e - a <= kd.TILE for _, _, _, a, e in ranges)
+    else:
+        even = -(-sum(kv_len) * hn // n_blocks)
+        share = width or max(kd.TILE, -(-even // kd.TILE) * kd.TILE)
+        assert share % kd.TILE == 0 and max(per_block.values()) <= share
+    pieces = [blk + row * hn + j for blk, row, j, _, _ in ranges]
+    assert len(set(pieces)) == len(pieces) and max(pieces) < n_blocks + len(kv_len) * hn
+
+
+@pytest.mark.parametrize("g,d,dv,esize,want", [
+    # the engine (Qwen2-1.5B): a float32 cache, then bf16 K/V
+    (6, 128, 128, 4, kd.KernelPlan(lpp=4, cpl=4, hb=6, tp=32, kpitch=576, shared=108544)),
+    (6, 128, 128, 2, kd.KernelPlan(lpp=2, cpl=4, hb=6, tp=64, kpitch=288, shared=109568)),
+    # the reference's shapes: G = 5 takes one head a block; D = 320 takes
+    # 8 lanes a position (float32) and two blocks of 8 heads
+    (5, 96, 80, 4, kd.KernelPlan(lpp=4, cpl=4, hb=1, tp=32, kpitch=448, shared=74624)),
+    (16, 320, 128, 4, kd.KernelPlan(lpp=8, cpl=4, hb=8, tp=16, kpitch=1280, shared=96768)),
+    (16, 320, 128, 2, kd.KernelPlan(lpp=4, cpl=4, hb=8, tp=32, kpitch=704, shared=103424)),
+    (1, 64, 64, 2, kd.KernelPlan(lpp=2, cpl=4, hb=1, tp=64, kpitch=160, shared=56576)),
+    (4, 128, 128, 4, kd.KernelPlan(lpp=4, cpl=4, hb=4, tp=32, kpitch=576, shared=107008)),
+    # Dv above 128: eight components a lane, at most four heads a block
+    (6, 64, 256, 2, kd.KernelPlan(lpp=4, cpl=8, hb=2, tp=32, kpitch=192, shared=68608)),
+])
+def test_kernel_plan(g, d, dv, esize, want):
+    """The V components a lane accumulates cover Dv, the heads a block
+    takes divide G and have a built instance, a stage's positions divide the
+    split width, a quarter-warp's 16-byte K reads fall on distinct banks,
+    and the block fits the card's shared memory."""
+    plan = kd.kernel_plan(g, d, dv, esize)
+    assert plan == want
+    assert dv <= 32 * plan.cpl and plan.hb in kd.INSTANCES[plan.cpl] and g % plan.hb == 0
+    assert plan.tp == kd.WARPS * 32 // plan.lpp and kd.TILE % plan.tp == 0
+    assert plan.kpitch >= d * esize and plan.kpitch % 16 == 0
+    rows = 8 // plan.lpp  # rows a quarter-warp reads, plan.lpp slices each
+    if rows > 1:
+        banks = {(r * plan.kpitch + 16 * i) % 128 for r in range(rows) for i in range(plan.lpp)}
+        assert len(banks) == 8
+    assert plan.shared <= kd.MAX_SHARED
+
+
+def test_kernel_plan_rejects_rows_it_cannot_copy():
+    with pytest.raises(ValueError, match="16-byte rows"):
+        kd.kernel_plan(6, 100, 100, 2)  # 200-byte rows
+    with pytest.raises(ValueError, match="exceeds"):
+        kd.kernel_plan(1, 128, 512, 4)  # Dv above 32 lanes x 8 components
+
+
+def test_kv_layout_problem():
+    """The card's K/V rule, read from strides and the data pointer: the
+    model's transposed (B, S, Hkv, D) cache qualifies; a last stride that is
+    not 1, a row start off 16 bytes and a row of part-slices do not."""
+    cache = torch.zeros(2, 64, 2, 128)
+    assert kd.kv_layout_problem("k", cache.transpose(1, 2)) is None
+    assert kd.kv_layout_problem("k", cache.bfloat16().transpose(1, 2)) is None
+    assert kd.kv_layout_problem("k", torch.zeros(2, 2, 64, 128)) is None
+    assert "last stride" in kd.kv_layout_problem("k", torch.zeros(2, 2, 128, 64).transpose(2, 3))
+    assert "aligned" in kd.kv_layout_problem("v", torch.zeros(2, 2, 64, 129)[..., 1:])
+    assert "16-byte slices" in kd.kv_layout_problem("v", torch.zeros(2, 2, 64, 6))
+    # a view whose rows start 8 bytes apart from 16-byte boundaries
+    assert "aligned" in kd.kv_layout_problem("k", torch.zeros(2, 2, 64, 130)[..., :128])
 
 
 # ---------------------------------------------------------------------------
