@@ -30,7 +30,8 @@ Phases (any failure raises and the script exits non-zero):
               executors on the card and the plain CPU path, ``search_single``
               equals ``search_batch``, a mixed batch of every task equals the
               per-task results, the deleted term's docs are in no family's
-              hits, and kernels K3-K6 were launched.
+              hits, and kernels K3-K6 were launched.  The device busy ms and
+              idle share of 5 batches of AndHighMed and of TermMonthSort.
   5. vectors  the same index, whose docs carry seeded 768-dim float32
               vectors (1% carry none), through ``search_batch``: batches of
               32 queries of one task -- VectorDot, VectorCosine (k=10),
@@ -61,7 +62,9 @@ Phases (any failure raises and the script exits non-zero):
               one computes the same function (or its selection or histogram
               half), and its bound: the larger of its bytes at 3.35 TB/s and
               its operations at the peak rate of their type (67 TFLOP/s
-              float32).
+              float32).  K3/K4's ``kernel`` lines add their grid under
+              ``shape``: blocks, blocks an SM from the occupancy API, work
+              items.
   7. lm       LM serving at Qwen2-1.5B's full width (28 layers, d 1536, 12
               query over 2 KV heads, vocab 151,936; bf16 weights seeded on
               the card, float32 cache): ``ServeEngine(batch_slots=8,
@@ -503,10 +506,11 @@ def families_phase(eng, cfg, bands: dict, words, rare: str, n_batches: int):
             same_topdocs(g, w, f"cpu {name}")
         for q, w in zip(batches[0][:SINGLE_PER_TASK], want):
             same_topdocs(s.search_single(q, k=K), w, f"search_single {name}")
-    prof = device_profile(lambda: [eng.search_batch(qs, k=K)
-                                   for qs in tasks["AndHighMed"][:5]])
+    profs = {name: device_profile(lambda n=name: [eng.search_batch(qs, k=K)
+                                                  for qs in tasks[n][:5]])
+             for name in ("AndHighMed", "TermMonthSort")}
     torch.cuda.synchronize()
-    return stats, launches, tasks, prof
+    return stats, launches, tasks, profs
 
 
 def kernel_record(name, source, launches, fn, plain, args, library, n_bytes,
@@ -546,6 +550,7 @@ def doc_kernel_records(eng, tasks: dict, launches: dict) -> list:
     from repro_torch.core.query.plan import stage_bool_meta, stage_term_meta
     from repro_torch.core.query.types import BooleanQuery, SortQuery
     from repro_torch.kernels import doc_topk as dk
+    from repro_torch.kernels import runtime
     from repro_torch.kernels import term_topk as kt
 
     s = eng.searcher
@@ -589,6 +594,16 @@ def doc_kernel_records(eng, tasks: dict, launches: dict) -> list:
     rows_b = BATCH
     counts_b = rows_b * n_tiles * 4  # the per-tile counts every kernel writes
 
+    def grid(name):
+        """K3/K4's launch: blocks, blocks an SM (the occupancy API), items;
+        under the record's shape, so only the ``kernel`` lines print it."""
+        items = rows_b * n_tiles
+        blocks = dk.grid_blocks(name, items, dev)
+        return {"blocks": blocks, "threads": dk.DOC_THREADS,
+                "blocks_per_sm": dk.blocks_per_sm(name, torch.cuda.current_device()),
+                "sms": runtime.sm_count(dev), "items": items,
+                "items_per_block_max": -(-items // blocks)}
+
     # K3 bool_topk: term-ordered BM25 sums, AND/OR filter, tile top-k
     name, qs, meta = group(BooleanQuery)
     n_terms = len(qs[0].terms)
@@ -601,13 +616,14 @@ def doc_kernel_records(eng, tasks: dict, launches: dict) -> list:
                              (st["tiled.dl_live"] & 1) > 0,
                              *kt.scalars(dev, s.avgdl, s.k1, s.b), conj, n_terms)
     postings = int(meta.lengths.sum())
-    # 12 B per posting (doc, freq, doc-length gather), dl_live once, the
-    # (start, length, idf) of each (row, term)
+    # 8 B per posting (doc, freq), dl_live once (every doc's length and
+    # live bit), the (start, length, idf) of each (row, term)
     record("bool_topk", dk.bool_topk_tiles, dk.bool_topk_tiles_plain, args,
            lambda: torch.topk(score, K, dim=-1),
-           postings * 12 + nd_pad * 4 + rows_b * n_terms * 12 + counts_b,
+           postings * 8 + nd_pad * 4 + rows_b * n_terms * 12 + counts_b,
            postings * (OPS_PER_SCORE + 1),
            {"task": name, "rows": rows_b, "terms": n_terms, "postings": postings})
+    records[-1]["shape"]["grid"] = grid("bool_topk")
 
     # K4 sort_topk: matched live docs, float32 doc-value keys, tile top-k
     name, qs, meta = group(SortQuery)
@@ -622,6 +638,7 @@ def doc_kernel_records(eng, tasks: dict, launches: dict) -> list:
            postings * 8 + nd_pad * 8 + rows_b * 8 + counts_b,
            rows_b * nd_pad,
            {"task": name, "rows": rows_b, "postings": postings})
+    records[-1]["shape"]["grid"] = grid("sort_topk")
 
     # K5 range_topk: the doc-values window, the k lowest doc ids
     qs = tasks["IntNRQ"][FAMILY_WARM]
@@ -1372,7 +1389,8 @@ def main(argv=None) -> int:
         "seconds": time.perf_counter() - t,
         "launches": fam_launches,
         "batch": BATCH, "k": K,
-        "profile_5_batches_AndHighMed": fam_prof,
+        "profile_5_batches_AndHighMed": fam_prof["AndHighMed"],
+        "profile_5_batches_TermMonthSort": fam_prof["TermMonthSort"],
         "fused_eq_eager_card": True, "fused_eq_plain_cpu": True,
         "single_eq_batch": True, "mixed_eq_per_task": True,
         "deleted_docs_absent": True,

@@ -76,11 +76,6 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
-@functools.lru_cache(maxsize=None)
-def sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 class KernelPlan(NamedTuple):
     lpp: int  # lanes per position in the score phase (a power of two, 2-32)
     cpl: int  # V components a lane accumulates (Dv <= 32 * cpl)
@@ -280,7 +275,7 @@ def decode_attn(q, k, v, kv_len=None, split: Optional[int] = None):
     segments = b * h * (g // plan.hb)
     lib = _library()
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    slots = sm_count(dev) * _blocks_per_sm(lib, index, es == 2, b, d, dv, plan)
+    slots = runtime.sm_count(dev) * _blocks_per_sm(lib, index, es == 2, b, d, dv, plan)
     n_blocks, width = split_plan(segments, s, slots, split)
     out = torch.empty((b, h, g, dv), dtype=torch.float32, device=dev)
     # the blocks' pieces of segments: (m, l) (pieces, 2, hb), then acc

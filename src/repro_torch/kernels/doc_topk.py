@@ -26,14 +26,22 @@ definition.  It follows the reference's cores (``repro/core/query/exec.py:
   * facet bins follow ``jnp.bincount``: negative bins count in bin 0, bins
     >= n_bins are dropped.
 
+``bool_topk`` and ``sort_topk`` launch at most the blocks the card holds at
+once (``grid_blocks``); each block walks the flat (row, tile) work items
+``work_schedule`` lists and finds a term's sub-range of a tile with the
+many-way search ``many_way_lower_bound`` mirrors.  Both mirrors are for the
+tests; the kernels compute the same on the card.
+
 Every wrapper takes the plain version for CPU tensors only; a CUDA tensor
 launches the kernel or raises.  ``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import functools
+from typing import Dict, List, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import runtime
@@ -57,6 +65,74 @@ launches: Dict[str, int] = {
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+#: threads of a bool_topk / sort_topk block (``csrc/doc_topk.cu`` DT_THREADS)
+DOC_THREADS = 128
+#: bool terms a block scatters per pass, each searched by two lane groups
+BOOL_PASS = 3
+#: lanes of one search group (a power of two, at most 32): bool_topk's,
+#: sort_topk's
+BOOL_LANES = min(32, 1 << (DOC_THREADS // (2 * BOOL_PASS)).bit_length() - 1)
+SORT_LANES = 32
+#: the layout above, as the library's ``doc_topk_layout`` returns it
+LAYOUT = (DOC_THREADS, BOOL_PASS, BOOL_LANES, SORT_LANES)
+
+
+# ---------------------------------------------------------------------------
+# the schedule and the search of bool_topk / sort_topk, mirrored for tests
+# ---------------------------------------------------------------------------
+
+
+def many_way_lower_bound(docs, key: int, lanes: int) -> Tuple[int, int]:
+    """(first i with docs[i] >= key or len(docs), dependent steps) as the
+    kernels' ``group_lower_bound`` finds it (docs ascending).  Each step
+    probes ``lo + (j + 1) * span // (lanes + 1)``, j < lanes, of [lo, hi)
+    and keeps the gap that holds the answer."""
+    lo, hi, steps = 0, len(docs), 0
+    while lo < hi:
+        probes = [lo + (j + 1) * (hi - lo) // (lanes + 1) for j in range(lanes)]
+        c = sum(int(docs[p]) < key for p in probes)
+        if c > 0:
+            lo = probes[c - 1] + 1
+        if c < lanes:
+            hi = probes[c]
+        steps += 1
+    return lo, steps
+
+
+def work_schedule(n_rows: int, n_tiles: int, n_blocks: int) -> List[Tuple[int, int, int]]:
+    """``[(block, row, tile)]`` in the order each block works: block x takes
+    the items x, x + grid, ... of ``item = row * n_tiles + tile``, grid =
+    min(n_blocks, items)."""
+    items = n_rows * n_tiles
+    grid = min(n_blocks, items)
+    return [(x, item // n_tiles, item % n_tiles)
+            for x in range(grid) for item in range(x, items, grid)]
+
+
+@functools.lru_cache(maxsize=None)
+def blocks_per_sm(kind: str, dev_index: int) -> int:
+    """Blocks of ``bool_topk`` or ``sort_topk`` one SM holds at once, from
+    the occupancy API.  Raises if the built library's block layout is not
+    ``LAYOUT``, which the mirrors assume."""
+    lib = library()
+    built = tuple(lib.doc_topk_layout(i) for i in range(len(LAYOUT)))
+    if built != LAYOUT:
+        raise RuntimeError(f"csrc block layout {built} != the mirrors' {LAYOUT}")
+    with torch.cuda.device(dev_index):
+        n = lib.doc_topk_blocks_per_sm({"bool_topk": 0, "sort_topk": 1}[kind])
+    if n <= 0:
+        raise RuntimeError(f"{kind}: no block fits an SM")
+    return n
+
+
+def grid_blocks(kind: str, n_items: int, dev: torch.device) -> int:
+    """The grid of one launch: the blocks the card holds at once, at most
+    one a work item, so the launch runs in one wave."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    held = blocks_per_sm(kind, index) * runtime.sm_count(torch.device("cuda", index))
+    return max(1, min(n_items, held))
 
 
 # ---------------------------------------------------------------------------
@@ -210,6 +286,13 @@ def _winners(rows, n_tiles, k, dev):
             torch.empty((rows, n_tiles), dtype=torch.int32, device=dev))
 
 
+def _check_aligned(**cols):
+    """Columns the kernels read 16 bytes at a time."""
+    for name, t in cols.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start 16-byte aligned on the card")
+
+
 def _launch(name, out, *args):
     """Launch kernel ``name`` on the current stream of ``out``'s device."""
     lib = library()
@@ -238,12 +321,14 @@ def bool_topk_tiles(csr_docs, csr_freqs, dl_live, starts, lengths, idfs,
     if dev.type == "cpu":
         return bool_topk_tiles_plain(csr_docs, csr_freqs, dl_live, starts,
                                      lengths, idfs, avgdl, k1, b, conjunctive, k)
+    _check_aligned(dl_live=dl_live)
     rows, n_terms = starts.shape
     vals, ids, cnt = _winners(rows, n_tiles, k, dev)
     _launch("bool_topk", vals, csr_docs.data_ptr(), csr_freqs.data_ptr(),
             dl_live.data_ptr(), starts.data_ptr(), lengths.data_ptr(),
             idfs.data_ptr(), avgdl, k1, b, n_terms, int(conjunctive), rows,
-            n_tiles, k, vals.data_ptr(), ids.data_ptr(), cnt.data_ptr())
+            n_tiles, grid_blocks("bool_topk", rows * n_tiles, dev), k,
+            vals.data_ptr(), ids.data_ptr(), cnt.data_ptr())
     return vals, ids, cnt
 
 
@@ -260,11 +345,13 @@ def sort_topk_tiles(csr_docs, csr_freqs, live, dv, starts, lengths, k: int):
     if dev.type == "cpu":
         return sort_topk_tiles_plain(csr_docs, csr_freqs, live, dv, starts,
                                      lengths, k)
+    _check_aligned(live=live, dv=dv)
     rows = starts.shape[0]
     vals, ids, cnt = _winners(rows, n_tiles, k, dev)
     _launch("sort_topk", vals, csr_docs.data_ptr(), csr_freqs.data_ptr(),
             live.data_ptr(), dv.data_ptr(), starts.data_ptr(),
-            lengths.data_ptr(), rows, n_tiles, k, vals.data_ptr(),
+            lengths.data_ptr(), rows, n_tiles,
+            grid_blocks("sort_topk", rows * n_tiles, dev), k, vals.data_ptr(),
             ids.data_ptr(), cnt.data_ptr())
     return vals, ids, cnt
 
@@ -324,6 +411,9 @@ def facet_hist_tiles(csr_docs, csr_freqs, live, bins, starts, lengths,
 __all__ = [
     "launches",
     "reset_launches",
+    "many_way_lower_bound",
+    "work_schedule",
+    "grid_blocks",
     "bool_dense",
     "matched_docs",
     "sort_keys",

@@ -23,6 +23,7 @@ that turns the kernels off on the card.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -156,8 +157,10 @@ def library() -> ctypes.CDLL:
             sigs = {  # name: argument types; every launch returns a CUDA error code
                 "term_topk": [vp] * 6 + [f32] * 3 + [i32] * 3 + [vp] * 4,
                 "bm25_topk": [vp] * 3 + [f32] * 4 + [i32] * 2 + [vp] * 3,
-                "bool_topk": [vp] * 6 + [f32] * 3 + [i32] * 5 + [vp] * 4,
-                "sort_topk": [vp] * 6 + [i32] * 3 + [vp] * 4,
+                "bool_topk": [vp] * 6 + [f32] * 3 + [i32] * 6 + [vp] * 4,
+                "sort_topk": [vp] * 6 + [i32] * 4 + [vp] * 4,
+                "doc_topk_blocks_per_sm": [i32],
+                "doc_topk_layout": [i32],
                 "range_topk": [vp] * 4 + [i32] * 3 + [vp] * 4,
                 "facet_hist": [vp] * 6 + [i32] * 4 + [vp] * 3,
                 "vector_topk": [vp, i32, i32, vp, vp] + [i32] * 4 + [vp] * 5,
@@ -176,8 +179,9 @@ def library() -> ctypes.CDLL:
                 fn.argtypes = argtypes
                 fn.restype = i32
             for name in ("kernels_tile", "kernels_max_k", "facet_shared_bins",
-                         "vector_rows", "vector_docs", "vector_dim_align", "bitset_block",
-                         "decode_attn_tile", "decode_attn_stages", "decode_attn_warps"):
+                         "vector_rows", "vector_docs",
+                         "vector_dim_align", "bitset_block", "decode_attn_tile",
+                         "decode_attn_stages", "decode_attn_warps"):
                 getattr(lib, name).restype = i32
             lib.cuda_error_string.argtypes = [i32]
             lib.cuda_error_string.restype = ctypes.c_char_p
@@ -190,6 +194,12 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         msg = lib.cuda_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_of(t: torch.Tensor) -> int:

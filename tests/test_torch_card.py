@@ -174,6 +174,126 @@ def test_doc_kernels_match_plain_on_card(card, k):
             _equal(got, dk.facet_hist_tiles_plain(*args))
 
 
+def _edge_rows(rng, rows, n_terms, nd_pad, n_docs):
+    """CSR rows (rows, n_terms) for bool_topk / sort_topk's edge cases: row 0
+    empty; row 1 every posting in one tile; row 2 docs 1,023, 1,024, 1,025
+    and the last doc; row 3 a third of its postings with freq 0 (padding
+    lanes); the rest from sparse to dense (5-90% of the docs)."""
+    docs, freqs = [], []
+    lengths = np.zeros((rows, n_terms), np.int32)
+    last = n_docs - 1
+    for r in range(rows):
+        for t in range(n_terms):
+            if r == 0:
+                d = np.zeros(0, np.int64)
+            elif r == 1:
+                lo = (nd_pad // kt.TILE // 2) * kt.TILE
+                d = np.sort(rng.choice(np.arange(lo, min(lo + kt.TILE, n_docs)),
+                                       size=min(300, n_docs - lo), replace=False))
+            elif r == 2:
+                d = np.asarray(sorted({1023, 1024, 1025, last} & set(range(n_docs))
+                                      | set(rng.choice(n_docs, 50).tolist())))
+            else:
+                share = (0.05, 0.3, 0.9)[(r + t) % 3]
+                d = np.sort(rng.choice(n_docs, size=max(1, int(share * n_docs)), replace=False))
+            f = rng.integers(1, 25, len(d))
+            if r == 3:
+                f[rng.random(len(d)) < 1 / 3] = 0
+            docs.append(d)
+            freqs.append(f)
+            lengths[r, t] = len(d)
+    starts = np.zeros_like(lengths)
+    starts.flat[1:] = np.cumsum(lengths.ravel())[:-1]
+    pad = [np.zeros(kt.TILE, np.int64)]
+    return (np.concatenate(docs + pad).astype(np.int32),
+            np.concatenate(freqs + pad).astype(np.int32), starts, lengths)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 10, 128])
+@pytest.mark.parametrize("n_tiles", [1, 64])
+def test_bool_topk_edges_on_card(card, k, n_tiles):
+    """bool_topk against its plain version, 0 ULP and one launch a call:
+    T = 1, 2, 3, 5, AND and OR, 32 rows over a one-tile segment and over 64
+    tiles (more work items than the card holds at once)."""
+    rng = np.random.default_rng(1000 + 10 * k + n_tiles)
+    rows, nd_pad = 32, n_tiles * kt.TILE
+    n_docs = nd_pad - 37
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(card)
+
+    dl = rng.integers(1, 400, nd_pad).astype(np.int32)
+    live = (rng.random(nd_pad) > 0.1).astype(np.int32)
+    live[n_docs:] = 0
+    live[[1023, 1024, 1025, n_docs - 1] if n_tiles > 1 else [n_docs - 1]] = 1
+    dl_live = dev((dl << 1) | live)
+    if n_tiles > 1:
+        assert dk.grid_blocks("bool_topk", rows * n_tiles, card) < rows * n_tiles
+    for n_terms in (1, 2, 3, 5):
+        cd, cf, starts, lengths = _edge_rows(rng, rows, n_terms, nd_pad, n_docs)
+        idfs = rng.uniform(0.5, 8.0, (rows, n_terms)).astype(np.float32)
+        for conj in (True, False):
+            args = (dev(cd), dev(cf), dl_live, dev(starts), dev(lengths), dev(idfs),
+                    AVGDL, K1, B, conj, k)
+            n0 = dk.launches["bool_topk"]
+            got = dk.bool_topk_tiles(*args)
+            torch.cuda.synchronize()
+            assert dk.launches["bool_topk"] == n0 + 1
+            _equal(got, dk.bool_topk_tiles_plain(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 10, 128])
+@pytest.mark.parametrize("n_tiles", [1, 64])
+def test_sort_topk_edges_on_card(card, k, n_tiles):
+    """sort_topk against its plain version, 0 ULP and one launch a call: the
+    edge rows of ``_edge_rows``, tiles with more than 128 equal float32 keys
+    (timestamps above 2^24, months), a one-tile segment and 64 tiles."""
+    rng = np.random.default_rng(2000 + 10 * k + n_tiles)
+    rows, nd_pad = 32, n_tiles * kt.TILE
+    n_docs = nd_pad - 37
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(card)
+
+    live = (rng.random(nd_pad) > 0.1).astype(np.int32)
+    live[n_docs:] = 0
+    if n_tiles > 1:
+        assert dk.grid_blocks("sort_topk", rows * n_tiles, card) < rows * n_tiles
+    cd, cf, starts, lengths = _edge_rows(rng, rows, 1, nd_pad, n_docs)
+    ts = rng.integers(0, 1 << 30, nd_pad).astype(np.int32)
+    top = min(nd_pad, 3 * kt.TILE // 2)
+    ts[:top] = (1 << 30) - rng.integers(1, 64, top)  # one float32 key
+    for dv in (ts, rng.integers(0, 12, nd_pad).astype(np.int32)):
+        args = (dev(cd), dev(cf), dev(live), dev(dv), dev(starts[:, 0]),
+                dev(lengths[:, 0]), k)
+        n0 = dk.launches["sort_topk"]
+        got = dk.sort_topk_tiles(*args)
+        torch.cuda.synchronize()
+        assert dk.launches["sort_topk"] == n0 + 1
+        _equal(got, dk.sort_topk_tiles_plain(*args))
+        if n_tiles > 1:  # more than 128 matches share the top key in a tile
+            vals = got[0].cpu().numpy()
+            assert (got[2].cpu().numpy() > 128).any()
+            assert (vals[..., 0] == vals[..., -1]).any()
+
+
+@pytest.mark.gpu
+def test_doc_kernels_reject_unaligned_columns_on_card(card):
+    """bool_topk and sort_topk read the doc-space columns 16 bytes at a
+    time; a column that does not start 16-byte aligned raises."""
+    z = torch.zeros(kt.TILE + 1, dtype=torch.int32, device=card)[1:]
+    s2 = torch.zeros((2, 2), dtype=torch.int32, device=card)
+    s1 = torch.zeros(2, dtype=torch.int32, device=card)
+    idfs = torch.ones((2, 2), dtype=torch.float32, device=card)
+    cz = torch.zeros(kt.TILE, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="16-byte"):
+        dk.bool_topk_tiles(cz, cz, z, s2, s2, idfs, AVGDL, K1, B, True, 10)
+    with pytest.raises(ValueError, match="16-byte"):
+        dk.sort_topk_tiles(cz, cz, z, cz, s1, s1, 10)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dim", [24, 768])
 @pytest.mark.parametrize("cosine", [False, True])
