@@ -1,0 +1,157 @@
+#!/usr/bin/env python3
+"""Compare trees of this repository on one NVIDIA Hopper card, in turns.
+
+    python3 chip_compare.py PARENT_ROOT CHANGE_ROOT [ROOT ...]
+
+runs the trees in the order given, then in the reverse order (parent,
+change, change, parent for two).  Each ROOT is a checkout of the repository
+(for example a ``git archive`` of the parent commit unpacked beside this
+one, or a copy with one kernel changed).  Every turn runs in a process
+of its own that imports that tree's ``src/repro_torch`` and nothing of
+another tree's package: it builds the tree's kernels, ingests the corpus
+with ``chip_smoke.ingest`` of this script's tree (500,000 docs, a flush and
+NRT reopen every 50,000, the delete of a rare term; no vectors, which
+neither path reads), then reports:
+
+  * term: 10 batches of 32 TermQuerys (k=10) after 5 warm-up batches:
+    device busy ms, idle share and ``term_topk_kernel``'s device ms (one
+    torch.profiler trace), and QPS over 60 timed batches;
+  * the tree's own families phase (``chip_smoke.families_phase``), then 5
+    batches each of TermMonthFacets and BrowseMonthSSDVFacets traced the
+    same way, and each family task's QPS;
+  * the tree's own kernel records at the main path's shapes
+    (``chip_smoke.doc_kernel_records``: K3-K6) and K1 at
+    ``chip_smoke.term_kernel_args``' shape, timed as ``chip_smoke.py`` times
+    it: ms from CUDA events.
+
+The families phase and K3-K6's records come from the tree's own
+``chip_smoke.py``; the rest of the harness from this script's.
+
+One ``CMP`` JSON line per turn, then a ``SUMMARY`` JSON line of the turns'
+numbers side by side.  Compare two trees only within one call: the card, its
+power limit and the host's load differ between calls.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+N_DOCS = 500_000
+FLUSH_EVERY = 50_000
+WARM, TERM_PROFILED, TERM_TIMED = 5, 10, 60
+FACET_TASKS = ("TermMonthFacets", "BrowseMonthSSDVFacets")
+
+
+def worker(root: Path) -> dict:
+    """One turn: everything above, for the tree at ``root``."""
+    sys.path[:0] = [str(root / "src"), str(root)]
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    import repro_torch
+    from repro_torch.core.engine import SearchEngine
+    from repro_torch.core.query.types import TermQuery
+    from repro_torch.data.corpus import CorpusConfig, words
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels import term_topk as kt
+
+    for mod in (cs, repro_torch):
+        assert root.resolve() in Path(mod.__file__).resolve().parents, mod.__file__
+    # this tree's harness, run on the package imported above
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_harness", Path(__file__).resolve().parent / "chip_smoke.py")
+    h = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(h)
+    t0 = time.perf_counter()
+    runtime.library()
+    build_s = time.perf_counter() - t0
+    cfg = CorpusConfig(n_docs=N_DOCS, seed=h.SEED)
+    table = words(cfg.vocab)
+    eng = SearchEngine("ram")
+    rare = h.ingest(eng, cfg, table, FLUSH_EVERY)["rare"]
+    eng.reopen()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    s = eng.searcher
+    df = np.asarray([s.doc_freq(TermQuery("body", w)) for w in table])
+    bands = h.band_ids(df, s.total_docs)
+    batches = h.draw_batches(bands, table, WARM + TERM_TIMED, h.BATCH, h.SEED + 1)
+    queries = [[TermQuery("body", w) for w in b] for b in batches]
+    lat = []
+    for i, qs in enumerate(queries):
+        t = time.perf_counter()
+        eng.search_batch(qs, k=h.K)
+        if i >= WARM:
+            lat.append(time.perf_counter() - t)
+    out = {"root": str(root), "build_s": build_s, "setup_s": setup_s,
+           "term_qps": h.BATCH * len(lat) / sum(lat)}
+
+    def profiled(batch_list):
+        prof = h.device_profile(lambda: [eng.search_batch(qs, k=h.K) for qs in batch_list])
+        kernels = {name: ms for name, ms in prof["top_device_ms"].items()
+                   if "_kernel(" in name and not name.startswith("void")}
+        return {"device_busy_ms": prof["device_busy_ms"], "wall_ms": prof["wall_ms"],
+                "device_idle_share": prof["device_idle_share"], "kernels_ms": kernels}
+
+    out["term_10_batches"] = profiled(queries[WARM:WARM + TERM_PROFILED])
+    stats, launches, tasks, _ = cs.families_phase(eng, cfg, bands, table, rare,
+                                                  cs.FAMILY_BATCHES)
+    out["task_qps"] = {name: st["qps"] for name, st in stats.items()}
+    for name in FACET_TASKS:
+        out[f"{name}_5_batches"] = profiled(tasks[name][:5])
+    records = cs.doc_kernel_records(eng, tasks, launches)
+    out["kernel_ms"] = {r["name"]: r["ms"] for r in records}
+    out["kernel_ms"].update((r["match_all"]["name"], r["match_all"]["ms"])
+                            for r in records if "match_all" in r)
+    # K1 at the main path's shape, as chip_smoke.py's phase 6 times it
+    args = h.term_kernel_args(eng, queries[WARM])[2]
+    got = [x.cpu().numpy() for x in kt.term_topk_tiles(*args)]
+    want = [x.cpu().numpy() for x in kt.term_topk_tiles_plain(*args)]
+    if not all(h.bits_equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("term_topk differs from its plain version")
+    out["kernel_ms"]["term_topk"] = h.cuda_ms(lambda: kt.term_topk_tiles(*args), 50)[0]
+    out["total_s"] = time.perf_counter() - t0
+    return out
+
+
+def main(argv) -> int:
+    if len(argv) == 2 and argv[0] == "--worker":
+        print("CMP " + json.dumps(worker(Path(argv[1]))), flush=True)
+        return 0
+    if len(argv) < 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    roots = [Path(a).resolve() for a in argv]
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    turns = []
+    for root in roots + roots[::-1]:
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--worker",
+                               str(root)], capture_output=True, text=True)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("CMP ")]
+        if proc.returncode != 0 or not lines:
+            print(proc.stdout[-4000:], proc.stderr[-8000:], file=sys.stderr)
+            return 1
+        print(lines[-1], flush=True)
+        turns.append((str(root), json.loads(lines[-1][4:])))
+    summary = {"card": smi, "order": [label for label, _ in turns]}
+    for key in ("term_10_batches", *(f"{n}_5_batches" for n in FACET_TASKS)):
+        summary[key] = [[t[key]["device_busy_ms"], t[key]["device_idle_share"],
+                         t[key]["kernels_ms"]] for _, t in turns]
+    summary["kernel_ms"] = [t["kernel_ms"] for _, t in turns]
+    summary["term_qps"] = [t["term_qps"] for _, t in turns]
+    summary["task_qps"] = [t["task_qps"] for _, t in turns]
+    print("SUMMARY " + json.dumps(summary), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

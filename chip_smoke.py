@@ -31,7 +31,8 @@ Phases (any failure raises and the script exits non-zero):
               equals ``search_batch``, a mixed batch of every task equals the
               per-task results, the deleted term's docs are in no family's
               hits, and kernels K3-K6 were launched.  The device busy ms and
-              idle share of 5 batches of AndHighMed and of TermMonthSort.
+              idle share of 5 batches of AndHighMed, of TermMonthSort and of
+              TermMonthFacets.
   5. vectors  the same index, whose docs carry seeded 768-dim float32
               vectors (1% carry none), through ``search_batch``: batches of
               32 queries of one task -- VectorDot, VectorCosine (k=10),
@@ -62,9 +63,12 @@ Phases (any failure raises and the script exits non-zero):
               one computes the same function (or its selection or histogram
               half), and its bound: the larger of its bytes at 3.35 TB/s and
               its operations at the peak rate of their type (67 TFLOP/s
-              float32).  K3/K4's ``kernel`` lines add their grid under
-              ``shape``: blocks, blocks an SM from the occupancy API, work
-              items.
+              float32).  The ``kernel`` lines of K1, K3, K4 and K6 add
+              their grid under ``shape``: blocks, blocks an SM from the
+              occupancy API, work items; each of the four is one launch a
+              call (its ``phases_ms`` trace shows no other device
+              operation).  K6's record holds, as ``match_all``, the same
+              for its match-all row (BrowseMonthSSDVFacets).
   7. lm       LM serving at Qwen2-1.5B's full width (28 layers, d 1536, 12
               query over 2 KV heads, vocab 151,936; bf16 weights seeded on
               the card, float32 cache): ``ServeEngine(batch_slots=8,
@@ -125,6 +129,8 @@ REPLACES = {
 # K7/K8's scores mode: the same kernels, whole rows of scores out
 REPLACES["vector_score_rows"] = REPLACES["vector_topk"]
 REPLACES["hybrid_score_rows"] = REPLACES["hybrid_topk"]
+# K6's match-all row (Browse*Facets): the same kernel
+REPLACES["facet_hist_match_all"] = REPLACES["facet_hist"]
 SOURCE = "src/repro_torch/csrc/term_topk.cu"
 DOC_SOURCE = "src/repro_torch/csrc/doc_topk.cu"
 VECTOR_SOURCE = "src/repro_torch/csrc/vector_topk.cu"
@@ -218,6 +224,7 @@ def check_facets(td, ctx: str) -> None:
 
 
 SPIN_CYCLES = 200_000_000  # ~0.1 s of the SM clock
+TRACE_ATTEMPTS = 4  # traces kernel_phases takes before it reads an empty one
 
 
 def bound(n_bytes: int, n_ops: int):
@@ -259,26 +266,51 @@ def kernel_phases(fn, iters: int = 20) -> dict:
     """The kernels that ``fn`` launches, by name: device ms per launch and
     launches per call, from a torch.profiler trace of ``iters`` calls after
     one warm-up (per launch, not per call: a trace that drops events still
-    reads right)."""
+    reads right).  The first trace after a large one can hold no device
+    event at all; then the calls are traced again, up to TRACE_ATTEMPTS
+    traces."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
     total: dict = {}
     count: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            key = e.name[:60]
-            total[key] = total.get(key, 0.0) + e.time_range.elapsed_us() / 1e3
-            count[key] = count.get(key, 0) + 1
+    for _ in range(TRACE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                key = e.name[:60]
+                total[key] = total.get(key, 0.0) + e.time_range.elapsed_us() / 1e3
+                count[key] = count.get(key, 0) + 1
+        if total:
+            break
     return {key: {"ms": total[key] / count[key], "traced": count[key], "calls": iters}
             for key in total}
+
+
+def one_kernel(name: str, phases: dict) -> dict:
+    """``phases`` (``kernel_phases`` of one wrapper call) if it traced kernel
+    ``name`` and no other device operation: a redesigned kernel is one
+    launch a call, with no memset or cast around it."""
+    if [key.startswith(f"{name}_kernel") for key in phases] != [True]:
+        raise AssertionError(f"{name}: a call ran {sorted(phases)} on the card")
+    return phases
+
+
+def grid_record(blocks: int, per_sm: int, items: int, dev) -> dict:
+    """A one-wave launch: its blocks, the blocks an SM holds (the occupancy
+    API), the SMs, the work items and the most items a block takes."""
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.term_topk import THREADS
+
+    return {"blocks": blocks, "threads": THREADS, "blocks_per_sm": per_sm,
+            "sms": runtime.sm_count(dev), "items": items,
+            "items_per_block_max": -(-items // blocks)}
 
 
 def resident_bytes(tensors) -> int:
@@ -334,6 +366,70 @@ def busy_share(prof, wall_ms: float) -> dict:
         "device_idle_share": None if busy_ms is None else 1.0 - busy_ms / wall_ms,
         "top_device_ms": {name[:60]: ms for name, ms in top},
     }
+
+
+def ingest(eng, cfg, words, flush_every: int, vecs=None, has_vec=None) -> dict:
+    """Add ``cfg``'s synthetic corpus to ``eng`` in chunks of 1,000 docs
+    (doc j carries ``vecs[j]`` where ``has_vec[j]``), with a flush and an
+    NRT reopen every ``flush_every`` docs.  After the last chunk, delete the
+    first term from vocabulary id RARE_FROM up that the flushed segments
+    hold, so the delete swaps live bitmaps of segments already on the card,
+    then flush.  Returns the term, its doc frequency before the delete, the
+    docs deleted and the seconds spent making and adding docs."""
+    from repro_torch.core.query.types import TermQuery
+    from repro_torch.core.writer import VECTOR_FIELD
+    from repro_torch.data.corpus import synthetic_corpus
+
+    gen = synthetic_corpus(cfg)
+    out = {"gen_s": 0.0, "ingest_s": 0.0}
+    added = 0
+    while added < cfg.n_docs:
+        t = time.perf_counter()
+        chunk = list(itertools.islice(gen, min(1000, cfg.n_docs - added)))
+        if vecs is not None:
+            for j, (_, dv) in enumerate(chunk, start=added):
+                if has_vec[j]:
+                    dv[VECTOR_FIELD] = vecs[j]
+        out["gen_s"] += time.perf_counter() - t
+        t = time.perf_counter()
+        eng.add_documents(chunk)
+        added += len(chunk)
+        if added == cfg.n_docs:
+            out["rare"], out["rare_df"] = next(
+                (w, df) for w in words[RARE_FROM:]
+                if (df := eng.searcher.doc_freq(TermQuery("body", w))) > 0
+            )
+            out["deleted"] = eng.delete("body", out["rare"])
+            eng.flush()
+        elif added % flush_every == 0:
+            eng.flush()
+            out["ingest_s"] += time.perf_counter() - t
+            eng.reopen()  # NRT: each flushed segment goes to the card
+            continue
+        out["ingest_s"] += time.perf_counter() - t
+    return out
+
+
+def term_kernel_args(eng, qs):
+    """K1's arguments for the TermQuerys ``qs`` at the main path's shape:
+    the segment with the most postings, the rows padded as ``search_batch``
+    pads them.  Returns (segment, CSR meta, args)."""
+    import torch
+
+    from repro_torch.core.query.plan import bucket_batch, stage_term_meta
+
+    s = eng.searcher
+    dev = eng.device
+    seg = max(s.segments, key=lambda sg: sg.nnz)
+    st = eng.device_cache.ensure_tiled(seg)
+    pad = bucket_batch(len(qs)) - len(qs)
+    meta = stage_term_meta(seg, qs, pad_rows=pad, tile=True)
+    idfs = torch.tensor([s.idf(q) for q in qs] + [0.0] * pad,
+                        dtype=torch.float32, device=dev)
+    args = (st["csr.docs"], st["csr.freqs"], st["tiled.dl_live"],
+            torch.from_numpy(meta.starts).to(dev), torch.from_numpy(meta.lengths).to(dev),
+            idfs, s.avgdl, s.k1, s.b, meta.p, K)
+    return seg, meta, args
 
 
 def band_ids(df: np.ndarray, n_docs: int) -> dict:
@@ -508,7 +604,7 @@ def families_phase(eng, cfg, bands: dict, words, rare: str, n_batches: int):
             same_topdocs(s.search_single(q, k=K), w, f"search_single {name}")
     profs = {name: device_profile(lambda n=name: [eng.search_batch(qs, k=K)
                                                   for qs in tasks[n][:5]])
-             for name in ("AndHighMed", "TermMonthSort")}
+             for name in ("AndHighMed", "TermMonthSort", "TermMonthFacets")}
     torch.cuda.synchronize()
     return stats, launches, tasks, profs
 
@@ -550,7 +646,6 @@ def doc_kernel_records(eng, tasks: dict, launches: dict) -> list:
     from repro_torch.core.query.plan import stage_bool_meta, stage_term_meta
     from repro_torch.core.query.types import BooleanQuery, SortQuery
     from repro_torch.kernels import doc_topk as dk
-    from repro_torch.kernels import runtime
     from repro_torch.kernels import term_topk as kt
 
     s = eng.searcher
@@ -594,15 +689,13 @@ def doc_kernel_records(eng, tasks: dict, launches: dict) -> list:
     rows_b = BATCH
     counts_b = rows_b * n_tiles * 4  # the per-tile counts every kernel writes
 
-    def grid(name):
-        """K3/K4's launch: blocks, blocks an SM (the occupancy API), items;
-        under the record's shape, so only the ``kernel`` lines print it."""
+    def grid(name, smem=0):
+        """K3/K4/K6's launch (``grid_record``), under the record's shape, so
+        only the ``kernel`` lines print it."""
         items = rows_b * n_tiles
-        blocks = dk.grid_blocks(name, items, dev)
-        return {"blocks": blocks, "threads": dk.DOC_THREADS,
-                "blocks_per_sm": dk.blocks_per_sm(name, torch.cuda.current_device()),
-                "sms": runtime.sm_count(dev), "items": items,
-                "items_per_block_max": -(-items // blocks)}
+        return grid_record(dk.grid_blocks(name, items, dev, smem),
+                           dk.blocks_per_sm(name, torch.cuda.current_device(), smem),
+                           items, dev)
 
     # K3 bool_topk: term-ordered BM25 sums, AND/OR filter, tile top-k
     name, qs, meta = group(BooleanQuery)
@@ -671,6 +764,28 @@ def doc_kernel_records(eng, tasks: dict, launches: dict) -> list:
            2 * rows_b * nd_pad,
            {"task": "TermMonthFacets", "rows": rows_b, "postings": postings,
             "n_bins": n_bins})
+    records[-1]["shape"]["grid"] = grid("facet_hist", smem=dk.facet_smem(n_bins))
+    # its match-all row: one row whose matched set is the live bitmap
+    qs = tasks["BrowseMonthSSDVFacets"][FAMILY_WARM]
+    n_bins = qs[0].n_bins
+    bins = st[f"tiled.dv.{qs[0].dv_field}"]
+    b = bins.long().clamp(min=0)
+    flat = b[(live > 0) & (b < n_bins)]
+    smem = dk.facet_smem(n_bins)
+    records[-1]["match_all"] = kernel_record(
+        "facet_hist_match_all", DOC_SOURCE, launches["facet_hist_match_all"],
+        dk.facet_hist_tiles, dk.facet_hist_tiles_plain,
+        (st["csr.docs"], st["csr.freqs"], live, bins, None, None, n_bins),
+        lambda: torch.bincount(flat, minlength=n_bins),
+        nd_pad * 8 + n_bins * 4 + n_tiles * 4, 2 * nd_pad,
+        {"task": "BrowseMonthSSDVFacets", "rows": 1, "n_bins": n_bins,
+         "segment_docs": seg.n_docs, "nd_pad": nd_pad,
+         "grid": grid_record(dk.grid_blocks("facet_hist", n_tiles, dev, smem),
+                             dk.blocks_per_sm("facet_hist", torch.cuda.current_device(), smem),
+                             n_tiles, dev)})
+    for r in records + [records[-1]["match_all"]]:
+        if r["name"] != "range_topk":  # K3, K4, K6: one launch a call
+            one_kernel(r["name"].removesuffix("_match_all"), r["phases_ms"])
     return records
 
 
@@ -1225,11 +1340,10 @@ def main(argv=None) -> int:
     from repro_torch.core.analyzer import term_hash
     from repro_torch.core.engine import SearchEngine
     from repro_torch.core.query import profile
-    from repro_torch.core.query.plan import bucket_batch, stage_term_meta
     from repro_torch.core.query.types import TermQuery
     from repro_torch.core.search import Searcher
     from repro_torch.core.writer import VECTOR_FIELD
-    from repro_torch.data.corpus import CorpusConfig, synthetic_corpus, words
+    from repro_torch.data.corpus import CorpusConfig, words
     from repro_torch.kernels import runtime
     from repro_torch.kernels import term_topk as kt
 
@@ -1261,34 +1375,8 @@ def main(argv=None) -> int:
     vecs = vec_rng.standard_normal((cfg.n_docs, DIM), dtype=np.float32)
     has_vec = vec_rng.random(cfg.n_docs) >= VECTORLESS
     vector_gen_s = time.perf_counter() - t
-    gen = synthetic_corpus(cfg)
-    gen_s = ingest_s = 0.0
-    added = 0
-    while added < cfg.n_docs:
-        t = time.perf_counter()
-        chunk = list(itertools.islice(gen, min(1000, cfg.n_docs - added)))
-        for j, (_, dv) in enumerate(chunk, start=added):
-            if has_vec[j]:
-                dv[VECTOR_FIELD] = vecs[j]
-        gen_s += time.perf_counter() - t
-        t = time.perf_counter()
-        eng.add_documents(chunk)
-        added += len(chunk)
-        if added == cfg.n_docs:
-            # a rare term the flushed segments hold, so the delete swaps
-            # live bitmaps of segments already on the card
-            rare, rare_df = next(
-                (w, df) for w in table[RARE_FROM:]
-                if (df := eng.searcher.doc_freq(TermQuery("body", w))) > 0
-            )
-            deleted = eng.delete("body", rare)
-            eng.flush()
-        elif added % args.flush_every == 0:
-            eng.flush()
-            ingest_s += time.perf_counter() - t
-            eng.reopen()  # NRT: each flushed segment goes to the card
-            continue
-        ingest_s += time.perf_counter() - t
+    ing = ingest(eng, cfg, table, args.flush_every, vecs, has_vec)
+    rare, rare_df, deleted = ing["rare"], ing["rare_df"], ing["deleted"]
     refreshes = eng.device_cache.stats.live_refreshes
     t = time.perf_counter()
     eng.reopen()
@@ -1348,10 +1436,10 @@ def main(argv=None) -> int:
         "segments": len(s.segments),
         "deleted": {"term": rare, "df_flushed": rare_df, "docs": deleted,
                     "live_refreshes": refreshes},
-        "corpus_gen_s": gen_s,
+        "corpus_gen_s": ing["gen_s"],
         "vector_gen_s": vector_gen_s,
         "vectors": {"dim": DIM, "docs_with_vector": int(has_vec.sum())},
-        "ingest_docs_per_s": cfg.n_docs / ingest_s,
+        "ingest_docs_per_s": cfg.n_docs / ing["ingest_s"],
         "reopen_s": reopen_s,
         "device_bytes": torch.cuda.memory_allocated(),
         # doc-value columns (plain + tiled), the vector column apart
@@ -1391,6 +1479,7 @@ def main(argv=None) -> int:
         "batch": BATCH, "k": K,
         "profile_5_batches_AndHighMed": fam_prof["AndHighMed"],
         "profile_5_batches_TermMonthSort": fam_prof["TermMonthSort"],
+        "profile_5_batches_TermMonthFacets": fam_prof["TermMonthFacets"],
         "fused_eq_eager_card": True, "fused_eq_plain_cpu": True,
         "single_eq_batch": True, "mixed_eq_per_task": True,
         "deleted_docs_absent": True,
@@ -1413,23 +1502,16 @@ def main(argv=None) -> int:
 
     # 6. kernels against their plain versions at the main path's shapes ---
     records = []
-    seg = max(s.segments, key=lambda sg: sg.nnz)
-    st = eng.device_cache.ensure_tiled(seg)
     qs = queries[n_warm]
-    pad = bucket_batch(len(qs)) - len(qs)
-    meta = stage_term_meta(seg, qs, pad_rows=pad, tile=True)
-    starts = torch.from_numpy(meta.starts).to(dev)
-    lengths = torch.from_numpy(meta.lengths).to(dev)
-    idfs = torch.tensor([s.idf(q) for q in qs] + [0.0] * pad,
-                        dtype=torch.float32, device=dev)
-    k1_args = (st["csr.docs"], st["csr.freqs"], st["tiled.dl_live"], starts,
-               lengths, idfs, s.avgdl, s.k1, s.b, meta.p, K)
+    seg, meta, k1_args = term_kernel_args(eng, qs)
+    st = eng.device_cache.ensure_tiled(seg)
     kv, ki, kc = (x.cpu().numpy() for x in kt.term_topk_tiles(*k1_args))
     pv, pi, pc = (x.cpu().numpy() for x in kt.term_topk_tiles_plain(*k1_args))
     if not (bits_equal(kv, pv) and bits_equal(ki, pi) and bits_equal(kc, pc)):
         raise AssertionError("term_topk differs from its plain version")
     rows, nb = kc.shape
     k1_ms, k1_q = cuda_ms(lambda: kt.term_topk_tiles(*k1_args), 50)
+    k1_phases = one_kernel("term_topk", kernel_phases(lambda: kt.term_topk_tiles(*k1_args)))
     k1_plain_ms, k1_plain_q = cuda_ms(lambda: kt.term_topk_tiles_plain(*k1_args), 5)
     # the library half: torch.topk of the scored postings rows
     k1_scored = kt.csr_rows_scored(*k1_args[:10])[0]
@@ -1453,8 +1535,12 @@ def main(argv=None) -> int:
         "bound_by": k1_bound[1],
         "library_ms": k1_lib_ms,
         "queued_ahead": [k1_q, k1_plain_q, k1_lib_q],
+        "phases_ms": k1_phases,
         "shape": {"rows": rows, "p": meta.p, "postings": k1_postings,
-                  "k": K, "segment_docs": seg.n_docs},
+                  "k": K, "segment_docs": seg.n_docs,
+                  "grid": grid_record(kt.grid_blocks(rows * nb, dev),
+                                      kt.blocks_per_sm(torch.cuda.current_device()),
+                                      k1_tiles, dev)},
     })
     hi = max(qs, key=lambda q: s.doc_freq(q))
     d, f = seg.postings(term_hash(hi.field, hi.token))

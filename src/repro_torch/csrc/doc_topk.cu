@@ -30,9 +30,12 @@
 //   facet_hist  replaces fused_exec.py::facet_hist_tiles.  Counts matched
 //               live docs per bin (bins < 0 clip to 0, bins >= n_bins drop:
 //               jnp.bincount's rule) in shared int counters, then adds them
-//               to the row's int32 histogram in device memory with integer
-//               atomics: exact and order-free.  Match-all facets run one
-//               row whose matched set is the live bitmap.
+//               to the row's int32 scratch histogram in device memory with
+//               integer atomics: exact and order-free.  The last tile of a
+//               row to finish (a ticket per row) writes the row's float32
+//               counts and zeroes its scratch, so a call is one launch.
+//               Match-all facets run one row whose matched set is the live
+//               bitmap.
 //
 // Bound on an H100 (3.35 TB/s HBM): bytes, as for the term kernels (a few
 // float32 operations per posting or doc).  The least traffic the work needs
@@ -46,222 +49,38 @@
 // match flags stay in shared memory.
 //
 // At one segment a launch none of them comes near that bound: a (row,
-// tile) is microseconds of dependent steps.  range_topk and facet_hist run
-// one block per (row, tile) and find a term's sub-range with two binary
-// searches (log2(row length) dependent reads).  bool_topk and sort_topk are
-// built around those latency chains:
+// tile) is microseconds of dependent steps.  range_topk runs one block per
+// (row, tile).  bool_topk, sort_topk and facet_hist are built around those
+// latency chains (warp_select.cuh):
 //   * one wave: 128-thread blocks, the grid at most the blocks the card
 //     holds at once (the occupancy API, kernels/doc_topk.py::grid_blocks),
 //     block x taking the flat work items x, x + grid, ... (item = row *
 //     n_tiles + tile; kernels/doc_topk.py::work_schedule mirrors it);
 //   * a many-way search: a group of lanes per (term, tile edge), all of a
-//     pass's at once (sort_topk: a warp per edge; bool_topk: 16 lanes, 6
-//     groups for a pass of 3 terms), each step probing evenly spaced
-//     postings: at 50,000 postings 4 dependent reads a bound with 32 or 16
-//     lanes, not 16 (group_lower_bound);
+//     pass's at once (sort_topk, facet_hist: a warp per edge; bool_topk: 16
+//     lanes, 6 groups for a pass of 3 terms), each step probing evenly
+//     spaced postings: at 50,000 postings 4 dependent reads a bound with 32
+//     or 16 lanes, not 16 (group_lower_bound);
 //   * a scatter with no dependent read of device memory: a thread loads
-//     two postings at once, doc lengths come from shared memory, and a
-//     doc's owner thread reads its live bit and doc value with 16-byte
-//     loads;
+//     two postings at once, doc lengths come from shared memory, match
+//     flags are bits, and a doc's owner thread reads its live bit, doc
+//     value or bin with 16-byte loads;
 //   * a select with no block-wide rounds: each thread sorts its 8 keys,
 //     each warp takes the top min(k, its matches) of its 256 contiguous
 //     docs with one __reduce_max_sync a round, and warp 0 merges the 4
-//     sorted lists the same way.
+//     sorted lists the same way (finish_tile);
 // A (row, tile) takes 3 block barriers (bool with more than 3 terms: 2 more
-// a pass of 3 terms).
+// a pass of 3 terms; facet_hist 4, match-all 2).
 
-#include "tile_topk.cuh"
+#include "warp_select.cuh"
 
 #define FACET_SHARED_BINS 8192  // above this, facet_hist counts in device memory
-
-// Threads 0 and 1 write range[0..2): the positions in row docs[0..len) of
-// the first doc >= base and the first doc >= base + TILE.  The caller
-// synchronises before reading them.
-__device__ __forceinline__ void tile_range(const int* __restrict__ docs,
-                                           int len, int base, int* range) {
-  if (threadIdx.x < 2) range[threadIdx.x] = lower_bound(docs, len, base + threadIdx.x * TILE);
-}
-
-// ---------------------------------------------------------------------------
-// bool_topk and sort_topk: flat work items, many-way search, warp selects
-// ---------------------------------------------------------------------------
-
-#define DT_THREADS 128                  // threads of a bool/sort block
-#define DT_WARPS (DT_THREADS / 32)
-#define DT_DPT (TILE / DT_THREADS)      // contiguous docs a thread owns
-#define DT_WARP_DOCS (32 * DT_DPT)      // contiguous docs a warp owns
 #define BOOL_PASS 3                     // bool terms scattered per pass
-#define SORT_LANES 32                   // lanes of a sort_topk search group
+#define SORT_LANES 32                   // lanes of a sort_topk / facet_hist search group
 #define SCATTER_BATCH 2                 // postings a thread loads at once
-#define NO_KEY (-2147483647 - 1)        // below every order_key
 
-static_assert(DT_DPT % 4 == 0, "a thread's docs are whole 16-byte loads");
-static_assert(DT_WARPS <= 32, "warp 0 merges one list a lane");
-
-// lanes of a search group: the largest power of two <= n, at most 32
-constexpr int group_lanes(int n) {
-  return n >= 32 ? 32 : n >= 16 ? 16 : n >= 8 ? 8 : n >= 4 ? 4 : n >= 2 ? 2 : 1;
-}
 // bool_topk searches a pass's two tile edges of each term at once
 constexpr int BOOL_LANES = group_lanes(DT_THREADS / (2 * BOOL_PASS));
-
-// First i in [0, n) with docs[i] >= key, or n, found by a group of L lanes
-// (aligned, L a power of two <= 32); docs ascend.  Each step the group
-// probes L evenly spaced positions of [lo, hi) at once and keeps the gap
-// that holds the answer, at most 1/(L+1) of the span: ceil(log_{L+1}(n + 1))
-// dependent reads, 4 at 50,000 postings with 16 or 32 lanes.  Every lane of
-// the warp calls it; the groups of a warp may search different rows and
-// keys.  Every lane of a group returns the group's answer.  Mirrored by
-// kernels/doc_topk.py::many_way_lower_bound.
-template <int L>
-__device__ __forceinline__ int group_lower_bound(const int* __restrict__ docs, int n,
-                                                 int key) {
-  const int lane = threadIdx.x & 31;
-  const int j = lane & (L - 1);
-  const int first = lane & ~(L - 1);
-  const unsigned group = L == 32 ? 0xffffffffu : ((1u << (L & 31)) - 1u);
-  int lo = 0, hi = n;
-  while (__any_sync(0xffffffffu, lo < hi)) {
-    // probes lo + floor((j + 1) * span / (L + 1)) < hi, in 32 bits
-    const int span = hi - lo;
-    const int q = span / (L + 1);
-    const int p = lo + q * (j + 1) + (span - q * (L + 1)) * (j + 1) / (L + 1);
-    const bool less = span > 0 && docs[p] < key;
-    // probes ascend, so the lanes below the answer form a prefix of the group
-    const int c = __popc((__ballot_sync(0xffffffffu, less) >> first) & group);
-    const int below = __shfl_sync(0xffffffffu, p, first + ((c - 1) & (L - 1)));
-    const int at = __shfl_sync(0xffffffffu, p, first + (c & (L - 1)));
-    if (span > 0) {
-      if (c > 0) lo = below + 1;
-      if (c < L) hi = at;
-    }
-  }
-  return lo;
-}
-
-// N ints from p (16-byte aligned) into registers
-template <int N>
-__device__ __forceinline__ void load4(const int* p, int (&out)[N]) {
-  #pragma unroll
-  for (int i = 0; i < N; i += 4) {
-    const int4 x = *reinterpret_cast<const int4*>(p + i);
-    out[i] = x.x;
-    out[i + 1] = x.y;
-    out[i + 2] = x.z;
-    out[i + 3] = x.w;
-  }
-}
-
-// float -> int in the same order, so score descending becomes key
-// descending.  A bijection: key_value gives the float back bit for bit.
-// It ranks -0.0 below +0.0, which the plain versions call equal; no key
-// here is -0.0 (sums start from +0.0, __int2float_rn(0) is +0.0).
-__device__ __forceinline__ int order_key(float v) {
-  const int i = __float_as_int(v);
-  return i >= 0 ? i : i ^ 0x7fffffff;
-}
-
-__device__ __forceinline__ float key_value(int key) {
-  return __int_as_float(key >= 0 ? key : key ^ 0x7fffffff);
-}
-
-// Warp w's sorted candidates of a tile: keys at cand + w * DT_WARP_DOCS,
-// positions MAX_K ints further on.  bool_topk keeps them in the warp's own
-// slice of its score rows, which only that warp reads once it has summed.
-static_assert(DT_WARP_DOCS >= 2 * MAX_K, "a warp's list fits its slice");
-
-// the warp's highest key
-__device__ __forceinline__ int warp_max(int key) {
-  return __reduce_max_sync(0xffffffffu, key);
-}
-
-// The tile's winners from each thread's keys (order_key of its docs' scores,
-// NO_KEY where a doc does not match) and match count c.  Thread t owns tile
-// positions [DT_DPT t, DT_DPT (t + 1)), so lane order is position order.
-// Each thread sorts its keys (a stable bubble network: key descending,
-// position ascending); then each round a warp takes the highest head key
-// with one warp_max, and the first lane that holds it holds the winner
-// (Lucene's tie-break: the lower doc), which shifts its list.  Each warp
-// selects the top min(k, its matches) of its slice that way, one barrier,
-// then warp 0 merges the warps' sorted lists (lane w follows list w) the
-// same way, one output a round.  Writes the slot's k winners (score
-// descending, doc ascending; (-inf, -1) past the matches) and its count.
-// The caller separates two calls with a barrier.
-__device__ __forceinline__ void finish_tile(int (&key)[DT_DPT], int c, int k, int base,
-                                            int64_t slot, float* __restrict__ out_vals,
-                                            int* __restrict__ out_ids,
-                                            int* __restrict__ out_cnt, int* cand,
-                                            int* wn) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  int pos[DT_DPT];
-  #pragma unroll
-  for (int i = 0; i < DT_DPT; ++i) pos[i] = threadIdx.x * DT_DPT + i;
-  #pragma unroll
-  for (int a = 0; a < DT_DPT - 1; ++a) {
-    #pragma unroll
-    for (int j = 0; j < DT_DPT - 1 - a; ++j) {
-      if (key[j + 1] > key[j]) {
-        const int tk = key[j], tp = pos[j];
-        key[j] = key[j + 1];
-        pos[j] = pos[j + 1];
-        key[j + 1] = tk;
-        pos[j + 1] = tp;
-      }
-    }
-  }
-  const int wc = __reduce_add_sync(0xffffffffu, c);
-  const int wrounds = wc < k ? wc : k;
-  for (int r = 0; r < wrounds; ++r) {
-    const int top = warp_max(key[0]);
-    if (lane == __ffs(__ballot_sync(0xffffffffu, key[0] == top)) - 1) {
-      cand[warp * DT_WARP_DOCS + r] = key[0];
-      cand[warp * DT_WARP_DOCS + MAX_K + r] = pos[0];
-      #pragma unroll
-      for (int i = 0; i < DT_DPT - 1; ++i) {
-        key[i] = key[i + 1];
-        pos[i] = pos[i + 1];
-      }
-      key[DT_DPT - 1] = NO_KEY;
-    }
-  }
-  if (lane == 0) wn[warp] = wc;
-  __syncthreads();  // the warps' lists and counts
-  int n_valid = 0;
-  #pragma unroll
-  for (int w = 0; w < DT_WARPS; ++w) n_valid += wn[w];
-  const int rounds = n_valid < k ? n_valid : k;
-  float* ov = out_vals + slot * k;
-  int* oi = out_ids + slot * k;
-  if (threadIdx.x == 0) out_cnt[slot] = n_valid;
-  for (int r = rounds + threadIdx.x; r < k; r += DT_THREADS) {  // no winner
-    ov[r] = -CUDART_INF_F;
-    oi[r] = -1;
-  }
-  if (warp != 0) return;
-  // list w holds positions below list w + 1's, so the first lane with the
-  // top key again holds the winner; a lane keeps its list's next entry
-  // in registers
-  const int m = lane < DT_WARPS ? min(wn[lane], k) : 0;
-  const int* ck = cand + lane * DT_WARP_DOCS;
-  const int* cp = ck + MAX_K;
-  int hk = m > 0 ? ck[0] : NO_KEY;
-  int hp = m > 0 ? cp[0] : 0;
-  int nk = m > 1 ? ck[1] : NO_KEY;
-  int np = m > 1 ? cp[1] : 0;
-  for (int r = 0, h = 1; r < rounds; ++r) {
-    const int top = warp_max(hk);
-    if (lane == __ffs(__ballot_sync(0xffffffffu, hk == top)) - 1) {
-      ov[r] = key_value(hk);
-      oi[r] = base + hp;
-      hk = nk;
-      hp = np;
-      ++h;
-      nk = h < m ? ck[h] : NO_KEY;
-      np = h < m ? cp[h] : 0;
-    }
-  }
-}
 
 // grid: at most the blocks the card holds at once; block x takes the work
 // items x, x + gridDim.x, ... (item = row * n_tiles + tile).  starts/
@@ -397,7 +216,7 @@ __global__ void __launch_bounds__(DT_THREADS) bool_topk_kernel(
       key[i] = ok ? order_key(sum[i]) : NO_KEY;
       c += ok;
     }
-    finish_tile(key, c, k, base, item, out_vals, out_ids, out_cnt,
+    finish_tile(key, c, k, PosFrom{base + q0}, item, out_vals, out_ids, out_cnt,
                 &score[0][0], wn);
   }
 }
@@ -459,7 +278,7 @@ __global__ void __launch_bounds__(DT_THREADS, 12) sort_topk_kernel(
       key[i] = ok ? order_key(__int2float_rn(v[i])) : NO_KEY;
       c += ok;
     }
-    finish_tile(key, c, k, base, item, out_vals, out_ids, out_cnt, cand, wn);
+    finish_tile(key, c, k, PosFrom{base + q0}, item, out_vals, out_ids, out_cnt, cand, wn);
   }
 }
 
@@ -522,55 +341,111 @@ __global__ void __launch_bounds__(THREADS) range_topk_kernel(
   }
 }
 
-// grid (n_tiles, B); hist (B, n_bins) int32, zeroed by the caller.  With
-// match_all the one row's matched set is the live bitmap and starts/lengths
-// are not read.  Dynamic shared memory: n_bins ints when shared_bins.
-__global__ void __launch_bounds__(THREADS) facet_hist_kernel(
+// grid: at most the blocks the card holds at once; block x takes the work
+// items x, x + gridDim.x, ... (item = row * n_tiles + tile).  live/bins
+// (ND_pad,), 16-byte aligned; starts/lengths (B,), not read with
+// match_all (one row whose matched set is the live bitmap).  scratch: B
+// tickets, then a (B, n_bins) int32 histogram; zero on entry, and the
+// kernel leaves it zero.  Dynamic shared memory: n_bins ints when
+// shared_bins, else the tile counts straight into the scratch row.  Held
+// to 12 blocks an SM, as sort_topk: 132 SMs then hold the main path's 32 x
+// 49 items at once, one a block (at 9 an SM, 380 blocks took two).
+__global__ void __launch_bounds__(DT_THREADS, 12) facet_hist_kernel(
     const int* __restrict__ csr_docs, const int* __restrict__ csr_freqs,
     const int* __restrict__ live, const int* __restrict__ bins,
     const int* __restrict__ starts, const int* __restrict__ lengths,
-    int match_all, int n_bins, int shared_bins, int n_tiles,
-    int* __restrict__ out_hist, int* __restrict__ out_cnt) {
+    int match_all, int n_bins, int shared_bins, int n_tiles, int n_items,
+    int* __restrict__ scratch, float* __restrict__ out_hist,
+    int* __restrict__ out_cnt) {
   extern __shared__ int hist_s[];
-  __shared__ int matched[TILE];
-  __shared__ int range[2];
-  const int row = blockIdx.y;
-  const int base = blockIdx.x * TILE;
-  const int64_t slot = (int64_t)row * n_tiles + blockIdx.x;
-  int* row_hist = out_hist + (int64_t)row * n_bins;
-  int* hist = shared_bins ? hist_s : row_hist;
+  __shared__ unsigned matched[TILE / 32];  // bit j of word w: doc 32 w + j has a posting
+  __shared__ int wn[DT_WARPS];
+  __shared__ int bound_s[2];
+  const int q0 = threadIdx.x * DT_DPT;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_rows = n_items / n_tiles;
+  int* tickets = scratch;
   if (shared_bins) {
-    for (int i = threadIdx.x; i < n_bins; i += THREADS) hist_s[i] = 0;
+    for (int i = threadIdx.x; i < n_bins; i += DT_THREADS) hist_s[i] = 0;
   }
-  if (!match_all) {
-    #pragma unroll
-    for (int j = 0; j < PER_THREAD; ++j) matched[threadIdx.x + j * THREADS] = 0;
-    const int* docs = csr_docs + starts[row];
-    const int* freqs = csr_freqs + starts[row];
-    tile_range(docs, lengths[row], base, range);
-    __syncthreads();
-    const int hi = range[1];
-    for (int i = range[0] + threadIdx.x; i < hi; i += THREADS) {
-      if (freqs[i] > 0) matched[docs[i] - base] = 1;
-    }
-  }
+  // the zeroed bins before the first item's adds: a match_all item has no
+  // barrier ahead of them
   __syncthreads();
-  int c = 0;
-  #pragma unroll
-  for (int j = 0; j < PER_THREAD; ++j) {
-    const int i = threadIdx.x + j * THREADS;
-    if ((match_all || matched[i]) && live[base + i] > 0) {
-      ++c;
-      const int bin = max(bins[base + i], 0);
-      if (bin < n_bins) atomicAdd(&hist[bin], 1);
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const int row = item / n_tiles;
+    const int base = (item - row * n_tiles) * TILE;
+    int* row_scratch = scratch + n_rows + (int64_t)row * n_bins;
+    int* hist = shared_bins ? hist_s : row_scratch;
+    int lv[DT_DPT], bn[DT_DPT];
+    load4(live + base + q0, lv);
+    load4(bins + base + q0, bn);
+    unsigned m = 0xffu;  // bit i: doc q0 + i is matched
+    if (!match_all) {
+      if (threadIdx.x < TILE / 32) matched[threadIdx.x] = 0u;
+      const int st = starts[row];
+      // warps 0 and 1 find the tile's two edges
+      const int r = group_lower_bound<SORT_LANES>(csr_docs + st, warp < 2 ? lengths[row] : 0,
+                                                  base + warp * TILE);
+      if (warp < 2 && lane == 0) bound_s[warp] = r;
+      __syncthreads();  // the bounds and the cleared flags
+      const int hi = st + bound_s[1];
+      for (int i0 = st + bound_s[0] + threadIdx.x; i0 < hi; i0 += SCATTER_BATCH * DT_THREADS) {
+        int fq[SCATTER_BATCH], d[SCATTER_BATCH];
+        #pragma unroll
+        for (int x = 0; x < SCATTER_BATCH; ++x) {  // the batch's loads, all in flight
+          const int i = i0 + x * DT_THREADS;
+          fq[x] = i < hi ? csr_freqs[i] : 0;
+          d[x] = i < hi ? csr_docs[i] : base;
+        }
+        #pragma unroll
+        for (int x = 0; x < SCATTER_BATCH; ++x)
+          if (fq[x] > 0) atomicOr(&matched[(d[x] - base) >> 5], 1u << ((d[x] - base) & 31));
+      }
+      __syncthreads();  // the flags
+      m = (matched[threadIdx.x / 4] >> (8 * (threadIdx.x & 3))) & 0xffu;
     }
-  }
-  const int n_matched = block_count(c);  // its barrier also ends the shared adds
-  if (threadIdx.x == 0) out_cnt[slot] = n_matched;
-  if (shared_bins) {
-    for (int i = threadIdx.x; i < n_bins; i += THREADS) {
-      const int v = hist_s[i];
-      if (v) atomicAdd(&row_hist[i], v);
+    int c = 0;
+    #pragma unroll
+    for (int i = 0; i < DT_DPT; ++i) {
+      const bool hit = ((m >> i) & 1u) && lv[i] > 0;
+      c += hit;
+      const int bin = max(bn[i], 0);
+      if (hit && bin < n_bins) atomicAdd(&hist[bin], 1);  // integers: exact, order-free
+    }
+    c = __reduce_add_sync(0xffffffffu, c);
+    if (lane == 0) wn[warp] = c;
+    __syncthreads();  // the tile's counts; the flags' last reads
+    int n_matched = 0;
+    #pragma unroll
+    for (int w = 0; w < DT_WARPS; ++w) n_matched += wn[w];
+    if (shared_bins) {  // into the row's scratch histogram, leaving zeros
+      for (int i = threadIdx.x; i < n_bins; i += DT_THREADS) {
+        const int v = hist_s[i];
+        if (v) {
+          atomicAdd(&row_scratch[i], v);
+          hist_s[i] = 0;
+        }
+      }
+    }
+    __syncthreads();  // this tile's adds are done
+    if (warp == 0) {
+      // the last tile of the row to finish writes the row's float32
+      // counts and leaves its scratch and ticket zero for the next call
+      int last = 0;
+      if (lane == 0) {
+        out_cnt[item] = n_matched;
+        // cumulative: orders the block's adds, which the barrier showed
+        // this thread, before its ticket (a release, as a semaphore's)
+        __threadfence();
+        last = atomicAdd(&tickets[row], 1) == n_tiles - 1;
+      }
+      if (__shfl_sync(0xffffffffu, last, 0)) {
+        __threadfence();
+        float* out = out_hist + (int64_t)row * n_bins;
+        for (int i = lane; i < n_bins; i += 32) out[i] = (float)atomicExch(&row_scratch[i], 0);
+        if (lane == 0) tickets[row] = 0;
+      }
     }
   }
 }
@@ -586,15 +461,19 @@ int doc_topk_layout(int which) {
   return which >= 0 && which < 4 ? layout[which] : -1;
 }
 
-// blocks of bool_topk (which = 0) or sort_topk (1) that one SM holds at
-// once (0 on error): the launch's grid is at most this times the SMs
-int doc_topk_blocks_per_sm(int which) {
+// blocks of bool_topk (which = 0), sort_topk (1) or facet_hist (2, with
+// smem bytes of dynamic shared memory) that one SM holds at once (0 on
+// error): the launch's grid is at most this times the SMs
+int doc_topk_blocks_per_sm(int which, int smem) {
   int blocks = 0;
-  const cudaError_t err =
-      which == 0 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, bool_topk_kernel,
-                                                                 DT_THREADS, 0)
-                 : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, sort_topk_kernel,
-                                                                 DT_THREADS, 0);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (which == 0)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, bool_topk_kernel, DT_THREADS, 0);
+  else if (which == 1)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, sort_topk_kernel, DT_THREADS, 0);
+  else if (which == 2)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, facet_hist_kernel, DT_THREADS,
+                                                        (size_t)smem);
   return err == cudaSuccess ? blocks : 0;
 }
 
@@ -639,17 +518,22 @@ int range_topk(const int* dv, const int* live, const int* los, const int* his,
   return (int)cudaGetLastError();
 }
 
+// n_blocks: the grid (kernels/doc_topk.py::grid_blocks), clipped to the
+// n_rows * n_tiles work items; scratch: n_rows + n_rows * n_bins zeroed
+// ints, left zero
 int facet_hist(const int* csr_docs, const int* csr_freqs, const int* live,
                const int* bins, const int* starts, const int* lengths,
-               int match_all, int n_bins, int n_rows, int n_tiles,
-               int* out_hist, int* out_cnt, void* stream) {
+               int match_all, int n_bins, int n_rows, int n_tiles, int n_blocks,
+               int* scratch, float* out_hist, int* out_cnt, void* stream) {
   if (n_rows <= 0 || n_tiles <= 0 || n_bins <= 0) return 0;
+  if (n_blocks <= 0) return (int)cudaErrorInvalidValue;
   const int shared_bins = n_bins <= FACET_SHARED_BINS;
   const size_t smem = shared_bins ? (size_t)n_bins * sizeof(int) : 0;
-  dim3 grid(n_tiles, n_rows);
-  facet_hist_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      csr_docs, csr_freqs, live, bins, starts, lengths, match_all, n_bins,
-      shared_bins, n_tiles, out_hist, out_cnt);
+  const int n_items = n_rows * n_tiles;
+  facet_hist_kernel<<<n_blocks < n_items ? n_blocks : n_items, DT_THREADS, smem,
+                      (cudaStream_t)stream>>>(
+      csr_docs, csr_freqs, live, bins, starts, lengths, match_all, n_bins, shared_bins,
+      n_tiles, n_items, scratch, out_hist, out_cnt);
   return (int)cudaGetLastError();
 }
 

@@ -213,9 +213,6 @@ def _check(q, k, v, kv_len):
 
 
 _checked = []  # the library once its constants matched this module's
-#: per (device, stream): int32 ticket counters, zero between calls (the
-#: kernel's last block of a row resets its own)
-_tickets: Dict[tuple, torch.Tensor] = {}
 
 
 def _library():
@@ -239,16 +236,6 @@ def _blocks_per_sm(lib, dev_index: int, bf16: bool, b: int, d: int, dv: int,
     if blocks <= 0:
         raise RuntimeError(f"decode_attn: no block of {plan} fits an SM")
     return blocks
-
-
-def _ticket_counters(dev: torch.device, stream: int, n: int) -> torch.Tensor:
-    """At least ``n`` zeroed counters for launches on ``stream``: allocated
-    (and zeroed) once, grown when a call needs more."""
-    key = (dev.index, stream)
-    t = _tickets.get(key)
-    if t is None or t.numel() < n:
-        t = _tickets[key] = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
-    return t
 
 
 def decode_attn(q, k, v, kv_len=None, split: Optional[int] = None):
@@ -284,7 +271,9 @@ def decode_attn(q, k, v, kv_len=None, split: Optional[int] = None):
     n_ml = pieces * 2 * plan.hb
     part = torch.empty(n_ml + pieces * plan.hb * dv, dtype=torch.float32, device=dev)
     stream = runtime.stream_of(out)
-    tickets = _ticket_counters(dev, stream, segments)
+    # ticket counters, zero between calls: the last block of a segment
+    # resets its own
+    tickets = runtime.zeroed_scratch("decode_attn", dev, stream, segments)
     strides = (ctypes.c_longlong * 10)(*q.stride(), *k.stride()[:3], *v.stride()[:3])
     with torch.cuda.device(dev):
         code = lib.decode_attn(

@@ -26,11 +26,15 @@ definition.  It follows the reference's cores (``repro/core/query/exec.py:
   * facet bins follow ``jnp.bincount``: negative bins count in bin 0, bins
     >= n_bins are dropped.
 
-``bool_topk`` and ``sort_topk`` launch at most the blocks the card holds at
-once (``grid_blocks``); each block walks the flat (row, tile) work items
-``work_schedule`` lists and finds a term's sub-range of a tile with the
-many-way search ``many_way_lower_bound`` mirrors.  Both mirrors are for the
-tests; the kernels compute the same on the card.
+``bool_topk``, ``sort_topk`` and ``facet_hist`` launch at most the blocks
+the card holds at once (``grid_blocks``); each block walks the flat (row,
+tile) work items ``work_schedule`` lists and finds a term's sub-range of a
+tile with the many-way search ``many_way_lower_bound`` mirrors.  Both
+mirrors are for the tests; the kernels compute the same on the card.
+``facet_hist`` is one launch a call: its rows count into an int32 scratch
+histogram that stays zero between calls (``runtime.zeroed_scratch``), and
+the last tile of a row to finish writes the row's float32 counts and
+zeroes its scratch.
 
 Every wrapper takes the plain version for CPU tensors only; a CUDA tensor
 launches the kernel or raises.  ``launches`` counts kernel launches.
@@ -46,6 +50,7 @@ import torch
 
 from repro_torch.kernels import runtime
 from repro_torch.kernels.term_topk import (
+    THREADS,
     TILE,
     _tile_topk_plain,
     bm25,
@@ -56,9 +61,11 @@ from repro_torch.kernels.term_topk import (
     scalars,
 )
 
-#: kernel launches, by kernel name; reset with ``reset_launches``
+#: kernel launches, by kernel name, and facet_hist's match-all launches
+#: among its own; reset with ``reset_launches``
 launches: Dict[str, int] = {
     "bool_topk": 0, "sort_topk": 0, "range_topk": 0, "facet_hist": 0,
+    "facet_hist_match_all": 0,
 }
 
 
@@ -67,16 +74,14 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
-#: threads of a bool_topk / sort_topk block (``csrc/doc_topk.cu`` DT_THREADS)
-DOC_THREADS = 128
 #: bool terms a block scatters per pass, each searched by two lane groups
 BOOL_PASS = 3
 #: lanes of one search group (a power of two, at most 32): bool_topk's,
 #: sort_topk's
-BOOL_LANES = min(32, 1 << (DOC_THREADS // (2 * BOOL_PASS)).bit_length() - 1)
+BOOL_LANES = min(32, 1 << (THREADS // (2 * BOOL_PASS)).bit_length() - 1)
 SORT_LANES = 32
 #: the layout above, as the library's ``doc_topk_layout`` returns it
-LAYOUT = (DOC_THREADS, BOOL_PASS, BOOL_LANES, SORT_LANES)
+LAYOUT = (THREADS, BOOL_PASS, BOOL_LANES, SORT_LANES)
 
 
 # ---------------------------------------------------------------------------
@@ -102,37 +107,53 @@ def many_way_lower_bound(docs, key: int, lanes: int) -> Tuple[int, int]:
 
 
 def work_schedule(n_rows: int, n_tiles: int, n_blocks: int) -> List[Tuple[int, int, int]]:
-    """``[(block, row, tile)]`` in the order each block works: block x takes
-    the items x, x + grid, ... of ``item = row * n_tiles + tile``, grid =
-    min(n_blocks, items)."""
+    """``[(block, row, tile)]`` in the order each block of ``bool_topk``,
+    ``sort_topk`` or ``facet_hist`` works: block x takes the items x, x +
+    grid, ... of ``item = row * n_tiles + tile``, grid = min(n_blocks,
+    items)."""
     items = n_rows * n_tiles
     grid = min(n_blocks, items)
     return [(x, item // n_tiles, item % n_tiles)
             for x in range(grid) for item in range(x, items, grid)]
 
 
+#: facet_hist counts a row's tile in shared memory up to this many bins,
+#: above it in device memory (``FACET_SHARED_BINS`` in the .cu)
+FACET_SHARED_BINS = 8192
+
+
+def facet_smem(n_bins: int) -> int:
+    """Bytes of dynamic shared memory of a facet_hist launch."""
+    return 4 * n_bins if n_bins <= FACET_SHARED_BINS else 0
+
+
 @functools.lru_cache(maxsize=None)
-def blocks_per_sm(kind: str, dev_index: int) -> int:
-    """Blocks of ``bool_topk`` or ``sort_topk`` one SM holds at once, from
-    the occupancy API.  Raises if the built library's block layout is not
+def blocks_per_sm(kind: str, dev_index: int, smem: int = 0) -> int:
+    """Blocks of ``bool_topk``, ``sort_topk`` or ``facet_hist`` (with
+    ``smem`` bytes of dynamic shared memory) one SM holds at once, from the
+    occupancy API.  Raises if the built library's block layout is not
     ``LAYOUT``, which the mirrors assume."""
     lib = library()
     built = tuple(lib.doc_topk_layout(i) for i in range(len(LAYOUT)))
     if built != LAYOUT:
         raise RuntimeError(f"csrc block layout {built} != the mirrors' {LAYOUT}")
+    if lib.facet_shared_bins() != FACET_SHARED_BINS:
+        raise RuntimeError(f"csrc FACET_SHARED_BINS {lib.facet_shared_bins()} "
+                           f"!= {FACET_SHARED_BINS}")
+    which = {"bool_topk": 0, "sort_topk": 1, "facet_hist": 2}[kind]
     with torch.cuda.device(dev_index):
-        n = lib.doc_topk_blocks_per_sm({"bool_topk": 0, "sort_topk": 1}[kind])
+        n = lib.doc_topk_blocks_per_sm(which, smem)
     if n <= 0:
         raise RuntimeError(f"{kind}: no block fits an SM")
     return n
 
 
-def grid_blocks(kind: str, n_items: int, dev: torch.device) -> int:
+def grid_blocks(kind: str, n_items: int, dev: torch.device, smem: int = 0) -> int:
     """The grid of one launch: the blocks the card holds at once, at most
     one a work item, so the launch runs in one wave."""
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    held = blocks_per_sm(kind, index) * runtime.sm_count(torch.device("cuda", index))
-    return max(1, min(n_items, held))
+    return runtime.one_wave(n_items, blocks_per_sm(kind, index, smem),
+                            torch.device("cuda", index))
 
 
 # ---------------------------------------------------------------------------
@@ -398,14 +419,21 @@ def facet_hist_tiles(csr_docs, csr_freqs, live, bins, starts, lengths,
     if dev.type == "cpu":
         return facet_hist_tiles_plain(csr_docs, csr_freqs, live, bins, starts,
                                       lengths, n_bins)
+    _check_aligned(live=live, bins=bins)
     rows = 1 if match_all else starts.shape[0]
-    hist = torch.zeros((rows, n_bins), dtype=torch.int32, device=dev)
+    items = rows * n_tiles
+    hist = torch.empty((rows, n_bins), dtype=torch.float32, device=dev)
     cnt = torch.empty((rows, n_tiles), dtype=torch.int32, device=dev)
+    # per row: a ticket, then n_bins counters
+    scratch = runtime.zeroed_scratch("facet_hist", dev, runtime.stream_of(hist),
+                                     rows + rows * n_bins)
     rows_ptr = (None, None) if match_all else (starts.data_ptr(), lengths.data_ptr())
     _launch("facet_hist", hist, csr_docs.data_ptr(), csr_freqs.data_ptr(),
             live.data_ptr(), bins.data_ptr(), *rows_ptr, int(match_all), n_bins,
-            rows, n_tiles, hist.data_ptr(), cnt.data_ptr())
-    return hist.float(), cnt
+            rows, n_tiles, grid_blocks("facet_hist", items, dev, facet_smem(n_bins)),
+            scratch.data_ptr(), hist.data_ptr(), cnt.data_ptr())
+    launches["facet_hist_match_all"] += match_all
+    return hist, cnt
 
 
 __all__ = [
@@ -414,6 +442,7 @@ __all__ = [
     "many_way_lower_bound",
     "work_schedule",
     "grid_blocks",
+    "facet_smem",
     "bool_dense",
     "matched_docs",
     "sort_keys",

@@ -155,14 +155,16 @@ def library() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_build()))
             vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             sigs = {  # name: argument types; every launch returns a CUDA error code
-                "term_topk": [vp] * 6 + [f32] * 3 + [i32] * 3 + [vp] * 4,
+                "term_topk": [vp] * 6 + [f32] * 3 + [i32] * 4 + [vp] * 4,
+                "term_topk_blocks_per_sm": [],
+                "term_topk_layout": [i32],
                 "bm25_topk": [vp] * 3 + [f32] * 4 + [i32] * 2 + [vp] * 3,
                 "bool_topk": [vp] * 6 + [f32] * 3 + [i32] * 6 + [vp] * 4,
                 "sort_topk": [vp] * 6 + [i32] * 4 + [vp] * 4,
-                "doc_topk_blocks_per_sm": [i32],
+                "doc_topk_blocks_per_sm": [i32, i32],
                 "doc_topk_layout": [i32],
                 "range_topk": [vp] * 4 + [i32] * 3 + [vp] * 4,
-                "facet_hist": [vp] * 6 + [i32] * 4 + [vp] * 3,
+                "facet_hist": [vp] * 6 + [i32] * 5 + [vp] * 4,
                 "vector_topk": [vp, i32, i32, vp, vp] + [i32] * 4 + [vp] * 5,
                 "hybrid_topk": ([vp, i32, i32, vp, vp, i32] + [vp] * 6
                                 + [f32] * 3 + [i32] * 3 + [vp] * 5),
@@ -204,3 +206,26 @@ def sm_count(device: torch.device) -> int:
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def one_wave(n_items: int, blocks_per_sm: int, device: torch.device) -> int:
+    """The grid of a one-wave launch: the blocks the card holds at once
+    (``blocks_per_sm`` from the occupancy API, times the SMs), at most one
+    a work item."""
+    return max(1, min(n_items, blocks_per_sm * sm_count(device)))
+
+
+_scratch = {}  # (owner, device index, stream) -> zeroed int32 tensor
+
+
+def zeroed_scratch(owner: str, dev: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` int32 zeros for ``owner``'s launches on ``stream``,
+    which its kernel leaves zero: allocated (and zeroed) once, grown when a
+    call needs more."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    key = (owner, index, stream)
+    t = _scratch.get(key)
+    if t is None or t.numel() < n:
+        t = _scratch[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                        device=torch.device("cuda", index))
+    return t

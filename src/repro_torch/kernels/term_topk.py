@@ -16,6 +16,11 @@ Every wrapper takes the plain version for CPU tensors only; a CUDA tensor
 launches the kernel or raises.  ``launches`` counts kernel launches per
 kernel (plain calls are not counted).
 
+``term_topk`` launches at most the blocks the card holds at once
+(``grid_blocks``) over the tiles that hold postings; the tiles past a row's
+end get their empty winners from a store loop every block shares.
+``locate_item`` and ``work_items`` mirror that schedule for the tests.
+
 The score is ``idf * (tf*(k1+1)) / fma(k1, (1-b) + (b*dl)/avgdl, tf)`` in
 float32 with exactly one fused multiply-add, which is what XLA:CPU computes
 for the JAX package's ``bm25`` (``repro/core/query/exec.py:58``).  PyTorch
@@ -26,13 +31,16 @@ rounded once from the Python doubles, as they reach the reference.
 
 from __future__ import annotations
 
+import functools
+import itertools
 from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.kernels import runtime
 
-#: postings per tile: one thread block of the kernel (``TILE`` in the .cu)
+#: postings (or docs) per tile, the unit of a kernel's per-tile winners
+#: (``TILE`` in the .cu)
 TILE = 1024
 #: widest per-tile winner row the kernels take (``MAX_K`` in the .cu); a
 #: larger k goes to the PyTorch selection path
@@ -40,6 +48,13 @@ MAX_K = 128
 
 #: kernel launches, by kernel name; reset with ``reset_launches``
 launches: Dict[str, int] = {"term_topk": 0, "bm25_topk": 0}
+
+#: threads of a term_topk block and the contiguous postings each owns
+#: (``csrc/warp_select.cuh`` DT_THREADS, DT_DPT), as the library's
+#: ``term_topk_layout`` returns them
+THREADS = 128
+PER_THREAD = TILE // THREADS
+LAYOUT = (THREADS, PER_THREAD)
 
 
 def reset_launches() -> None:
@@ -182,6 +197,69 @@ def library():
     return lib
 
 
+def row_tiles(lengths, n_tiles: int):
+    """Tiles of each row that hold postings, at most ``n_tiles``."""
+    return [min(-(-int(n) // TILE), n_tiles) for n in lengths]
+
+
+def locate_item(lengths, n_tiles: int, item: int) -> Tuple[int, int, int]:
+    """(items, row, tile) as the kernel's ``locate_item`` finds them: the
+    items are the tiles that hold postings, row by row; a warp scans the
+    rows' tile counts 32 rows at a time, carrying the sum, and the first
+    lane whose inclusive prefix passes ``item`` holds its row.  row is -1
+    when item >= items."""
+    tiles = row_tiles(lengths, n_tiles)
+    carry, row, tile = 0, -1, 0
+    for r0 in range(0, len(tiles), 32):
+        chunk = tiles[r0:r0 + 32]
+        incl = list(itertools.accumulate(chunk))
+        past = [lane for lane, v in enumerate(incl) if item < carry + v]
+        if row < 0 and past:
+            row = r0 + past[0]
+            tile = item - carry - (incl[past[0]] - chunk[past[0]])
+        carry += incl[-1]
+    return carry, row, tile
+
+
+def work_items(lengths, n_tiles: int, n_blocks: int, k: int):
+    """What each block of ``term_topk`` does, grid = min(n_blocks, rows *
+    n_tiles): (``[(block, row, tile)]``, the items in the order each block
+    takes them, block x taking items x, x + grid, ...; ``[(block, row,
+    tile, entry)]``, each of the k entries of a slot past its row's end and
+    the block whose thread stores it: flat entry e = slot * k + entry goes
+    to thread e of the grid's threads, cyclically)."""
+    tiles = row_tiles(lengths, n_tiles)
+    grid = max(1, min(n_blocks, len(tiles) * n_tiles))
+    n_items = locate_item(lengths, n_tiles, 0)[0]
+    sched = [(x, *locate_item(lengths, n_tiles, i)[1:])
+             for x in range(grid) for i in range(x, n_items, grid)]
+    empty = [(((r * n_tiles + t) * k + j) // THREADS % grid, r, t, j)
+             for r, n in enumerate(tiles) for t in range(n, n_tiles) for j in range(k)]
+    return sched, empty
+
+
+@functools.lru_cache(maxsize=None)
+def blocks_per_sm(dev_index: int) -> int:
+    """Blocks of ``term_topk`` one SM holds at once, from the occupancy
+    API.  Raises if the built library's block layout is not ``LAYOUT``."""
+    lib = library()
+    built = tuple(lib.term_topk_layout(i) for i in range(len(LAYOUT)))
+    if built != LAYOUT:
+        raise RuntimeError(f"csrc term_topk layout {built} != the mirrors' {LAYOUT}")
+    with torch.cuda.device(dev_index):
+        n = lib.term_topk_blocks_per_sm()
+    if n <= 0:
+        raise RuntimeError("term_topk: no block fits an SM")
+    return n
+
+
+def grid_blocks(n_slots: int, dev: torch.device) -> int:
+    """The grid of one ``term_topk`` launch: the blocks the card holds at
+    once, at most one a (row, tile) slot."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return runtime.one_wave(n_slots, blocks_per_sm(index), torch.device("cuda", index))
+
+
 def term_topk_tiles(csr_docs, csr_freqs, dl_live, starts, lengths, idfs,
                     avgdl: float, k1: float, b: float, p: int, k: int):
     """Per-tile BM25 top-k of B query rows over a segment's CSR.
@@ -207,6 +285,8 @@ def term_topk_tiles(csr_docs, csr_freqs, dl_live, starts, lengths, idfs,
     if p <= 0 or p % TILE:
         raise ValueError(f"p={p} must be a positive multiple of {TILE}")
     check_k(k)
+    if rows * (p // TILE) * k >= 2 ** 30:
+        raise ValueError(f"{rows} rows x {p // TILE} tiles x k={k} winners reach 2^30")
     if dev.type == "cpu":
         return term_topk_tiles_plain(csr_docs, csr_freqs, dl_live, starts,
                                      lengths, idfs, avgdl, k1, b, p, k)
@@ -218,8 +298,9 @@ def term_topk_tiles(csr_docs, csr_freqs, dl_live, starts, lengths, idfs,
     with torch.cuda.device(dev):
         code = lib.term_topk(
             csr_docs.data_ptr(), csr_freqs.data_ptr(), dl_live.data_ptr(), starts.data_ptr(),
-            lengths.data_ptr(), idfs.data_ptr(), avgdl, k1, b, rows, nb, k,
-            vals.data_ptr(), ids.data_ptr(), cnt.data_ptr(), runtime.stream_of(vals),
+            lengths.data_ptr(), idfs.data_ptr(), avgdl, k1, b, rows, nb,
+            grid_blocks(rows * nb, dev), k, vals.data_ptr(), ids.data_ptr(), cnt.data_ptr(),
+            runtime.stream_of(vals),
         )
     runtime.check(lib, code, "term_topk launch")
     launches["term_topk"] += 1
@@ -294,6 +375,9 @@ def bm25_topk(docs, freqs, doc_lens, live, idf, avgdl, k1, b, k: int):
 __all__ = [
     "TILE",
     "MAX_K",
+    "THREADS",
+    "PER_THREAD",
+    "LAYOUT",
     "launches",
     "reset_launches",
     "fma_f32",
@@ -304,6 +388,10 @@ __all__ = [
     "check_tensor",
     "check_k",
     "library",
+    "row_tiles",
+    "locate_item",
+    "work_items",
+    "grid_blocks",
     "term_topk_tiles",
     "term_topk_tiles_plain",
     "bm25_topk_blocks",

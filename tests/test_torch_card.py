@@ -281,8 +281,8 @@ def test_sort_topk_edges_on_card(card, k, n_tiles):
 
 @pytest.mark.gpu
 def test_doc_kernels_reject_unaligned_columns_on_card(card):
-    """bool_topk and sort_topk read the doc-space columns 16 bytes at a
-    time; a column that does not start 16-byte aligned raises."""
+    """bool_topk, sort_topk and facet_hist read the doc-space columns 16
+    bytes at a time; a column that does not start 16-byte aligned raises."""
     z = torch.zeros(kt.TILE + 1, dtype=torch.int32, device=card)[1:]
     s2 = torch.zeros((2, 2), dtype=torch.int32, device=card)
     s1 = torch.zeros(2, dtype=torch.int32, device=card)
@@ -292,6 +292,138 @@ def test_doc_kernels_reject_unaligned_columns_on_card(card):
         dk.bool_topk_tiles(cz, cz, z, s2, s2, idfs, AVGDL, K1, B, True, 10)
     with pytest.raises(ValueError, match="16-byte"):
         dk.sort_topk_tiles(cz, cz, z, cz, s1, s1, 10)
+    with pytest.raises(ValueError, match="16-byte"):
+        dk.facet_hist_tiles(cz, cz, cz, z, s1, s1, 12)
+
+
+def _scratch_is_zero(owner):
+    """Every scratch buffer of ``owner`` is back to zero (after a sync)."""
+    from repro_torch.kernels import runtime
+
+    bufs = [t for key, t in runtime._scratch.items() if key[0] == owner]
+    return bool(bufs) and all(int(t.abs().sum()) == 0 for t in bufs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_bins", [1, 12, 366, 8192, 8193])
+@pytest.mark.parametrize("n_tiles", [1, 64])
+def test_facet_hist_edges_on_card(card, n_bins, n_tiles):
+    """facet_hist against its plain version, 0 ULP and one launch a call:
+    the edge rows of ``_edge_rows`` (an empty row, a row in one tile, docs
+    1,023-1,025, freq-0 postings) and match-all; bins below 0 and at or
+    above n_bins; shared (<= 8,192 bins) and device-memory counters; a
+    one-tile segment and 64 tiles (more items than the card holds at once
+    for 32 rows).  Calls follow each other on one stream with other bins:
+    each must find its scratch zero, and leaves it zero."""
+    rng = np.random.default_rng(3000 + n_bins + n_tiles)
+    rows, nd_pad = 32, n_tiles * kt.TILE
+    n_docs = nd_pad - 37
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(card)
+
+    live = (rng.random(nd_pad) > 0.1).astype(np.int32)
+    live[n_docs:] = 0
+    cd, cf, starts, lengths = _edge_rows(rng, rows, 1, nd_pad, n_docs)
+    if n_tiles > 1:
+        items = rows * n_tiles
+        assert dk.grid_blocks("facet_hist", items, card, dk.facet_smem(n_bins)) < items
+    for call in range(3):
+        bins = rng.integers(-3, n_bins + 4, nd_pad).astype(np.int32)
+        bins[: 2 * call] = -1 - call  # some negative bins in every call
+        for rows_ in ((None, None), (dev(starts[:, 0]), dev(lengths[:, 0]))):
+            args = (dev(cd), dev(cf), dev(live), dev(bins), *rows_, n_bins)
+            n0 = dk.launches["facet_hist"]
+            m0 = dk.launches["facet_hist_match_all"]
+            got = dk.facet_hist_tiles(*args)
+            assert dk.launches["facet_hist"] == n0 + 1
+            assert dk.launches["facet_hist_match_all"] == m0 + (rows_[0] is None)
+            _equal(got, dk.facet_hist_tiles_plain(*args))
+    torch.cuda.synchronize()
+    assert _scratch_is_zero("facet_hist")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_bins", [12, 366])
+def test_facet_hist_match_all_repeated_on_card(card, n_bins):
+    """The match-all row at the main path's segment (49 tiles, month or
+    dayOfYear bins), 200 calls in a row, each 0 ULP against its plain
+    version: a block's first adds must find its shared bins zeroed, which
+    only the barrier after the zeroing ensures on this path."""
+    rng = np.random.default_rng(4000 + n_bins)
+    nd_pad = 49 * kt.TILE
+    live = torch.from_numpy((rng.random(nd_pad) > 0.01).astype(np.int32)).to(card)
+    bins = torch.from_numpy(rng.integers(0, n_bins, nd_pad).astype(np.int32)).to(card)
+    z = torch.zeros(kt.TILE, dtype=torch.int32, device=card)
+    args = (z, z, live, bins, None, None, n_bins)
+    want = dk.facet_hist_tiles_plain(*args)
+    got = [dk.facet_hist_tiles(*args) for _ in range(200)]
+    for g in got:
+        _equal(g, want)
+    torch.cuda.synchronize()
+    assert _scratch_is_zero("facet_hist")
+
+
+def _term_rows(rng, rows, p, n_docs):
+    """CSR rows for term_topk's edge cases: lengths 0, 1,023, 1,024, 1,025
+    and p first, then random up to p; each row starts 0-3 ints past a
+    16-byte boundary; a quarter of row 3's postings have freq 0; row 4's
+    postings share tf 4 (ties, with equal doc lengths set by the caller)."""
+    lengths = ([0, kt.TILE - 1, kt.TILE, kt.TILE + 1, p]
+               + rng.integers(0, p + 1, max(rows - 5, 0)).tolist())[:rows]
+    docs, freqs, starts, at = [], [], [], 0
+    for r, n in enumerate(lengths):
+        gap = int(rng.integers(0, 4)) + (-at) % 4  # the next start, mod 4 = gap mod 4
+        docs.append(np.zeros(gap, np.int64))
+        freqs.append(np.zeros(gap, np.int64))
+        at += gap
+        starts.append(at)
+        d = np.sort(rng.choice(n_docs, size=n, replace=False))
+        f = rng.integers(1, 25, n)
+        if r == 3:
+            f[rng.random(n) < 0.25] = 0
+        if r == 4:
+            f[:] = 4
+        docs.append(d)
+        freqs.append(f)
+        at += n
+    pad = [np.zeros(kt.TILE, np.int64)]
+    return (np.concatenate(docs + pad).astype(np.int32),
+            np.concatenate(freqs + pad).astype(np.int32),
+            np.asarray(starts, np.int32), np.asarray(lengths, np.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 10, 128])
+@pytest.mark.parametrize("rows", [1, 7, 32, 64])
+def test_term_topk_edges_on_card(card, k, rows):
+    """term_topk against its plain version, 0 ULP and one launch a call:
+    rows of 0, 1,023, 1,024, 1,025 and p postings at unaligned CSR starts,
+    freq-0 postings, dead docs, ties (equal tf and doc length), a row width
+    p wider than every row, and more than 32 rows (the item scan's
+    chunks)."""
+    rng = np.random.default_rng(4000 + 10 * k + rows)
+    n_docs, nd_pad, p = 20000, 20 * kt.TILE, 6 * kt.TILE
+    dl = rng.integers(1, 400, nd_pad).astype(np.int32)
+    live = (rng.random(nd_pad) > 0.2).astype(np.int32)
+    live[n_docs:] = 0
+    cd, cf, starts, lengths = _term_rows(rng, rows, p, n_docs)
+    if rows > 4:
+        dl[cd[starts[4]: starts[4] + lengths[4]]] = 77
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(card)
+
+    assert (starts % 4 != 0).any() or rows == 1
+    for width in (p, p + 3 * kt.TILE):
+        args = (dev(cd), dev(cf), dev((dl << 1) | live), dev(starts), dev(lengths),
+                dev(rng.uniform(0.5, 8.0, rows).astype(np.float32)),
+                AVGDL, K1, B, width, k)
+        n0 = kt.launches["term_topk"]
+        got = kt.term_topk_tiles(*args)
+        torch.cuda.synchronize()
+        assert kt.launches["term_topk"] == n0 + 1
+        _equal(got, kt.term_topk_tiles_plain(*args))
 
 
 @pytest.mark.gpu

@@ -1,5 +1,6 @@
-"""The schedule and the tile search of kernels bool_topk and sort_topk,
-through their Python mirrors (``kernels/doc_topk.py``), on the CPU.
+"""The schedule and the tile search of kernels bool_topk, sort_topk and
+facet_hist, through their Python mirrors (``kernels/doc_topk.py``), on the
+CPU.
 
 ``work_schedule`` must give every (row, tile) work item to exactly one
 block, and ``many_way_lower_bound`` (the kernels' ``group_lower_bound``)
@@ -18,11 +19,17 @@ from repro_torch.kernels import doc_topk as dk
 from repro_torch.kernels.term_topk import TILE
 
 
+CSRC = Path(dk.__file__).parent.parent / "csrc"
+
+
 def test_mirrors_use_the_kernels_block_layout():
-    """The mirrors' constants are the .cu's: DT_THREADS, BOOL_PASS and
-    SORT_LANES as defined, BOOL_LANES as group_lanes derives it.  (On the
-    card ``blocks_per_sm`` checks the built library's ``doc_topk_layout``.)"""
-    src = (Path(dk.__file__).parent.parent / "csrc" / "doc_topk.cu").read_text()
+    """The mirrors' constants are the sources': DT_THREADS (warp_select.cuh,
+    which doc_topk.cu includes), BOOL_PASS and SORT_LANES as defined,
+    BOOL_LANES as group_lanes derives it.  (On the card ``blocks_per_sm``
+    checks the built library's ``doc_topk_layout``.)"""
+    cu = (CSRC / "doc_topk.cu").read_text()
+    assert '#include "warp_select.cuh"' in cu
+    src = cu + (CSRC / "warp_select.cuh").read_text()
 
     def define(name):
         return int(re.search(rf"^#define {name} (\d+)", src, re.M).group(1))
@@ -53,6 +60,37 @@ def test_schedule_covers_each_item_once(rows, tiles, blocks):
         assert its == list(range(x, items, grid))
     counts = [len(v) for v in per.values()]
     assert max(counts) == -(-items // grid) and max(counts) - min(counts) <= 1
+
+
+def test_facet_constants_mirror_the_source():
+    """FACET_SHARED_BINS as defined; facet_hist runs DT_THREADS-thread
+    blocks; its dynamic shared memory is one int a bin up to it, none above."""
+    src = (CSRC / "doc_topk.cu").read_text()
+    assert int(re.search(r"^#define FACET_SHARED_BINS (\d+)", src, re.M).group(1)) \
+        == dk.FACET_SHARED_BINS
+    assert re.search(r"__launch_bounds__\(DT_THREADS(, \d+)?\) facet_hist_kernel", src)
+    assert dk.facet_smem(1) == 4 and dk.facet_smem(12) == 48
+    assert dk.facet_smem(dk.FACET_SHARED_BINS) == 4 * dk.FACET_SHARED_BINS
+    assert dk.facet_smem(dk.FACET_SHARED_BINS + 1) == 0
+
+
+@pytest.mark.parametrize("rows,tiles,blocks", [
+    (1, 1, 2112), (1, 49, 2112), (1, 64, 7), (32, 49, 2112), (32, 49, 1320),
+    (32, 64, 924), (5, 3, 2),
+])
+def test_facet_schedule_covers_each_item_once_and_each_row_has_one_last(rows, tiles, blocks):
+    """facet_hist's items (match-all is one row): each (row, tile) once, so
+    each row's ticket reaches n_tiles exactly once, whichever block takes
+    the row's last tile; with fewer blocks than items a block takes several
+    tiles, of one row or of several."""
+    sched = dk.work_schedule(rows, tiles, blocks)
+    assert sorted((r, t) for _, r, t in sched) == [
+        (r, t) for r in range(rows) for t in range(tiles)]
+    per_row = {}
+    for _, r, _ in sched:
+        per_row[r] = per_row.get(r, 0) + 1
+    assert per_row == {r: tiles for r in range(rows)}
+    assert len({x for x, _, _ in sched}) == min(blocks, rows * tiles)
 
 
 def test_main_path_shape_runs_one_item_a_block_at_twelve_blocks_an_sm():
