@@ -15,17 +15,21 @@ neither path reads), then reports:
 
   * term: 10 batches of 32 TermQuerys (k=10) after 5 warm-up batches:
     device busy ms, idle share and ``term_topk_kernel``'s device ms (one
-    torch.profiler trace), and QPS over 60 timed batches;
+    torch.profiler trace), and QPS over 60 timed batches; one batch's
+    queries through ``search_single`` (kernel ``bm25_topk``) traced the
+    same way;
   * the tree's own families phase (``chip_smoke.families_phase``), then 5
-    batches each of TermMonthFacets and BrowseMonthSSDVFacets traced the
-    same way, and each family task's QPS;
+    batches each of TermMonthFacets, BrowseMonthSSDVFacets and IntNRQ
+    traced the same way, and each family task's QPS;
   * the tree's own kernel records at the main path's shapes
-    (``chip_smoke.doc_kernel_records``: K3-K6) and K1 at
-    ``chip_smoke.term_kernel_args``' shape, timed as ``chip_smoke.py`` times
-    it: ms from CUDA events.
+    (``chip_smoke.doc_kernel_records``: K3-K6), K1 at
+    ``chip_smoke.term_kernel_args``' shape and K2's record
+    (``chip_smoke.bm25_kernel_record``), timed as ``chip_smoke.py`` times
+    them: ms from CUDA events.
 
 The families phase and K3-K6's records come from the tree's own
-``chip_smoke.py``; the rest of the harness from this script's.
+``chip_smoke.py``; the rest of the harness, K2's record included, from this
+script's.
 
 One ``CMP`` JSON line per turn, then a ``SUMMARY`` JSON line of the turns'
 numbers side by side.  Compare two trees only within one call: the card, its
@@ -44,7 +48,7 @@ from pathlib import Path
 N_DOCS = 500_000
 FLUSH_EVERY = 50_000
 WARM, TERM_PROFILED, TERM_TIMED = 5, 10, 60
-FACET_TASKS = ("TermMonthFacets", "BrowseMonthSSDVFacets")
+TRACED_TASKS = ("TermMonthFacets", "BrowseMonthSSDVFacets", "IntNRQ")
 
 
 def worker(root: Path) -> dict:
@@ -92,18 +96,20 @@ def worker(root: Path) -> dict:
     out = {"root": str(root), "build_s": build_s, "setup_s": setup_s,
            "term_qps": h.BATCH * len(lat) / sum(lat)}
 
-    def profiled(batch_list):
-        prof = h.device_profile(lambda: [eng.search_batch(qs, k=h.K) for qs in batch_list])
+    def profiled(batch_list, run=lambda qs: eng.search_batch(qs, k=h.K)):
+        prof = h.device_profile(lambda: [run(qs) for qs in batch_list])
         kernels = {name: ms for name, ms in prof["top_device_ms"].items()
                    if "_kernel(" in name and not name.startswith("void")}
         return {"device_busy_ms": prof["device_busy_ms"], "wall_ms": prof["wall_ms"],
                 "device_idle_share": prof["device_idle_share"], "kernels_ms": kernels}
 
     out["term_10_batches"] = profiled(queries[WARM:WARM + TERM_PROFILED])
+    out["search_single_1_batch"] = profiled(
+        queries[WARM], lambda q: eng.searcher.search_single(q, k=h.K))
     stats, launches, tasks, _ = cs.families_phase(eng, cfg, bands, table, rare,
                                                   cs.FAMILY_BATCHES)
     out["task_qps"] = {name: st["qps"] for name, st in stats.items()}
-    for name in FACET_TASKS:
+    for name in TRACED_TASKS:
         out[f"{name}_5_batches"] = profiled(tasks[name][:5])
     records = cs.doc_kernel_records(eng, tasks, launches)
     out["kernel_ms"] = {r["name"]: r["ms"] for r in records}
@@ -116,6 +122,7 @@ def worker(root: Path) -> dict:
     if not all(h.bits_equal(g, w) for g, w in zip(got, want)):
         raise AssertionError("term_topk differs from its plain version")
     out["kernel_ms"]["term_topk"] = h.cuda_ms(lambda: kt.term_topk_tiles(*args), 50)[0]
+    out["kernel_ms"]["bm25_topk"] = h.bm25_kernel_record(eng, queries[WARM], 0)["ms"]
     out["total_s"] = time.perf_counter() - t0
     return out
 
@@ -143,7 +150,8 @@ def main(argv) -> int:
         print(lines[-1], flush=True)
         turns.append((str(root), json.loads(lines[-1][4:])))
     summary = {"card": smi, "order": [label for label, _ in turns]}
-    for key in ("term_10_batches", *(f"{n}_5_batches" for n in FACET_TASKS)):
+    for key in ("term_10_batches", "search_single_1_batch",
+                *(f"{n}_5_batches" for n in TRACED_TASKS)):
         summary[key] = [[t[key]["device_busy_ms"], t[key]["device_idle_share"],
                          t[key]["kernels_ms"]] for _, t in turns]
     summary["kernel_ms"] = [t["kernel_ms"] for _, t in turns]

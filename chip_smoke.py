@@ -20,7 +20,8 @@ Phases (any failure raises and the script exits non-zero):
               hits; the fused results equal the eager executors' on the
               card and the plain CPU path's, ``search_single`` (kernel
               ``bm25_topk``) equals ``search_batch``, and both kernels were
-              launched.
+              launched.  The device busy ms and idle share of 10 batches
+              and of one batch's queries through ``search_single``.
   4. families the same index through ``search_batch``: batches of 32
               queries of one luceneutil task each (k=10) for boolean
               (and/or, 2 and 3 terms), phrase, sort (dayOfYear, month,
@@ -31,8 +32,8 @@ Phases (any failure raises and the script exits non-zero):
               equals ``search_batch``, a mixed batch of every task equals the
               per-task results, the deleted term's docs are in no family's
               hits, and kernels K3-K6 were launched.  The device busy ms and
-              idle share of 5 batches of AndHighMed, of TermMonthSort and of
-              TermMonthFacets.
+              idle share of 5 batches of AndHighMed, of TermMonthSort, of
+              TermMonthFacets and of IntNRQ.
   5. vectors  the same index, whose docs carry seeded 768-dim float32
               vectors (1% carry none), through ``search_batch``: batches of
               32 queries of one task -- VectorDot, VectorCosine (k=10),
@@ -63,10 +64,10 @@ Phases (any failure raises and the script exits non-zero):
               one computes the same function (or its selection or histogram
               half), and its bound: the larger of its bytes at 3.35 TB/s and
               its operations at the peak rate of their type (67 TFLOP/s
-              float32).  The ``kernel`` lines of K1, K3, K4 and K6 add
-              their grid under ``shape``: blocks, blocks an SM from the
-              occupancy API, work items; each of the four is one launch a
-              call (its ``phases_ms`` trace shows no other device
+              float32).  The ``kernel`` lines of K1-K6 add their grid
+              under ``shape``: blocks, blocks an SM from the occupancy
+              API, work items (K5: a warp an item); each of the six is one
+              launch a call (its ``phases_ms`` trace shows no other device
               operation).  K6's record holds, as ``match_all``, the same
               for its match-all row (BrowseMonthSSDVFacets).
   7. lm       LM serving at Qwen2-1.5B's full width (28 layers, d 1536, 12
@@ -604,7 +605,7 @@ def families_phase(eng, cfg, bands: dict, words, rare: str, n_batches: int):
             same_topdocs(s.search_single(q, k=K), w, f"search_single {name}")
     profs = {name: device_profile(lambda n=name: [eng.search_batch(qs, k=K)
                                                   for qs in tasks[n][:5]])
-             for name in ("AndHighMed", "TermMonthSort", "TermMonthFacets")}
+             for name in ("AndHighMed", "TermMonthSort", "TermMonthFacets", "IntNRQ")}
     torch.cuda.synchronize()
     return stats, launches, tasks, profs
 
@@ -635,6 +636,43 @@ def kernel_record(name, source, launches, fn, plain, args, library, n_bytes,
         "library_ms": lib_ms, "queued_ahead": [q, pq, lq], "phases_ms": phases,
         "shape": dict(shape, bytes=n_bytes, ops=n_ops),
     }
+
+
+def bm25_kernel_record(eng, qs, launches: int) -> dict:
+    """K2 against its plain version on the card at the main path's shape:
+    the highest-df term of the TermQuerys ``qs`` in the segment with the
+    most postings, staged as ``search_single`` stages it.  One kernel a
+    call.  Returns the kernel record."""
+    import torch
+
+    from repro_torch.core.analyzer import term_hash
+    from repro_torch.kernels import term_topk as kt
+
+    s = eng.searcher
+    dev = eng.device
+    seg = max(s.segments, key=lambda sg: sg.nnz)
+    st = eng.device_cache.ensure_tiled(seg)
+    hi = max(qs, key=lambda q: s.doc_freq(q))
+    d, f = seg.postings(term_hash(hi.field, hi.token))
+    _, freqs_t, dl_t, valid_t = kt.stage_bm25(
+        torch.tensor(d, dtype=torch.int32, device=dev),
+        torch.tensor(f, dtype=torch.int32, device=dev),
+        st["doc_lens"], st["live"],
+    )
+    args = (freqs_t, dl_t, valid_t, s.idf(hi), s.avgdl, s.k1, s.b, K)
+    scored = torch.where(valid_t > 0, kt.bm25(freqs_t, dl_t, *kt.scalars(
+        dev, s.idf(hi), s.avgdl, s.k1, s.b)), -torch.inf)
+    n_pad = freqs_t.shape[0]
+    # 12 B per staged posting read, 8 B per winner written
+    winners = int(valid_t.view(-1, kt.TILE).sum(-1).clamp(max=K).sum())
+    rec = kernel_record(
+        "bm25_topk", SOURCE, launches, kt.bm25_topk_blocks, kt.bm25_topk_blocks_plain,
+        args, lambda: torch.topk(scored, K), n_pad * 12 + winners * 8,
+        int(valid_t.sum()) * OPS_PER_SCORE,
+        {"term": hi.token, "p": n_pad, "tiles": n_pad // kt.TILE, "k": K,
+         "segment_docs": seg.n_docs})
+    one_kernel("bm25_topk", rec["phases_ms"])
+    return rec
 
 
 def doc_kernel_records(eng, tasks: dict, launches: dict) -> list:
@@ -690,7 +728,7 @@ def doc_kernel_records(eng, tasks: dict, launches: dict) -> list:
     counts_b = rows_b * n_tiles * 4  # the per-tile counts every kernel writes
 
     def grid(name, smem=0):
-        """K3/K4/K6's launch (``grid_record``), under the record's shape, so
+        """K3-K6's launch (``grid_record``), under the record's shape, so
         only the ``kernel`` lines print it."""
         items = rows_b * n_tiles
         return grid_record(dk.grid_blocks(name, items, dev, smem),
@@ -744,6 +782,7 @@ def doc_kernel_records(eng, tasks: dict, launches: dict) -> list:
            lambda: torch.topk(masked, K, dim=-1),
            nd_pad * 8 + rows_b * 8 + counts_b, 3 * rows_b * nd_pad,
            {"task": "IntNRQ", "rows": rows_b})
+    records[-1]["shape"]["grid"] = grid("range_topk")  # a warp an item
 
     # K6 facet_hist: the term-filtered month histogram
     qs = tasks["TermMonthFacets"][FAMILY_WARM]
@@ -783,9 +822,8 @@ def doc_kernel_records(eng, tasks: dict, launches: dict) -> list:
          "grid": grid_record(dk.grid_blocks("facet_hist", n_tiles, dev, smem),
                              dk.blocks_per_sm("facet_hist", torch.cuda.current_device(), smem),
                              n_tiles, dev)})
-    for r in records + [records[-1]["match_all"]]:
-        if r["name"] != "range_topk":  # K3, K4, K6: one launch a call
-            one_kernel(r["name"].removesuffix("_match_all"), r["phases_ms"])
+    for r in records + [records[-1]["match_all"]]:  # one launch a call
+        one_kernel(r["name"].removesuffix("_match_all"), r["phases_ms"])
     return records
 
 
@@ -1337,7 +1375,6 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
 
-    from repro_torch.core.analyzer import term_hash
     from repro_torch.core.engine import SearchEngine
     from repro_torch.core.query import profile
     from repro_torch.core.query.types import TermQuery
@@ -1429,6 +1466,7 @@ def main(argv=None) -> int:
     prof = device_profile(
         lambda: [eng.search_batch(qs, k=K) for qs in queries[n_warm:n_warm + 10]]
     )
+    prof_single = device_profile(lambda: [s.search_single(q, k=K) for q in queries[n_warm]])
     lat_ms = np.asarray(lat) * 1e3
     n_timed_batches = len(lat)
     log("main", {
@@ -1463,6 +1501,7 @@ def main(argv=None) -> int:
         "single_queries": BATCH,
         "routes": routes,
         "profile_10_batches": prof,
+        "profile_search_single_1_batch": prof_single,
         "fused_eq_eager_card": True,
         "fused_eq_plain_cpu": True,
     })
@@ -1480,6 +1519,7 @@ def main(argv=None) -> int:
         "profile_5_batches_AndHighMed": fam_prof["AndHighMed"],
         "profile_5_batches_TermMonthSort": fam_prof["TermMonthSort"],
         "profile_5_batches_TermMonthFacets": fam_prof["TermMonthFacets"],
+        "profile_5_batches_IntNRQ": fam_prof["IntNRQ"],
         "fused_eq_eager_card": True, "fused_eq_plain_cpu": True,
         "single_eq_batch": True, "mixed_eq_per_task": True,
         "deleted_docs_absent": True,
@@ -1504,7 +1544,6 @@ def main(argv=None) -> int:
     records = []
     qs = queries[n_warm]
     seg, meta, k1_args = term_kernel_args(eng, qs)
-    st = eng.device_cache.ensure_tiled(seg)
     kv, ki, kc = (x.cpu().numpy() for x in kt.term_topk_tiles(*k1_args))
     pv, pi, pc = (x.cpu().numpy() for x in kt.term_topk_tiles_plain(*k1_args))
     if not (bits_equal(kv, pv) and bits_equal(ki, pi) and bits_equal(kc, pc)):
@@ -1538,44 +1577,15 @@ def main(argv=None) -> int:
         "phases_ms": k1_phases,
         "shape": {"rows": rows, "p": meta.p, "postings": k1_postings,
                   "k": K, "segment_docs": seg.n_docs,
-                  "grid": grid_record(kt.grid_blocks(rows * nb, dev),
-                                      kt.blocks_per_sm(torch.cuda.current_device()),
+                  "grid": grid_record(kt.grid_blocks("term_topk", rows * nb, dev),
+                                      kt.blocks_per_sm("term_topk", torch.cuda.current_device()),
                                       k1_tiles, dev)},
     })
-    hi = max(qs, key=lambda q: s.doc_freq(q))
-    d, f = seg.postings(term_hash(hi.field, hi.token))
-    docs_t, freqs_t, dl_t, valid_t = kt.stage_bm25(
-        torch.tensor(d, dtype=torch.int32, device=dev),
-        torch.tensor(f, dtype=torch.int32, device=dev),
-        st["doc_lens"], st["live"],
-    )
-    k2_args = (freqs_t, dl_t, valid_t, s.idf(hi), s.avgdl, s.k1, s.b, K)
-    kv, ki = (x.cpu().numpy() for x in kt.bm25_topk_blocks(*k2_args))
-    pv, pi = (x.cpu().numpy() for x in kt.bm25_topk_blocks_plain(*k2_args))
-    if not (bits_equal(kv, pv) and bits_equal(ki, pi)):
-        raise AssertionError("bm25_topk differs from its plain version")
-    n_pad = freqs_t.shape[0]
-    k2_ms, k2_q = cuda_ms(lambda: kt.bm25_topk_blocks(*k2_args), 50)
-    k2_plain_ms, k2_plain_q = cuda_ms(lambda: kt.bm25_topk_blocks_plain(*k2_args), 5)
-    k2_scored = torch.where(valid_t > 0, kt.bm25(freqs_t, dl_t, *kt.scalars(
-        dev, s.idf(hi), s.avgdl, s.k1, s.b)), -torch.inf)
-    k2_lib_ms, k2_lib_q = cuda_ms(lambda: torch.topk(k2_scored, K), 50)
-    # 12 B per staged posting read, 8 B per winner written
-    k2_winners = int(valid_t.view(-1, kt.TILE).sum(-1).clamp(max=K).sum())
-    k2_bound = bound(n_pad * 12 + k2_winners * 8, int(valid_t.sum()) * OPS_PER_SCORE)
-    records.append({
-        "name": "bm25_topk", "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES["bm25_topk"],
-        "launches": launches["bm25_topk"],
-        "max_abs_err": max_abs_err(kv, pv),
-        "ms": k2_ms,
-        "plain_ms": k2_plain_ms,
-        "bound_ms": k2_bound[0],
-        "bound_by": k2_bound[1],
-        "library_ms": k2_lib_ms,
-        "queued_ahead": [k2_q, k2_plain_q, k2_lib_q],
-        "shape": {"p": n_pad, "k": K, "segment_docs": seg.n_docs},
-    })
+    records.append(bm25_kernel_record(eng, qs, launches["bm25_topk"]))
+    nb = records[-1]["shape"]["tiles"]
+    records[-1]["shape"]["grid"] = grid_record(
+        kt.grid_blocks("bm25_topk", nb, dev),
+        kt.blocks_per_sm("bm25_topk", torch.cuda.current_device()), nb, dev)
     records += doc_kernel_records(eng, tasks, fam_launches)
     records += vector_kernel_records(eng, vec_tasks, vec_launches, bitmaps)
     for r in records:

@@ -24,9 +24,9 @@
 //               (__int2float_rn, as XLA's astype); top-k descending.
 //   range_topk  replaces fused_exec.py::range_topk_tiles.  lo <= dv <= hi
 //               and live; the score is the constant 1.0, so the winners
-//               are the k lowest matching doc ids, found with one block
-//               prefix count instead of k argmax rounds (the reference
-//               ranks a -doc float key, the same order below 2^24 docs).
+//               are the k lowest matching doc ids, ranked by a prefix count
+//               instead of k argmax rounds (the reference ranks a -doc
+//               float key, the same order below 2^24 docs).
 //   facet_hist  replaces fused_exec.py::facet_hist_tiles.  Counts matched
 //               live docs per bin (bins < 0 clip to 0, bins >= n_bins drop:
 //               jnp.bincount's rule) in shared int counters, then adds them
@@ -49,13 +49,16 @@
 // match flags stay in shared memory.
 //
 // At one segment a launch none of them comes near that bound: a (row,
-// tile) is microseconds of dependent steps.  range_topk runs one block per
-// (row, tile).  bool_topk, sort_topk and facet_hist are built around those
+// tile) is microseconds of dependent steps.  They are built around those
 // latency chains (warp_select.cuh):
 //   * one wave: 128-thread blocks, the grid at most the blocks the card
 //     holds at once (the occupancy API, kernels/doc_topk.py::grid_blocks),
 //     block x taking the flat work items x, x + grid, ... (item = row *
 //     n_tiles + tile; kernels/doc_topk.py::work_schedule mirrors it);
+//     range_topk's unit is a warp, not a block: warp w of block x takes
+//     items 4x + w, + 4 grid, ... (kernels/doc_topk.py::warp_schedule), so
+//     the main path's 32 x 49 items are 392 blocks, and a wave holds 4x
+//     the items of a block-an-item grid;
 //   * a many-way search: a group of lanes per (term, tile edge), all of a
 //     pass's at once (sort_topk, facet_hist: a warp per edge; bool_topk: 16
 //     lanes, 6 groups for a pass of 3 terms), each step probing evenly
@@ -69,8 +72,17 @@
 //     each warp takes the top min(k, its matches) of its 256 contiguous
 //     docs with one __reduce_max_sync a round, and warp 0 merges the 4
 //     sorted lists the same way (finish_tile);
+//   * range_topk has no select and no barrier: the item's warp reads the
+//     tile as 8 chunks of 128 docs, each one coalesced 16-byte load a lane
+//     of dv and of live (all 16 in flight; lane l owns docs 4l..4l+3 of
+//     each chunk), keeps a 32-bit match mask, and ranks its matches in doc
+//     order by one warp scan of the 8 chunks' counts packed a byte each
+//     into two words (10 shuffles).  (32 contiguous docs a lane, loads of
+//     a 128-byte stride across the warp, took 6.0 us on an H100 at the
+//     main path's shape against this layout's 4.3: each load touched 32
+//     cache lines.)
 // A (row, tile) takes 3 block barriers (bool with more than 3 terms: 2 more
-// a pass of 3 terms; facet_hist 4, match-all 2).
+// a pass of 3 terms; facet_hist 4, match-all 2; range_topk none).
 
 #include "warp_select.cuh"
 
@@ -78,6 +90,10 @@
 #define BOOL_PASS 3                     // bool terms scattered per pass
 #define SORT_LANES 32                   // lanes of a sort_topk / facet_hist search group
 #define SCATTER_BATCH 2                 // postings a thread loads at once
+#define RANGE_CHUNK (32 * 4)            // docs of one range_topk warp load: an int4 a lane
+#define RANGE_CHUNKS (TILE / RANGE_CHUNK)
+
+static_assert(RANGE_CHUNKS == 8, "a lane's matches are one 32-bit mask, its chunk counts 8 bytes");
 
 // bool_topk searches a pass's two tile edges of each term at once
 constexpr int BOOL_LANES = group_lanes(DT_THREADS / (2 * BOOL_PASS));
@@ -282,62 +298,78 @@ __global__ void __launch_bounds__(DT_THREADS, 12) sort_topk_kernel(
   }
 }
 
-// grid (n_tiles, B); los/his (B,); dv/live (ND_pad,).  Thread t owns the
-// contiguous docs [PER_THREAD * t, PER_THREAD * (t + 1)) of its tile, so a
-// prefix count over threads ranks the matches in doc order.
-__global__ void __launch_bounds__(THREADS) range_topk_kernel(
+// grid: at most the blocks the card holds at once, at most one a
+// DT_WARPS items; warp w of block x takes the work items x * DT_WARPS + w,
+// + gridDim.x * DT_WARPS, ... (item = row * n_tiles + tile).  los/his (B,);
+// dv/live (ND_pad,), 16-byte aligned.  Lane l owns docs RANGE_CHUNK i + 4 l
+// + j (j < 4) of chunk i: bit 4 i + j of its mask.
+__global__ void __launch_bounds__(DT_THREADS) range_topk_kernel(
     const int* __restrict__ dv, const int* __restrict__ live,
     const int* __restrict__ los, const int* __restrict__ his, int n_tiles,
-    int k, float* __restrict__ out_vals, int* __restrict__ out_ids,
+    int n_items, int k, float* __restrict__ out_vals, int* __restrict__ out_ids,
     int* __restrict__ out_cnt) {
-  __shared__ int warp_n[WARPS];
-  const int row = blockIdx.y;
-  const int base = blockIdx.x * TILE;
-  const int64_t slot = (int64_t)row * n_tiles + blockIdx.x;
-  const int lo = los[row];
-  const int hi = his[row];
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int first = base + threadIdx.x * PER_THREAD;
-  bool ok[PER_THREAD];
-  int c = 0;
-  #pragma unroll
-  for (int j = 0; j < PER_THREAD; ++j) {
-    const int v = dv[first + j];
-    ok[j] = v >= lo && v <= hi && live[first + j] > 0;
-    c += ok[j];
-  }
-  int incl = c;  // inclusive prefix count within the warp
-  #pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, incl, off);
-    if (lane >= off) incl += y;
-  }
-  if (lane == 31) warp_n[warp] = incl;
-  __syncthreads();
-  int rank = incl - c;
-  int total = 0;
-  #pragma unroll
-  for (int w = 0; w < WARPS; ++w) {
-    if (w < warp) rank += warp_n[w];
-    total += warp_n[w];
-  }
-  float* ov = out_vals + slot * k;
-  int* oi = out_ids + slot * k;
-  #pragma unroll
-  for (int j = 0; j < PER_THREAD; ++j) {
-    if (ok[j]) {
-      if (rank < k) {
-        ov[rank] = 1.0f;
-        oi[rank] = first + j;
-      }
-      ++rank;
+  const int step = gridDim.x * DT_WARPS;
+  for (int item = blockIdx.x * DT_WARPS + (threadIdx.x >> 5); item < n_items; item += step) {
+    const int row = item / n_tiles;
+    const int base = (item - row * n_tiles) * TILE;
+    const int lo = los[row];
+    const int hi = his[row];
+    const int4* v4 = reinterpret_cast<const int4*>(dv + base) + lane;
+    const int4* l4 = reinterpret_cast<const int4*>(live + base) + lane;
+    int4 v[RANGE_CHUNKS], lv[RANGE_CHUNKS];
+    #pragma unroll
+    for (int i = 0; i < RANGE_CHUNKS; ++i) {  // all 16 loads in flight
+      v[i] = v4[32 * i];
+      lv[i] = l4[32 * i];
     }
-  }
-  if (threadIdx.x == 0) out_cnt[slot] = total;
-  for (int r = min(total, k) + threadIdx.x; r < k; r += THREADS) {  // no winner
-    ov[r] = -CUDART_INF_F;
-    oi[r] = -1;
+    unsigned mask = 0u;
+    #pragma unroll
+    for (int i = 0; i < RANGE_CHUNKS; ++i) {
+      const int a[4] = {v[i].x, v[i].y, v[i].z, v[i].w};
+      const int b[4] = {lv[i].x, lv[i].y, lv[i].z, lv[i].w};
+      #pragma unroll
+      for (int j = 0; j < 4; ++j)
+        mask |= (unsigned)(a[j] >= lo && a[j] <= hi && b[j] > 0) << (4 * i + j);
+    }
+    // chunk i's matches in byte i % 4 of word i / 4 (a warp's byte sums to
+    // at most RANGE_CHUNK = 128), scanned over the lanes
+    unsigned own[2] = {0u, 0u};
+    #pragma unroll
+    for (int i = 0; i < RANGE_CHUNKS; ++i)
+      own[i / 4] |= (unsigned)__popc((mask >> (4 * i)) & 0xfu) << (8 * (i % 4));
+    unsigned incl[2] = {own[0], own[1]};
+    #pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const unsigned y0 = __shfl_up_sync(0xffffffffu, incl[0], off);
+      const unsigned y1 = __shfl_up_sync(0xffffffffu, incl[1], off);
+      if (lane >= off) {
+        incl[0] += y0;
+        incl[1] += y1;
+      }
+    }
+    const unsigned chunk_n[2] = {__shfl_sync(0xffffffffu, incl[0], 31),
+                                 __shfl_sync(0xffffffffu, incl[1], 31)};
+    float* ov = out_vals + (int64_t)item * k;
+    int* oi = out_ids + (int64_t)item * k;
+    int total = 0;  // matches of the chunks before chunk i, then of the tile
+    #pragma unroll
+    for (int i = 0; i < RANGE_CHUNKS; ++i) {
+      const int sh = 8 * (i % 4);
+      unsigned m = (mask >> (4 * i)) & 0xfu;
+      int rank = total + (int)(((incl[i / 4] - own[i / 4]) >> sh) & 0xffu);
+      for (; m != 0u && rank < k; ++rank) {
+        ov[rank] = 1.0f;
+        oi[rank] = base + RANGE_CHUNK * i + 4 * lane + __ffs(m) - 1;
+        m &= m - 1u;
+      }
+      total += (int)((chunk_n[i / 4] >> sh) & 0xffu);
+    }
+    if (lane == 0) out_cnt[item] = total;
+    for (int r = min(total, k) + lane; r < k; r += 32) {  // no winner
+      ov[r] = -CUDART_INF_F;
+      oi[r] = -1;
+    }
   }
 }
 
@@ -455,15 +487,15 @@ extern "C" {
 int facet_shared_bins() { return FACET_SHARED_BINS; }
 
 // the block layout kernels/doc_topk.py mirrors: DT_THREADS (which = 0),
-// BOOL_PASS (1), BOOL_LANES (2), SORT_LANES (3)
+// BOOL_PASS (1), BOOL_LANES (2), SORT_LANES (3), RANGE_CHUNKS (4)
 int doc_topk_layout(int which) {
-  const int layout[4] = {DT_THREADS, BOOL_PASS, BOOL_LANES, SORT_LANES};
-  return which >= 0 && which < 4 ? layout[which] : -1;
+  const int layout[5] = {DT_THREADS, BOOL_PASS, BOOL_LANES, SORT_LANES, RANGE_CHUNKS};
+  return which >= 0 && which < 5 ? layout[which] : -1;
 }
 
-// blocks of bool_topk (which = 0), sort_topk (1) or facet_hist (2, with
-// smem bytes of dynamic shared memory) that one SM holds at once (0 on
-// error): the launch's grid is at most this times the SMs
+// blocks of bool_topk (which = 0), sort_topk (1), facet_hist (2, with smem
+// bytes of dynamic shared memory) or range_topk (3) that one SM holds at
+// once (0 on error): the launch's grid is at most this times the SMs
 int doc_topk_blocks_per_sm(int which, int smem) {
   int blocks = 0;
   cudaError_t err = cudaErrorInvalidValue;
@@ -474,6 +506,8 @@ int doc_topk_blocks_per_sm(int which, int smem) {
   else if (which == 2)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, facet_hist_kernel, DT_THREADS,
                                                         (size_t)smem);
+  else if (which == 3)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, range_topk_kernel, DT_THREADS, 0);
   return err == cudaSuccess ? blocks : 0;
 }
 
@@ -508,13 +542,19 @@ int sort_topk(const int* csr_docs, const int* csr_freqs, const int* live,
   return (int)cudaGetLastError();
 }
 
+// n_blocks: the grid (kernels/doc_topk.py::grid_blocks), clipped to one
+// block a DT_WARPS of the n_rows * n_tiles work items
 int range_topk(const int* dv, const int* live, const int* los, const int* his,
-               int n_rows, int n_tiles, int k, float* out_vals, int* out_ids,
-               int* out_cnt, void* stream) {
+               int n_rows, int n_tiles, int n_blocks, int k, float* out_vals,
+               int* out_ids, int* out_cnt, void* stream) {
   if (n_rows <= 0 || n_tiles <= 0) return 0;
-  dim3 grid(n_tiles, n_rows);
-  range_topk_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      dv, live, los, his, n_tiles, k, out_vals, out_ids, out_cnt);
+  if (n_blocks <= 0 || k < 1 || k > MAX_K) return (int)cudaErrorInvalidValue;
+  if ((int64_t)n_rows * n_tiles * k >= (1 << 30)) return (int)cudaErrorInvalidValue;
+  const int n_items = n_rows * n_tiles;
+  const int need = (n_items + DT_WARPS - 1) / DT_WARPS;
+  range_topk_kernel<<<n_blocks < need ? n_blocks : need, DT_THREADS, 0,
+                      (cudaStream_t)stream>>>(
+      dv, live, los, his, n_tiles, n_items, k, out_vals, out_ids, out_cnt);
   return (int)cudaGetLastError();
 }
 

@@ -12,7 +12,7 @@
 //              single-query kernel behind Searcher._search_term), over the
 //              pre-gathered (P,) freqs / doc lengths / valid flags that
 //              repro_torch.kernels.term_topk stages as kernels/ops.py:50-53
-//              does; one 256-thread block a tile, tile_topk's block rounds.
+//              does, and writes each 1,024-posting tile's top-k.
 //
 // Bound on an H100 (3.35 TB/s HBM): bytes.  term_topk moves, per posting in
 // a row, 4 B of doc id + 4 B of freq from the CSR and 4 B of the dl_live
@@ -22,9 +22,9 @@
 // never leave registers or shared memory, and no (B, P) staging array
 // exists in device memory.
 //
-// At one segment a launch term_topk is a few microseconds of dependent
-// steps, far above that bound; its design shortens the chain
-// (warp_select.cuh):
+// At one segment a launch each kernel is a few microseconds of dependent
+// steps, far above that bound; their design shortens the chain
+// (warp_select.cuh).  term_topk:
 //   * one wave over the work that exists: 128-thread blocks, the grid at
 //     most the blocks the card holds at once (the occupancy API,
 //     kernels/term_topk.py::grid_blocks); the items are only the tiles
@@ -38,6 +38,12 @@
 //   * the select is finish_tile's: a thread sorts its 8 keys, each warp
 //     takes its top min(k, matches) with one __reduce_max_sync a round,
 //     warp 0 merges the 4 lists: one block barrier a tile.
+// bm25_topk: the same blocks, select and one wave (at most the blocks the
+// card holds at once, kernels/term_topk.py::grid_blocks), block x taking
+// tiles x, x + grid, ...; each thread owns 8 contiguous postings and starts
+// its six 16-byte loads of freqs, dl and valid before it scores any, so a
+// tile is one load step and one block barrier, not k block-wide argmax
+// rounds of three barriers each.
 //
 // Parity with the JAX package (bit-exact float32 scores): see bm25_score in
 // tile_topk.cuh; division is IEEE (-prec-div defaults to true; never
@@ -45,6 +51,8 @@
 //
 // This file also holds the library's shared queries (tile width, widest k,
 // CUDA error strings) that every kernel's wrapper uses.
+
+#include <climits>
 
 #include "warp_select.cuh"
 
@@ -158,28 +166,33 @@ __global__ void __launch_bounds__(DT_THREADS) term_topk_kernel(
   }
 }
 
-// grid (n_tiles,): tile x of one pre-gathered postings row
-__global__ void __launch_bounds__(THREADS) bm25_topk_kernel(
+// grid: at most the blocks the card holds at once, at most n_tiles; block x
+// takes tiles x, x + gridDim.x, ... of one pre-gathered postings row.
+// freqs/dl/valid (n_tiles * TILE,), 16-byte aligned.
+__global__ void __launch_bounds__(DT_THREADS) bm25_topk_kernel(
     const int* __restrict__ freqs, const int* __restrict__ dl,
     const int* __restrict__ valid, float idf, float avgdl, float k1, float b,
-    int k, float* __restrict__ out_vals, int* __restrict__ out_idx) {
-  __shared__ float s[TILE];
-  const int tile = blockIdx.x;
-  const int64_t base = (int64_t)tile * TILE;
-  int c = 0;
-  #pragma unroll
-  for (int j = 0; j < PER_THREAD; ++j) {
-    const int i = threadIdx.x + j * THREADS;
-    float sc = -CUDART_INF_F;
-    if (valid[base + i] > 0) {
-      sc = bm25_score(freqs[base + i], dl[base + i], idf, avgdl, k1, b);
-      ++c;
+    int n_tiles, int k, float* __restrict__ out_vals, int* __restrict__ out_idx) {
+  __shared__ int cand[TILE];
+  __shared__ int wn[DT_WARPS];
+  const int q0 = threadIdx.x * DT_DPT;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int first = tile * TILE + q0;  // the host keeps n_tiles * TILE in an int
+    int f[DT_DPT], d[DT_DPT], v[DT_DPT];
+    load4(freqs + first, f);  // all six loads in flight
+    load4(dl + first, d);
+    load4(valid + first, v);
+    int key[DT_DPT];
+    int c = 0;
+    #pragma unroll
+    for (int i = 0; i < DT_DPT; ++i) {
+      const bool ok = v[i] > 0;
+      key[i] = ok ? order_key(bm25_score(f[i], d[i], idf, avgdl, k1, b)) : NO_KEY;
+      c += ok;
     }
-    s[i] = sc;
+    if (tile != blockIdx.x) __syncthreads();  // the last tile's merge has read cand
+    finish_tile(key, c, k, PosFrom{first}, tile, out_vals, out_idx, nullptr, cand, wn);
   }
-  const int n_valid = block_count(c);
-  tile_topk(s, n_valid, k, out_vals + (int64_t)tile * k,
-            out_idx + (int64_t)tile * k, PosFrom{(int)base});
 }
 
 extern "C" {
@@ -199,11 +212,15 @@ int term_topk_layout(int which) {
   return which >= 0 && which < 2 ? layout[which] : -1;
 }
 
-// blocks of term_topk that one SM holds at once (0 on error)
-int term_topk_blocks_per_sm() {
+// blocks of term_topk (which = 0) or bm25_topk (1) that one SM holds at
+// once (0 on error): the launch's grid is at most this times the SMs
+int term_topk_blocks_per_sm(int which) {
   int blocks = 0;
-  const cudaError_t err =
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, term_topk_kernel, DT_THREADS, 0);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (which == 0)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, term_topk_kernel, DT_THREADS, 0);
+  else if (which == 1)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, bm25_topk_kernel, DT_THREADS, 0);
   return err == cudaSuccess ? blocks : 0;
 }
 
@@ -224,12 +241,18 @@ int term_topk(const int* csr_docs, const int* csr_freqs, const int* dl_live,
   return (int)cudaGetLastError();
 }
 
+// n_blocks: the grid (kernels/term_topk.py::grid_blocks), clipped to the
+// n_tiles tiles
 int bm25_topk(const int* freqs, const int* dl, const int* valid, float idf,
-              float avgdl, float k1, float b, int n_tiles, int k,
+              float avgdl, float k1, float b, int n_tiles, int n_blocks, int k,
               float* out_vals, int* out_idx, void* stream) {
   if (n_tiles <= 0) return 0;
-  bm25_topk_kernel<<<n_tiles, THREADS, 0, (cudaStream_t)stream>>>(
-      freqs, dl, valid, idf, avgdl, k1, b, k, out_vals, out_idx);
+  if (n_blocks <= 0 || k < 1 || k > MAX_K) return (int)cudaErrorInvalidValue;
+  if ((int64_t)n_tiles * TILE > INT_MAX || (int64_t)n_tiles * k >= (1 << 30))
+    return (int)cudaErrorInvalidValue;
+  bm25_topk_kernel<<<n_blocks < n_tiles ? n_blocks : n_tiles, DT_THREADS, 0,
+                     (cudaStream_t)stream>>>(
+      freqs, dl, valid, idf, avgdl, k1, b, n_tiles, k, out_vals, out_idx);
   return (int)cudaGetLastError();
 }
 

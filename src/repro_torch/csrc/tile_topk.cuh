@@ -1,7 +1,6 @@
-// Device routines shared by every kernel source in csrc/: the BM25 score,
-// the binary search of a doc-sorted postings row, the block-wide valid
-// count and the shared-memory top-k of one tile (by the block or by one
-// warp).
+// Device routines shared by every kernel source in csrc/: the tile layout,
+// the BM25 score, the binary search of a doc-sorted postings row and the
+// shared-memory top-k of one tile by one warp.
 //
 // Every function here is inline or a template, so each .cu that includes
 // this header gets its own copy (the library is built without relocatable
@@ -19,9 +18,8 @@
 #include <math_constants.h>
 #include <stdint.h>
 
-#define TILE 1024     // postings or docs per thread block
-#define THREADS 256   // TILE / THREADS entries per thread
-#define PER_THREAD (TILE / THREADS)
+#define TILE 1024     // postings or docs per tile
+#define THREADS 256   // threads of vector_topk.cu's select block
 #define WARPS (THREADS / 32)
 #define MAX_K 128     // widest per-tile winner row
 
@@ -71,98 +69,6 @@ __device__ __forceinline__ int lower_bound(const int* __restrict__ docs, int n,
   return lo;
 }
 
-// best of this thread's entries (strided: i = t, t + THREADS, ...)
-__device__ __forceinline__ Best local_best(const float* s, int t) {
-  Best r{-CUDART_INF_F, TILE};
-  #pragma unroll
-  for (int j = 0; j < PER_THREAD; ++j) {
-    const int i = t + j * THREADS;
-    if (beats(s[i], i, r.v, r.p)) {
-      r.v = s[i];
-      r.p = i;
-    }
-  }
-  return r;
-}
-
-// Top-k of the scored tile s[0..TILE) with n_valid finite entries.  Thread
-// t may have written only its own strided entries since the last barrier.
-// Writes out_v[0..k) / out_id[0..k): the first min(k, n_valid) slots hold
-// the winners, the rest (-inf, -1).  id_of maps a tile position to the
-// reported id.
-template <typename IdOf>
-__device__ void tile_topk(float* s, int n_valid, int k, float* out_v,
-                          int* out_id, IdOf id_of) {
-  __shared__ float warp_v[WARPS];
-  __shared__ int warp_p[WARPS];
-  const int t = threadIdx.x;
-  const int lane = t & 31;
-  const int warp = t >> 5;
-  const int rounds = n_valid < k ? n_valid : k;
-
-  Best mine = local_best(s, t);
-  for (int r = 0; r < rounds; ++r) {
-    Best w = mine;
-    #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_down_sync(0xffffffffu, w.v, off);
-      const int op = __shfl_down_sync(0xffffffffu, w.p, off);
-      if (beats(ov, op, w.v, w.p)) {
-        w.v = ov;
-        w.p = op;
-      }
-    }
-    if (lane == 0) {
-      warp_v[warp] = w.v;
-      warp_p[warp] = w.p;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      w.v = lane < WARPS ? warp_v[lane] : -CUDART_INF_F;
-      w.p = lane < WARPS ? warp_p[lane] : TILE;
-      #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_down_sync(0xffffffffu, w.v, off);
-        const int op = __shfl_down_sync(0xffffffffu, w.p, off);
-        if (beats(ov, op, w.v, w.p)) {
-          w.v = ov;
-          w.p = op;
-        }
-      }
-      if (lane == 0) {
-        out_v[r] = w.v;
-        out_id[r] = id_of(w.p);
-        warp_p[0] = w.p;  // broadcast the winner's position
-      }
-    }
-    __syncthreads();
-    const int won = warp_p[0];
-    if ((won % THREADS) == t) {  // only the owner's candidate changes
-      s[won] = -CUDART_INF_F;
-      mine = local_best(s, t);
-    }
-    __syncthreads();  // warp_p[0] is rewritten next round
-  }
-  for (int r = rounds + t; r < k; r += THREADS) {
-    out_v[r] = -CUDART_INF_F;
-    out_id[r] = -1;
-  }
-}
-
-// Sum of c over the block.  Its barrier also publishes every shared-memory
-// write made before the call.  Call it at most once per kernel.
-__device__ __forceinline__ int block_count(int c) {
-  __shared__ int warp_c[WARPS];
-  #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) c += __shfl_down_sync(0xffffffffu, c, off);
-  if ((threadIdx.x & 31) == 0) warp_c[threadIdx.x >> 5] = c;
-  __syncthreads();
-  int total = 0;
-  #pragma unroll
-  for (int w = 0; w < WARPS; ++w) total += warp_c[w];
-  return total;
-}
-
 // best of lane l's entries l, l + 32, ... of a TILE-entry score row
 __device__ __forceinline__ Best lane_best(const float* s, int lane) {
   Best r{-CUDART_INF_F, TILE};
@@ -175,9 +81,10 @@ __device__ __forceinline__ Best lane_best(const float* s, int lane) {
   return r;
 }
 
-// Top-k of s[0..TILE) by one warp, with the contract of tile_topk: the
-// first min(k, n_valid) slots of out_v/out_id hold the winners (score
-// descending, position ascending), the rest (-inf, -1).  Lane l owns the
+// Top-k of the scored tile s[0..TILE) with n_valid finite entries, by one
+// warp: the first min(k, n_valid) slots of out_v/out_id hold the winners
+// (score descending, position ascending), the rest (-inf, -1); id_of maps
+// a tile position to the reported id.  Lane l owns the
 // entries l, l + 32, ...; only the winner's owner rescans, so the warp needs
 // no barrier and the warps of a block can each select a row of their own.
 template <typename IdOf>

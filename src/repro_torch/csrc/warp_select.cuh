@@ -1,8 +1,8 @@
 // The one-wave machinery of the redesigned tile kernels (term_topk.cu's
-// term_topk, doc_topk.cu's bool_topk, sort_topk and facet_hist): 128-thread
-// blocks that own 8 contiguous tile positions a thread, the many-way search
-// of a doc-sorted postings row, 16-byte loads into registers, and the
-// tile's top-k by warp selects merged by one warp.
+// term_topk and bm25_topk, doc_topk.cu's bool_topk, sort_topk, range_topk
+// and facet_hist): 128-thread blocks that own 8 contiguous tile positions a
+// thread, the many-way search of a doc-sorted postings row, 16-byte loads
+// into registers, and the tile's top-k by warp selects merged by one warp.
 //
 // Every function here is inline or a template, so each .cu that includes
 // this header gets its own copy (the library is built without relocatable
@@ -110,7 +110,8 @@ __device__ __forceinline__ int warp_max(int key) {
 // way, one barrier, then warp 0 merges the warps' sorted lists (lane w
 // follows list w) the same way, one output a round.  Writes the slot's k
 // winners (score descending, position ascending; (-inf, -1) past the
-// matches) and its count.  The caller separates two calls with a barrier.
+// matches) and, unless out_cnt is null, its count.  The caller separates two
+// calls with a barrier.
 template <typename IdOf>
 __device__ __forceinline__ void finish_tile(int (&key)[DT_DPT], int c, int k, IdOf id_of,
                                             int64_t slot, float* __restrict__ out_vals,
@@ -158,7 +159,7 @@ __device__ __forceinline__ void finish_tile(int (&key)[DT_DPT], int c, int k, Id
   const int rounds = n_valid < k ? n_valid : k;
   float* ov = out_vals + slot * k;
   int* oi = out_ids + slot * k;
-  if (threadIdx.x == 0) out_cnt[slot] = n_valid;
+  if (threadIdx.x == 0 && out_cnt != nullptr) out_cnt[slot] = n_valid;
   for (int r = rounds + threadIdx.x; r < k; r += DT_THREADS) {  // no winner
     ov[r] = -CUDART_INF_F;
     oi[r] = -1;

@@ -26,11 +26,14 @@ definition.  It follows the reference's cores (``repro/core/query/exec.py:
   * facet bins follow ``jnp.bincount``: negative bins count in bin 0, bins
     >= n_bins are dropped.
 
-``bool_topk``, ``sort_topk`` and ``facet_hist`` launch at most the blocks
-the card holds at once (``grid_blocks``); each block walks the flat (row,
-tile) work items ``work_schedule`` lists and finds a term's sub-range of a
-tile with the many-way search ``many_way_lower_bound`` mirrors.  Both
-mirrors are for the tests; the kernels compute the same on the card.
+Every kernel launches at most the blocks the card holds at once
+(``grid_blocks``).  Each block of ``bool_topk``, ``sort_topk`` and
+``facet_hist`` walks the flat (row, tile) work items ``work_schedule``
+lists and finds a term's sub-range of a tile with the many-way search
+``many_way_lower_bound`` mirrors; ``range_topk`` gives each item to one
+warp (``warp_schedule``), whose lanes rank their matches by a prefix count
+over the lanes of their match counts (``warp_ranks``).  The mirrors are
+for the tests; the kernels compute the same on the card.
 ``facet_hist`` is one launch a call: its rows count into an int32 scratch
 histogram that stays zero between calls (``runtime.zeroed_scratch``), and
 the last tile of a row to finish writes the row's float32 counts and
@@ -54,6 +57,7 @@ from repro_torch.kernels.term_topk import (
     TILE,
     _tile_topk_plain,
     bm25,
+    check_aligned,
     check_k,
     check_tensor,
     csr_rows,
@@ -80,8 +84,13 @@ BOOL_PASS = 3
 #: sort_topk's
 BOOL_LANES = min(32, 1 << (THREADS // (2 * BOOL_PASS)).bit_length() - 1)
 SORT_LANES = 32
+#: range_topk: the warps of a block, each a work item; a warp reads its
+#: tile in chunks of RANGE_CHUNK docs, 4 contiguous docs a lane
+WARPS = THREADS // 32
+RANGE_CHUNK = 32 * 4
+RANGE_CHUNKS = TILE // RANGE_CHUNK
 #: the layout above, as the library's ``doc_topk_layout`` returns it
-LAYOUT = (THREADS, BOOL_PASS, BOOL_LANES, SORT_LANES)
+LAYOUT = (THREADS, BOOL_PASS, BOOL_LANES, SORT_LANES, RANGE_CHUNKS)
 
 
 # ---------------------------------------------------------------------------
@@ -117,6 +126,45 @@ def work_schedule(n_rows: int, n_tiles: int, n_blocks: int) -> List[Tuple[int, i
             for x in range(grid) for item in range(x, items, grid)]
 
 
+def range_blocks(n_items: int) -> int:
+    """Blocks of ``range_topk`` that give each work item a warp of its own."""
+    return -(-n_items // WARPS)
+
+
+def warp_schedule(n_rows: int, n_tiles: int, n_blocks: int) -> List[Tuple[int, int, int, int]]:
+    """``[(block, warp, row, tile)]`` in the order each warp of
+    ``range_topk`` works: warp w of block x takes the items x * WARPS + w,
+    + grid * WARPS, ... of ``item = row * n_tiles + tile``, grid =
+    min(n_blocks, range_blocks(items))."""
+    items = n_rows * n_tiles
+    grid = max(1, min(n_blocks, range_blocks(items)))
+    return [(x, w, item // n_tiles, item % n_tiles)
+            for x in range(grid) for w in range(WARPS)
+            for item in range(x * WARPS + w, items, grid * WARPS)]
+
+
+def warp_ranks(ok, k: int):
+    """(doc positions of a tile's winners, match count) as ``range_topk``'s
+    warp finds them from the tile's (TILE,) match flags.  Lane l owns docs
+    RANGE_CHUNK i + 4 l + j (j < 4) of chunk i; a match's rank is the
+    matches of the chunks before its own, plus those of its chunk in the
+    lanes before it (an exclusive prefix count over the lanes), plus its
+    own lower bits; each lane writes its matches while rank < k."""
+    owned = [[[bool(ok[RANGE_CHUNK * i + 4 * lane + j]) for j in range(4)]
+              for i in range(RANGE_CHUNKS)] for lane in range(32)]
+    counts = [[sum(c) for c in chunks] for chunks in owned]
+    chunk_n = [sum(counts[lane][i] for lane in range(32)) for i in range(RANGE_CHUNKS)]
+    winners = [-1] * k
+    for lane in range(32):
+        for i in range(RANGE_CHUNKS):
+            rank = sum(chunk_n[:i]) + sum(counts[x][i] for x in range(lane))
+            for j in range(4):
+                if owned[lane][i][j] and rank < k:
+                    winners[rank] = RANGE_CHUNK * i + 4 * lane + j
+                    rank += 1
+    return winners, sum(chunk_n)
+
+
 #: facet_hist counts a row's tile in shared memory up to this many bins,
 #: above it in device memory (``FACET_SHARED_BINS`` in the .cu)
 FACET_SHARED_BINS = 8192
@@ -129,9 +177,9 @@ def facet_smem(n_bins: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def blocks_per_sm(kind: str, dev_index: int, smem: int = 0) -> int:
-    """Blocks of ``bool_topk``, ``sort_topk`` or ``facet_hist`` (with
-    ``smem`` bytes of dynamic shared memory) one SM holds at once, from the
-    occupancy API.  Raises if the built library's block layout is not
+    """Blocks of ``bool_topk``, ``sort_topk``, ``range_topk`` or
+    ``facet_hist`` (with ``smem`` bytes of dynamic shared memory) one SM
+    holds at once, from the occupancy API.  Raises if the built library's block layout is not
     ``LAYOUT``, which the mirrors assume."""
     lib = library()
     built = tuple(lib.doc_topk_layout(i) for i in range(len(LAYOUT)))
@@ -140,7 +188,7 @@ def blocks_per_sm(kind: str, dev_index: int, smem: int = 0) -> int:
     if lib.facet_shared_bins() != FACET_SHARED_BINS:
         raise RuntimeError(f"csrc FACET_SHARED_BINS {lib.facet_shared_bins()} "
                            f"!= {FACET_SHARED_BINS}")
-    which = {"bool_topk": 0, "sort_topk": 1, "facet_hist": 2}[kind]
+    which = {"bool_topk": 0, "sort_topk": 1, "facet_hist": 2, "range_topk": 3}[kind]
     with torch.cuda.device(dev_index):
         n = lib.doc_topk_blocks_per_sm(which, smem)
     if n <= 0:
@@ -150,7 +198,10 @@ def blocks_per_sm(kind: str, dev_index: int, smem: int = 0) -> int:
 
 def grid_blocks(kind: str, n_items: int, dev: torch.device, smem: int = 0) -> int:
     """The grid of one launch: the blocks the card holds at once, at most
-    one a work item, so the launch runs in one wave."""
+    one a work item (``range_topk``: one a WARPS items), so the launch runs
+    in one wave."""
+    if kind == "range_topk":
+        n_items = range_blocks(n_items)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     return runtime.one_wave(n_items, blocks_per_sm(kind, index, smem),
                             torch.device("cuda", index))
@@ -307,13 +358,6 @@ def _winners(rows, n_tiles, k, dev):
             torch.empty((rows, n_tiles), dtype=torch.int32, device=dev))
 
 
-def _check_aligned(**cols):
-    """Columns the kernels read 16 bytes at a time."""
-    for name, t in cols.items():
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must start 16-byte aligned on the card")
-
-
 def _launch(name, out, *args):
     """Launch kernel ``name`` on the current stream of ``out``'s device."""
     lib = library()
@@ -342,7 +386,7 @@ def bool_topk_tiles(csr_docs, csr_freqs, dl_live, starts, lengths, idfs,
     if dev.type == "cpu":
         return bool_topk_tiles_plain(csr_docs, csr_freqs, dl_live, starts,
                                      lengths, idfs, avgdl, k1, b, conjunctive, k)
-    _check_aligned(dl_live=dl_live)
+    check_aligned(dl_live=dl_live)
     rows, n_terms = starts.shape
     vals, ids, cnt = _winners(rows, n_tiles, k, dev)
     _launch("bool_topk", vals, csr_docs.data_ptr(), csr_freqs.data_ptr(),
@@ -366,7 +410,7 @@ def sort_topk_tiles(csr_docs, csr_freqs, live, dv, starts, lengths, k: int):
     if dev.type == "cpu":
         return sort_topk_tiles_plain(csr_docs, csr_freqs, live, dv, starts,
                                      lengths, k)
-    _check_aligned(live=live, dv=dv)
+    check_aligned(live=live, dv=dv)
     rows = starts.shape[0]
     vals, ids, cnt = _winners(rows, n_tiles, k, dev)
     _launch("sort_topk", vals, csr_docs.data_ptr(), csr_freqs.data_ptr(),
@@ -380,8 +424,9 @@ def sort_topk_tiles(csr_docs, csr_freqs, live, dv, starts, lengths, k: int):
 def range_topk_tiles(dv, live, los, his, k: int):
     """Per-tile lowest k doc ids with ``lo <= dv <= hi`` and live.
 
-    dv/live: (ND_pad,) int32; los/his: (B,) int32.  Returns (vals
-    (B, ND_pad/TILE, k) float32, 1.0 per hit; ids; cnt hits per tile)."""
+    dv/live: (ND_pad,) int32, 16-byte aligned on the card; los/his: (B,)
+    int32.  Returns (vals (B, ND_pad/TILE, k) float32, 1.0 per hit; ids;
+    cnt hits per tile)."""
     dev = dv.device
     n_tiles = _check_doc_space(dev, dv=dv, live=live)
     for name, t in (("los", los), ("his", his)):
@@ -391,11 +436,12 @@ def range_topk_tiles(dv, live, los, his, k: int):
     check_k(k)
     if dev.type == "cpu":
         return range_topk_tiles_plain(dv, live, los, his, k)
+    check_aligned(dv=dv, live=live)
     rows = los.shape[0]
     vals, ids, cnt = _winners(rows, n_tiles, k, dev)
     _launch("range_topk", vals, dv.data_ptr(), live.data_ptr(), los.data_ptr(),
-            his.data_ptr(), rows, n_tiles, k, vals.data_ptr(), ids.data_ptr(),
-            cnt.data_ptr())
+            his.data_ptr(), rows, n_tiles, grid_blocks("range_topk", rows * n_tiles, dev),
+            k, vals.data_ptr(), ids.data_ptr(), cnt.data_ptr())
     return vals, ids, cnt
 
 
@@ -419,7 +465,7 @@ def facet_hist_tiles(csr_docs, csr_freqs, live, bins, starts, lengths,
     if dev.type == "cpu":
         return facet_hist_tiles_plain(csr_docs, csr_freqs, live, bins, starts,
                                       lengths, n_bins)
-    _check_aligned(live=live, bins=bins)
+    check_aligned(live=live, bins=bins)
     rows = 1 if match_all else starts.shape[0]
     items = rows * n_tiles
     hist = torch.empty((rows, n_bins), dtype=torch.float32, device=dev)
@@ -441,6 +487,9 @@ __all__ = [
     "reset_launches",
     "many_way_lower_bound",
     "work_schedule",
+    "range_blocks",
+    "warp_schedule",
+    "warp_ranks",
     "grid_blocks",
     "facet_smem",
     "bool_dense",

@@ -156,14 +156,14 @@ def library() -> ctypes.CDLL:
             vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             sigs = {  # name: argument types; every launch returns a CUDA error code
                 "term_topk": [vp] * 6 + [f32] * 3 + [i32] * 4 + [vp] * 4,
-                "term_topk_blocks_per_sm": [],
+                "term_topk_blocks_per_sm": [i32],
                 "term_topk_layout": [i32],
-                "bm25_topk": [vp] * 3 + [f32] * 4 + [i32] * 2 + [vp] * 3,
+                "bm25_topk": [vp] * 3 + [f32] * 4 + [i32] * 3 + [vp] * 3,
                 "bool_topk": [vp] * 6 + [f32] * 3 + [i32] * 6 + [vp] * 4,
                 "sort_topk": [vp] * 6 + [i32] * 4 + [vp] * 4,
                 "doc_topk_blocks_per_sm": [i32, i32],
                 "doc_topk_layout": [i32],
-                "range_topk": [vp] * 4 + [i32] * 3 + [vp] * 4,
+                "range_topk": [vp] * 4 + [i32] * 4 + [vp] * 4,
                 "facet_hist": [vp] * 6 + [i32] * 5 + [vp] * 4,
                 "vector_topk": [vp, i32, i32, vp, vp] + [i32] * 4 + [vp] * 5,
                 "hybrid_topk": ([vp, i32, i32, vp, vp, i32] + [vp] * 6

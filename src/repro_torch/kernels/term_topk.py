@@ -16,10 +16,12 @@ Every wrapper takes the plain version for CPU tensors only; a CUDA tensor
 launches the kernel or raises.  ``launches`` counts kernel launches per
 kernel (plain calls are not counted).
 
-``term_topk`` launches at most the blocks the card holds at once
-(``grid_blocks``) over the tiles that hold postings; the tiles past a row's
-end get their empty winners from a store loop every block shares.
-``locate_item`` and ``work_items`` mirror that schedule for the tests.
+``term_topk`` and ``bm25_topk`` launch at most the blocks the card holds
+at once (``grid_blocks``).  ``term_topk``'s items are the tiles that hold
+postings; the tiles past a row's end get their empty winners from a store
+loop every block shares.  ``bm25_topk``'s block x takes tiles x, x + grid,
+... of its row.  ``locate_item``, ``work_items`` and ``bm25_schedule``
+mirror those schedules for the tests.
 
 The score is ``idf * (tf*(k1+1)) / fma(k1, (1-b) + (b*dl)/avgdl, tf)`` in
 float32 with exactly one fused multiply-add, which is what XLA:CPU computes
@@ -49,9 +51,9 @@ MAX_K = 128
 #: kernel launches, by kernel name; reset with ``reset_launches``
 launches: Dict[str, int] = {"term_topk": 0, "bm25_topk": 0}
 
-#: threads of a term_topk block and the contiguous postings each owns
-#: (``csrc/warp_select.cuh`` DT_THREADS, DT_DPT), as the library's
-#: ``term_topk_layout`` returns them
+#: threads of a term_topk / bm25_topk block and the contiguous postings
+#: each owns (``csrc/warp_select.cuh`` DT_THREADS, DT_DPT), as the
+#: library's ``term_topk_layout`` returns them
 THREADS = 128
 PER_THREAD = TILE // THREADS
 LAYOUT = (THREADS, PER_THREAD)
@@ -177,6 +179,14 @@ def check_tensor(name, t, dtype, device, ndim=1):
         raise ValueError(f"{name} must be contiguous")
 
 
+def check_aligned(**cols):
+    """Raise unless each tensor starts 16-byte aligned: the columns the
+    kernels read 16 bytes at a time (checked on the card only)."""
+    for name, t in cols.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start 16-byte aligned on the card")
+
+
 def check_k(k: int) -> None:
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k={k} outside the kernels' range 1..{MAX_K}")
@@ -238,26 +248,36 @@ def work_items(lengths, n_tiles: int, n_blocks: int, k: int):
     return sched, empty
 
 
+def bm25_schedule(n_tiles: int, n_blocks: int):
+    """``[(block, tile)]`` in the order each block of ``bm25_topk`` works:
+    block x takes tiles x, x + grid, ..., grid = min(n_blocks, n_tiles)."""
+    grid = max(1, min(n_blocks, n_tiles))
+    return [(x, t) for x in range(grid) for t in range(x, n_tiles, grid)]
+
+
 @functools.lru_cache(maxsize=None)
-def blocks_per_sm(dev_index: int) -> int:
-    """Blocks of ``term_topk`` one SM holds at once, from the occupancy
-    API.  Raises if the built library's block layout is not ``LAYOUT``."""
+def blocks_per_sm(kind: str, dev_index: int) -> int:
+    """Blocks of ``term_topk`` or ``bm25_topk`` one SM holds at once, from
+    the occupancy API.  Raises if the built library's block layout is not
+    ``LAYOUT``."""
     lib = library()
     built = tuple(lib.term_topk_layout(i) for i in range(len(LAYOUT)))
     if built != LAYOUT:
         raise RuntimeError(f"csrc term_topk layout {built} != the mirrors' {LAYOUT}")
+    which = {"term_topk": 0, "bm25_topk": 1}[kind]
     with torch.cuda.device(dev_index):
-        n = lib.term_topk_blocks_per_sm()
+        n = lib.term_topk_blocks_per_sm(which)
     if n <= 0:
-        raise RuntimeError("term_topk: no block fits an SM")
+        raise RuntimeError(f"{kind}: no block fits an SM")
     return n
 
 
-def grid_blocks(n_slots: int, dev: torch.device) -> int:
-    """The grid of one ``term_topk`` launch: the blocks the card holds at
-    once, at most one a (row, tile) slot."""
+def grid_blocks(kind: str, n_slots: int, dev: torch.device) -> int:
+    """The grid of one ``term_topk`` or ``bm25_topk`` launch: the blocks
+    the card holds at once, at most one a (row, tile) slot."""
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    return runtime.one_wave(n_slots, blocks_per_sm(index), torch.device("cuda", index))
+    return runtime.one_wave(n_slots, blocks_per_sm(kind, index),
+                            torch.device("cuda", index))
 
 
 def term_topk_tiles(csr_docs, csr_freqs, dl_live, starts, lengths, idfs,
@@ -299,7 +319,8 @@ def term_topk_tiles(csr_docs, csr_freqs, dl_live, starts, lengths, idfs,
         code = lib.term_topk(
             csr_docs.data_ptr(), csr_freqs.data_ptr(), dl_live.data_ptr(), starts.data_ptr(),
             lengths.data_ptr(), idfs.data_ptr(), avgdl, k1, b, rows, nb,
-            grid_blocks(rows * nb, dev), k, vals.data_ptr(), ids.data_ptr(), cnt.data_ptr(),
+            grid_blocks("term_topk", rows * nb, dev), k, vals.data_ptr(), ids.data_ptr(),
+            cnt.data_ptr(),
             runtime.stream_of(vals),
         )
     runtime.check(lib, code, "term_topk launch")
@@ -311,9 +332,10 @@ def bm25_topk_blocks(freqs, dl, valid, idf: float, avgdl: float, k1: float,
                      b: float, k: int):
     """Per-tile BM25 top-k of one query over pre-gathered postings.
 
-    freqs/dl/valid: (P,) int32 with P % TILE == 0.  Returns (vals (P/TILE,
-    k) float32, idx (P/TILE, k) int32 positions in the row); slots past a
-    tile's valid postings hold (-inf, -1)."""
+    freqs/dl/valid: (P,) int32 with P % TILE == 0, 16-byte aligned on the
+    card.  Returns (vals (P/TILE, k) float32, idx (P/TILE, k) int32
+    positions in the row); slots past a tile's valid postings hold (-inf,
+    -1)."""
     dev = freqs.device
     for name, t in (("freqs", freqs), ("dl", dl), ("valid", valid)):
         check_tensor(name, t, torch.int32, dev)
@@ -325,14 +347,16 @@ def bm25_topk_blocks(freqs, dl, valid, idf: float, avgdl: float, k1: float,
     check_k(k)
     if dev.type == "cpu":
         return bm25_topk_blocks_plain(freqs, dl, valid, idf, avgdl, k1, b, k)
+    check_aligned(freqs=freqs, dl=dl, valid=valid)
     lib = library()
     nb = n // TILE
     vals = torch.empty((nb, k), dtype=torch.float32, device=dev)
     idx = torch.empty((nb, k), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         code = lib.bm25_topk(
-            freqs.data_ptr(), dl.data_ptr(), valid.data_ptr(), idf, avgdl, k1, b, nb, k,
-            vals.data_ptr(), idx.data_ptr(), runtime.stream_of(vals),
+            freqs.data_ptr(), dl.data_ptr(), valid.data_ptr(), idf, avgdl, k1, b, nb,
+            grid_blocks("bm25_topk", nb, dev), k, vals.data_ptr(), idx.data_ptr(),
+            runtime.stream_of(vals),
         )
     runtime.check(lib, code, "bm25_topk launch")
     launches["bm25_topk"] += 1
@@ -386,11 +410,13 @@ __all__ = [
     "csr_rows",
     "csr_rows_scored",
     "check_tensor",
+    "check_aligned",
     "check_k",
     "library",
     "row_tiles",
     "locate_item",
     "work_items",
+    "bm25_schedule",
     "grid_blocks",
     "term_topk_tiles",
     "term_topk_tiles_plain",

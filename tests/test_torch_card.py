@@ -296,6 +296,123 @@ def test_doc_kernels_reject_unaligned_columns_on_card(card):
         dk.facet_hist_tiles(cz, cz, cz, z, s1, s1, 12)
 
 
+@pytest.mark.gpu
+def test_bm25_and_range_reject_unaligned_columns_on_card(card):
+    """bm25_topk and range_topk read their columns 16 bytes at a time too."""
+    z = torch.zeros(kt.TILE + 1, dtype=torch.int32, device=card)[1:]
+    a = torch.zeros(kt.TILE, dtype=torch.int32, device=card)
+    s1 = torch.zeros(2, dtype=torch.int32, device=card)
+    for cols in ((z, a, a), (a, z, a), (a, a, z)):
+        with pytest.raises(ValueError, match="16-byte"):
+            kt.bm25_topk_blocks(*cols, 1.0, AVGDL, K1, B, 10)
+    for cols in ((z, a), (a, z)):
+        with pytest.raises(ValueError, match="16-byte"):
+            dk.range_topk_tiles(*cols, s1, s1, 10)
+
+
+def _bm25_row(rng, n_tiles):
+    """Pre-gathered (freqs, dl, valid) of n_tiles tiles: random freqs with
+    freq-0 postings that are valid (score 0.0), tile 0 all invalid when
+    there are more tiles, and in the middle tile a strided set of postings
+    with equal tf and doc length (ties across lanes and warps) above the
+    rest of the tile."""
+    p = n_tiles * kt.TILE
+    freqs = rng.integers(0, 25, p).astype(np.int32)
+    dl = rng.integers(1, 400, p).astype(np.int32)
+    valid = (rng.random(p) > 0.2).astype(np.int32)
+    if n_tiles > 1:
+        valid[: kt.TILE] = 0
+    mid = (n_tiles // 2) * kt.TILE
+    tile = slice(mid, mid + kt.TILE)
+    freqs[tile], dl[tile] = 1, 399
+    freqs[mid:mid + kt.TILE:37], dl[mid:mid + kt.TILE:37] = 30, 5
+    valid[tile] = 1
+    return freqs, dl, valid
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 10, 128])
+@pytest.mark.parametrize("n_tiles", [1, 2, 48, 64, "wave+3"])
+def test_bm25_topk_edges_on_card(card, k, n_tiles):
+    """bm25_topk against its plain version, 0 ULP and one launch a call:
+    1, 2, 48 (the main path's row) and 64 tiles, and 3 more tiles than the
+    card holds blocks at once (blocks loop); an all-invalid tile, valid
+    freq-0 postings, equal scores across lanes and warps; then a staged row
+    whose last tile holds 1 posting."""
+    if n_tiles == "wave+3":
+        n_tiles = kt.grid_blocks("bm25_topk", 1 << 20, card) + 3
+    rng = np.random.default_rng(5000 + 10 * k + n_tiles)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(card)
+
+    freqs, dl, valid = (dev(a) for a in _bm25_row(rng, n_tiles))
+    n_docs = 20000
+    doc_lens = dev(rng.integers(1, 400, n_docs).astype(np.int32))
+    live = dev(rng.random(n_docs) > 0.2)
+    n = (n_tiles - 1) * kt.TILE + 1  # the last tile holds 1 posting
+    docs = np.sort(rng.integers(0, n_docs, n)).astype(np.int32)
+    staged = kt.stage_bm25(dev(docs), dev(rng.integers(1, 25, n).astype(np.int32)),
+                           doc_lens, live)
+    for cols in ((freqs, dl, valid), staged[1:]):
+        args = (*cols, 2.25, AVGDL, K1, B, k)
+        n0 = kt.launches["bm25_topk"]
+        got = kt.bm25_topk_blocks(*args)
+        torch.cuda.synchronize()
+        assert kt.launches["bm25_topk"] == n0 + 1
+        _equal(got, kt.bm25_topk_blocks_plain(*args))
+    ties = kt.bm25_topk_blocks(freqs, dl, valid, 2.25, AVGDL, K1, B, k)
+    mid = n_tiles // 2
+    want = (mid * kt.TILE + np.arange(0, kt.TILE, 37))[:k]
+    np.testing.assert_array_equal(ties[1][mid, : len(want)].cpu().numpy(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 10, 128])
+@pytest.mark.parametrize("rows", [1, 32, 64])
+@pytest.mark.parametrize("n_tiles", [1, 64, "wave+1"])
+def test_range_topk_edges_on_card(card, k, rows, n_tiles):
+    """range_topk against its plain version, 0 ULP and one launch a call:
+    an empty window (lo > hi), the padding row's (0, -1), all of int32,
+    windows with more than k hits in a tile, a window that holds only docs
+    1,023-1,025 and the last doc, dead docs and negative doc values; 1, 32
+    and 64 rows over 1 and 64 tiles, and over enough tiles that the items
+    outnumber the warps the card holds at once (warps loop)."""
+    wave = n_tiles == "wave+1"
+    if wave:
+        warps = dk.grid_blocks("range_topk", 1 << 30, card) * dk.WARPS
+        n_tiles = warps // rows + 1
+    rng = np.random.default_rng(6000 + 100 * k + 10 * rows + n_tiles)
+    nd_pad = n_tiles * kt.TILE
+    n_docs = nd_pad - 37
+    live = (rng.random(nd_pad) > 0.1).astype(np.int32)
+    live[n_docs:] = 0
+    edge = [1023, 1024, 1025, n_docs - 1] if n_tiles > 1 else [0, 31, 32, n_docs - 1]
+    live[edge] = 1
+    dv = rng.integers(0, 365, nd_pad).astype(np.int32)
+    dv[::97] = -5
+    dv[edge] = 500
+    fixed = [(0, 364), (0, -1), (200, 100), (-2 ** 31, 2 ** 31 - 1), (500, 500),
+             (100, 101), (-5, 0)]
+    start = {1: 0, 10: 3, 128: 4}[k]  # a single row: many hits, all of int32, the edges
+    windows = (fixed[start:] + fixed)[:rows]
+    while len(windows) < rows:
+        lo = int(rng.integers(-10, 365))
+        windows.append((lo, lo + int(rng.integers(-3, 120))))
+    los = torch.tensor([w[0] for w in windows], dtype=torch.int32, device=card)
+    his = torch.tensor([w[1] for w in windows], dtype=torch.int32, device=card)
+    args = (torch.from_numpy(dv).to(card), torch.from_numpy(live).to(card), los, his, k)
+    n0 = dk.launches["range_topk"]
+    got = dk.range_topk_tiles(*args)
+    torch.cuda.synchronize()
+    assert dk.launches["range_topk"] == n0 + 1
+    _equal(got, dk.range_topk_tiles_plain(*args))
+    if wave:
+        assert dk.grid_blocks("range_topk", rows * n_tiles, card) * dk.WARPS < rows * n_tiles
+    if n_tiles > 1 and rows > 1:
+        assert (got[2].cpu().numpy() > k).any()  # a tile holds more than k hits
+
+
 def _scratch_is_zero(owner):
     """Every scratch buffer of ``owner`` is back to zero (after a sync)."""
     from repro_torch.kernels import runtime

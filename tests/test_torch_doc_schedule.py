@@ -1,12 +1,14 @@
-"""The schedule and the tile search of kernels bool_topk, sort_topk and
-facet_hist, through their Python mirrors (``kernels/doc_topk.py``), on the
-CPU.
+"""The schedules and the tile search of kernels bool_topk, sort_topk,
+range_topk and facet_hist, through their Python mirrors
+(``kernels/doc_topk.py``), on the CPU.
 
 ``work_schedule`` must give every (row, tile) work item to exactly one
-block, and ``many_way_lower_bound`` (the kernels' ``group_lower_bound``)
-must find what ``np.searchsorted(..., side="left")`` finds.  The kernels
-themselves are held to their plain versions on the card
-(``tests/test_torch_card.py``).
+block, ``warp_schedule`` (range_topk) to exactly one warp,
+``many_way_lower_bound`` (the kernels' ``group_lower_bound``) must find
+what ``np.searchsorted(..., side="left")`` finds, and ``warp_ranks``
+(range_topk's lane masks and prefix count) must pick what the plain version
+picks.  The kernels themselves are held to their plain versions on the
+card (``tests/test_torch_card.py``).
 """
 
 import re
@@ -14,6 +16,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from repro_torch.kernels import doc_topk as dk
 from repro_torch.kernels.term_topk import TILE
@@ -24,9 +27,9 @@ CSRC = Path(dk.__file__).parent.parent / "csrc"
 
 def test_mirrors_use_the_kernels_block_layout():
     """The mirrors' constants are the sources': DT_THREADS (warp_select.cuh,
-    which doc_topk.cu includes), BOOL_PASS and SORT_LANES as defined,
-    BOOL_LANES as group_lanes derives it.  (On the card ``blocks_per_sm``
-    checks the built library's ``doc_topk_layout``.)"""
+    which doc_topk.cu includes), BOOL_PASS, SORT_LANES and RANGE_CHUNKS
+    as defined, BOOL_LANES as group_lanes derives it.  (On the card
+    ``blocks_per_sm`` checks the built library's ``doc_topk_layout``.)"""
     cu = (CSRC / "doc_topk.cu").read_text()
     assert '#include "warp_select.cuh"' in cu
     src = cu + (CSRC / "warp_select.cuh").read_text()
@@ -38,7 +41,14 @@ def test_mirrors_use_the_kernels_block_layout():
     assert "BOOL_LANES = group_lanes(DT_THREADS / (2 * BOOL_PASS))" in src
     group = threads // (2 * per_pass)
     lanes = max(x for x in (1, 2, 4, 8, 16, 32) if x <= group)
-    assert dk.LAYOUT == (threads, per_pass, lanes, define("SORT_LANES"))
+    chunk = re.search(r"^#define RANGE_CHUNK \((\d+) \* (\d+)\)", src, re.M)
+    assert re.search(r"^#define RANGE_CHUNKS \(TILE / RANGE_CHUNK\)", src, re.M)
+    assert int(chunk.group(1)) * int(chunk.group(2)) == dk.RANGE_CHUNK
+    assert dk.LAYOUT == (threads, per_pass, lanes, define("SORT_LANES"),
+                         TILE // dk.RANGE_CHUNK)
+    assert ("const int layout[5] = {DT_THREADS, BOOL_PASS, BOOL_LANES, SORT_LANES, "
+            "RANGE_CHUNKS};") in src
+    assert dk.WARPS == threads // 32
 
 
 @pytest.mark.parametrize("rows,tiles,blocks", [
@@ -150,3 +160,86 @@ def test_many_way_search_edges_of_the_doc_space():
         for lanes in (1, 2, 32):
             got, _ = dk.many_way_lower_bound(docs, key, lanes)
             assert got == np.searchsorted(docs, key, side="left")
+
+
+def test_range_kernel_layout_mirrors_the_source():
+    """range_topk: DT_THREADS-thread blocks, a warp an item (the host clips
+    the grid to one block a DT_WARPS items), a chunk of 128 docs a warp
+    load (an int4 a lane), 8 chunks: one 32-bit mask a lane."""
+    src = (CSRC / "doc_topk.cu").read_text()
+    assert "__launch_bounds__(DT_THREADS) range_topk_kernel" in src
+    assert "const int need = (n_items + DT_WARPS - 1) / DT_WARPS;" in src
+    assert "item = blockIdx.x * DT_WARPS + (threadIdx.x >> 5)" in src
+    assert dk.RANGE_CHUNK == 32 * 4 and dk.RANGE_CHUNKS * 4 == 32
+    assert dk.range_blocks(1) == 1 and dk.range_blocks(dk.WARPS) == 1
+    assert dk.range_blocks(dk.WARPS + 1) == 2
+
+
+@pytest.mark.parametrize("rows,tiles,blocks", [
+    (1, 1, 1), (1, 1, 2112), (1, 64, 3), (32, 1, 8), (32, 49, 392),
+    (32, 49, 1056), (32, 49, 100), (64, 64, 792), (64, 1, 5), (7, 3, 2),
+])
+def test_warp_schedule_gives_each_item_one_warp(rows, tiles, blocks):
+    sched = dk.warp_schedule(rows, tiles, blocks)
+    items = rows * tiles
+    grid = min(blocks, dk.range_blocks(items))
+    got = [(r, t) for _, _, r, t in sched]
+    assert sorted(got) == [(r, t) for r in range(rows) for t in range(tiles)]
+    assert len(got) == len(set(got))
+    assert {x for x, *_ in sched} == set(range(grid))
+    # warp w of block x takes x * WARPS + w, + grid * WARPS, ...
+    per = {}
+    for x, w, r, t in sched:
+        per.setdefault((x, w), []).append(r * tiles + t)
+    for (x, w), its in per.items():
+        assert its == list(range(x * dk.WARPS + w, items, grid * dk.WARPS))
+    counts = [len(v) for v in per.values()]
+    assert max(counts) == -(-items // (grid * dk.WARPS))
+
+
+@pytest.mark.parametrize("per_sm", [3, 6, 16])
+def test_main_path_range_items_fit_one_wave(per_sm):
+    """32 rows x 49 tiles are 392 blocks of 4 warps: at 3 or more blocks an
+    SM, 132 SMs give every item a warp of its own in one wave."""
+    items = 32 * 49
+    assert dk.range_blocks(items) == 392 <= per_sm * 132
+    sched = dk.warp_schedule(32, 49, per_sm * 132)
+    assert len({x for x, *_ in sched}) == 392
+    assert len(sched) == len({(x, w) for x, w, *_ in sched}) == items
+
+
+def _range_tile(rng, kind):
+    """(dv, live) of one tile for ``warp_ranks``' cases."""
+    dv = rng.integers(0, 365, TILE)
+    live = rng.random(TILE) > 0.2
+    if kind == "dense":
+        live[:] = True
+    elif kind == "lane_edges":  # only a lane's first and last doc of a chunk, some chunks
+        live[:] = False
+        live[0::4] = live[3::4] = rng.random(TILE // 4) > 0.3
+    elif kind == "one":
+        live[:] = False
+        live[TILE - 1] = True
+    return dv.astype(np.int32), live.astype(np.int32)
+
+
+@pytest.mark.parametrize("k", [1, 10, 128])
+@pytest.mark.parametrize("kind", ["random", "dense", "lane_edges", "one"])
+@pytest.mark.parametrize("window", [(0, -1), (100, 200), (0, 364),
+                                    (-2 ** 31, 2 ** 31 - 1), (300, 300)])
+def test_warp_ranks_pick_what_the_plain_version_picks(k, kind, window):
+    """A tile's winners by chunked lane masks and a prefix count over the
+    lanes are its k lowest matching doc positions, and the count its
+    matches: the plain version's answer, whatever the window (empty, all
+    of int32, one value)."""
+    rng = np.random.default_rng(k * 31 + len(kind) * 7 + window[0] % 97)
+    dv, live = _range_tile(rng, kind)
+    lo, hi = window
+    ok = (dv >= lo) & (dv <= hi) & (live > 0)
+    winners, count = dk.warp_ranks(ok, k)
+    want_v, want_i, want_c = dk.range_topk_tiles_plain(
+        torch.from_numpy(dv), torch.from_numpy(live),
+        torch.tensor([lo], dtype=torch.int32), torch.tensor([hi], dtype=torch.int32), k)
+    assert count == int(want_c[0, 0])
+    assert winners == want_i[0, 0].tolist()
+    assert (want_v[0, 0][: min(count, k)] == 1.0).all()

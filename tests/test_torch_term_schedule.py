@@ -1,11 +1,12 @@
-"""The schedule of kernel term_topk, through its Python mirrors
-(``kernels/term_topk.py::locate_item``, ``work_items``), on the CPU.
+"""The schedules of kernels term_topk and bm25_topk, through their Python
+mirrors (``kernels/term_topk.py::locate_item``, ``work_items``,
+``bm25_schedule``), on the CPU.
 
-The kernel's items are only the tiles that hold postings: each such (row,
+term_topk's items are only the tiles that hold postings: each such (row,
 tile) must go to exactly one block, and every other (row, tile) slot must
-get its k empty winners from the store loop the blocks share.  The kernel
-itself is held to its plain version on the card
-(``tests/test_torch_card.py``).
+get its k empty winners from the store loop the blocks share.  bm25_topk's
+tiles must each go to exactly one block.  The kernels themselves are held
+to their plain versions on the card (``tests/test_torch_card.py``).
 """
 
 import re
@@ -13,6 +14,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from repro_torch.kernels import term_topk as kt
 
@@ -80,4 +82,49 @@ def test_layout_mirrors_the_header():
     src = (csrc / "term_topk.cu").read_text()
     assert '#include "warp_select.cuh"' in src
     assert "__launch_bounds__(DT_THREADS) term_topk_kernel" in src
+    assert "__launch_bounds__(DT_THREADS) bm25_topk_kernel" in src
     assert "const int layout[2] = {DT_THREADS, DT_DPT};" in src
+
+
+@pytest.mark.parametrize("n_tiles", [1, 2, 48, 49, 64, 2113, 5000])
+@pytest.mark.parametrize("blocks", [1, 7, 48, 1584, 2112])
+def test_bm25_schedule_covers_each_tile_once(n_tiles, blocks):
+    """Block x takes tiles x, x + grid, ...: every tile once, every block of
+    the grid some tile, and the blocks' tile counts differ by at most one
+    (a row longer than the card holds at once loops)."""
+    sched = kt.bm25_schedule(n_tiles, blocks)
+    grid = min(blocks, n_tiles)
+    assert sorted(t for _, t in sched) == list(range(n_tiles))
+    assert {x for x, _ in sched} == set(range(grid))
+    per = {}
+    for x, t in sched:
+        per.setdefault(x, []).append(t)
+    for x, tiles in per.items():
+        assert tiles == list(range(x, n_tiles, grid))
+    counts = [len(v) for v in per.values()]
+    assert max(counts) == -(-n_tiles // grid) and max(counts) - min(counts) <= 1
+
+
+@pytest.mark.parametrize("per_sm", [1, 8, 16])
+def test_bm25_main_path_tiles_fit_one_wave(per_sm):
+    """The main path's row (49,152 postings: the highest-df term of a batch
+    in the 50,000-doc segment) is 48 tiles: a block each in one wave."""
+    n_tiles = 49_152 // TILE
+    sched = kt.bm25_schedule(n_tiles, per_sm * 132)
+    assert len(sched) == len({x for x, _ in sched}) == n_tiles == 48
+
+
+def test_bm25_kernel_reports_row_positions():
+    """bm25_topk's thread t owns positions [DT_DPT t, DT_DPT (t + 1)) of its
+    tile and reports tile * TILE + position, as the plain version does."""
+    src = (Path(kt.__file__).parent.parent / "csrc" / "term_topk.cu").read_text()
+    assert "const int first = tile * TILE + q0;" in src
+    assert "PosFrom{first}, tile, out_vals, out_idx, nullptr, cand, wn" in src
+    freqs = np.zeros(3 * TILE, np.int32)
+    valid = np.zeros(3 * TILE, np.int32)
+    freqs[[5, TILE + 1000, 2 * TILE]] = (3, 9, 1)
+    valid[[5, TILE + 1000, 2 * TILE]] = 1
+    z = torch.from_numpy(np.full(3 * TILE, 50, np.int32))
+    _, idx = kt.bm25_topk_blocks(torch.from_numpy(freqs), z, torch.from_numpy(valid),
+                                 1.5, 40.0, 0.9, 0.4, 2)
+    assert idx.tolist() == [[5, -1], [TILE + 1000, -1], [2 * TILE, -1]]
