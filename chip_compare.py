@@ -25,11 +25,15 @@ neither path reads), then reports:
     (``chip_smoke.doc_kernel_records``: K3-K6), K1 at
     ``chip_smoke.term_kernel_args``' shape and K2's record
     (``chip_smoke.bm25_kernel_record``), timed as ``chip_smoke.py`` times
-    them: ms from CUDA events.
+    them: ms from CUDA events;
+  * K9 (``bitset_turn``): the tree's ``bitset_combine_blocks`` alone and a
+    call of its ``ops.bitset_combine``, with the kernels that call traces,
+    at the main path's shape (four doc bitsets over 500,000 docs) and at
+    luceneutil's wikimediumall doc count (33,332,620 docs, seeded bits).
 
 The families phase and K3-K6's records come from the tree's own
-``chip_smoke.py``; the rest of the harness, K2's record included, from this
-script's.
+``chip_smoke.py``; the rest of the harness, K2's and K9's records
+included, from this script's.
 
 One ``CMP`` JSON line per turn, then a ``SUMMARY`` JSON line of the turns'
 numbers side by side.  Compare two trees only within one call: the card, its
@@ -39,6 +43,7 @@ power limit and the host's load differ between calls.
 from __future__ import annotations
 
 import importlib.util
+import itertools
 import json
 import subprocess
 import sys
@@ -123,7 +128,50 @@ def worker(root: Path) -> dict:
         raise AssertionError("term_topk differs from its plain version")
     out["kernel_ms"]["term_topk"] = h.cuda_ms(lambda: kt.term_topk_tiles(*args), 50)[0]
     out["kernel_ms"]["bm25_topk"] = h.bm25_kernel_record(eng, queries[WARM], 0)["ms"]
+    out["bitset"] = bitset_turn(h, eng, bands, table)
     out["total_s"] = time.perf_counter() - t0
+    return out
+
+
+def bitset_turn(h, eng, bands, table) -> dict:
+    """K9 in this turn's tree, AND of four bitsets at the main path's shape
+    (the bitset task's doc bitsets over the whole doc space) and at
+    wikimediumall's (seeded random bits): the kernel alone (the tree's
+    ``bitset_combine_blocks`` on the bitsets padded to the block), a call of
+    the tree's ``ops.bitset_combine`` (ms and the kernels its trace holds),
+    and at wikimediumall's shape the same call over BITSET_ROTATE input
+    sets in turn (out of L2)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import bitset as kb
+    from repro_torch.kernels import ops as kops
+
+    _, small = h.bitset_task(eng, bands, table, h.SEED + 5)
+    rng = np.random.default_rng(h.BITSET_SEED)
+    sets = [torch.from_numpy(rng.integers(0, 1 << 32, (h.BITSET_TERMS,
+                                                      h.BITSET_WIKIMEDIUMALL_WORDS),
+                                          dtype=np.uint64).astype(np.uint32)).to(small.device)
+            for _ in range(h.BITSET_ROTATE)]
+    out = {}
+    for label, bits in (("main", small), ("wikimediumall", sets[0])):
+        t, w = bits.shape
+        fill = torch.zeros((t, (-w) % kb.BLOCK), dtype=torch.int32, device=bits.device)
+        padded = torch.cat([bits.view(torch.int32), fill], 1).view(torch.uint32)
+        got, total = kops.bitset_combine(bits, "and")
+        want, counts = kb.bitset_combine_blocks_plain(padded, "and")
+        if not (torch.equal(got.view(torch.int32), want.view(torch.int32)[:w])
+                and int(total) == int(counts.sum())):
+            raise AssertionError(f"bitset_combine differs from its plain version ({label})")
+        out[label] = {
+            "words": w,
+            "kernel_ms": h.cuda_ms(lambda: kb.bitset_combine_blocks(padded, "and"), 50)[0],
+            "ops_ms": h.cuda_ms(lambda: kops.bitset_combine(bits, "and"), 50)[0],
+            "ops_trace": h.kernel_phases(lambda: kops.bitset_combine(bits, "and")),
+        }
+    turn = itertools.cycle(sets)
+    out["wikimediumall"]["ops_ms_inputs_in_turn"] = h.cuda_ms(
+        lambda: kops.bitset_combine(next(turn), "and"), 12 * h.BITSET_ROTATE)[0]
     return out
 
 
@@ -155,6 +203,7 @@ def main(argv) -> int:
         summary[key] = [[t[key]["device_busy_ms"], t[key]["device_idle_share"],
                          t[key]["kernels_ms"]] for _, t in turns]
     summary["kernel_ms"] = [t["kernel_ms"] for _, t in turns]
+    summary["bitset"] = [t["bitset"] for _, t in turns]
     summary["term_qps"] = [t["term_qps"] for _, t in turns]
     summary["task_qps"] = [t["task_qps"] for _, t in turns]
     print("SUMMARY " + json.dumps(summary), flush=True)

@@ -1,6 +1,7 @@
 """Public kernel entry points that take unpadded inputs (port of
-``repro/kernels/ops.py``): staging to the kernels' block multiple, the
-kernel, and the reduction of its per-block outputs.
+``repro/kernels/ops.py``).  The reference pads to its kernels' blocks,
+runs them and reduces their per-block outputs; the port's kernels take the
+shapes as they are.
 
 ``bm25_topk`` lives beside its kernel in ``kernels/term_topk.py``.
 """
@@ -15,15 +16,8 @@ from repro_torch.kernels import decode_attn as _decode
 
 def bitset_combine(bitmaps: torch.Tensor, mode: str = "and"):
     """(T, W) uint32 bitmaps -> (combined (W,) uint32, cardinality: 0-d
-    int64).  W pads to a ``bitset.BLOCK`` multiple with zero words, which
-    set no bit under AND or OR, and the padding is cut off again."""
-    t, w = bitmaps.shape
-    pad = (-w) % bitset.BLOCK
-    if pad:
-        fill = torch.zeros((t, pad), dtype=torch.int32, device=bitmaps.device)
-        bitmaps = torch.cat([bitmaps.view(torch.int32), fill], dim=1).view(torch.uint32)
-    combined, counts = bitset.bitset_combine_blocks(bitmaps.contiguous(), mode)
-    return combined[:w], counts.sum()
+    int64).  The kernel takes W as it is: one launch, no padded copy."""
+    return bitset.bitset_combine(bitmaps.contiguous(), mode)
 
 
 def decode_attention(q, k, v, kv_len=None, s_block=None):

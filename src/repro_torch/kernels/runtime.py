@@ -171,7 +171,9 @@ def library() -> ctypes.CDLL:
                 "vector_score_rows": [vp, i32, i32, vp, vp] + [i32] * 3 + [vp] * 3,
                 "hybrid_score_rows": ([vp, i32, i32, vp, vp, i32] + [vp] * 6
                                       + [f32] * 3 + [i32] * 2 + [vp] * 3),
-                "bitset_combine": [vp, i32, ctypes.c_longlong, i32] + [vp] * 3,
+                "bitset_combine": [vp, i32, ctypes.c_longlong, i32, i32] + [vp] * 5,
+                "bitset_blocks_per_sm": [],
+                "bitset_layout": [i32],
                 "decode_attn": ([vp] * 4 + [i32] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
                                 + [f32] + [i32] * 7 + [vp] * 5),
                 "decode_attn_blocks_per_sm": [i32] * 9,
@@ -182,7 +184,7 @@ def library() -> ctypes.CDLL:
                 fn.restype = i32
             for name in ("kernels_tile", "kernels_max_k", "facet_shared_bins",
                          "vector_rows", "vector_docs",
-                         "vector_dim_align", "bitset_block", "decode_attn_tile",
+                         "vector_dim_align", "decode_attn_tile",
                          "decode_attn_stages", "decode_attn_warps"):
                 getattr(lib, name).restype = i32
             lib.cuda_error_string.argtypes = [i32]

@@ -1,8 +1,9 @@
 """The port's packed-bitmap combine (``repro_torch.kernels.ops.
-bitset_combine`` and the plain version of kernel K9) against the JAX
+bitset_combine`` and the plain versions of kernel K9) against the JAX
 package's ``ops.bitset_combine`` (its Pallas kernel, interpreted on the
 CPU) and ``ref.bitset_combine_ref``: the same combined words and set-bit
-counts, exactly."""
+counts, exactly.  The kernel's schedule is held through its Python mirror
+in ``tests/test_torch_bitset_schedule.py``."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -36,6 +37,40 @@ def test_bitset_combine_matches_reference(rng, t, w, mode):
     assert int(cnt) == int(want_cnt) == int(rcnt)
 
 
+@pytest.mark.parametrize("t", [1, 2, 4, 7, 9])
+@pytest.mark.parametrize("w", [1, 31, 1023, 1025, 5000, 15625])
+@pytest.mark.parametrize("mode", ["and", "or"])
+def test_ragged_combine_and_total_match_reference(rng, t, w, mode):
+    """Any W, unpadded: the words and the int64 total of ``ops.
+    bitset_combine`` and ``bitset.bitset_combine`` (their plain ragged
+    version on the CPU), with all-ones and all-zero words, against the
+    reference's padded Pallas path and ``bitset_combine_ref``.  T crosses
+    the kernel's ``ROWS``-row load chunks."""
+    bm = rng.integers(0, 2**32, (t, w), dtype=np.uint32)
+    bm[:, ::5] = 0xFFFFFFFF
+    bm[-1, 2::7] = 0
+    before = dict(kb.launches)
+    comb, total = ops.bitset_combine(torch.from_numpy(bm), mode)
+    comb2, total2 = kb.bitset_combine(torch.from_numpy(bm), mode)
+    assert kb.launches == before
+    assert comb.shape == (w,) and comb.dtype == torch.uint32
+    assert total.shape == () and total.dtype == torch.int64
+    want, want_total = ref_ops.bitset_combine(jnp.asarray(bm), mode)
+    rcomb, rtotal = ref.bitset_combine_ref(jnp.asarray(bm), mode)
+    np.testing.assert_array_equal(_words(comb), np.asarray(want))
+    np.testing.assert_array_equal(_words(comb), np.asarray(rcomb))
+    np.testing.assert_array_equal(_words(comb2), np.asarray(rcomb))
+    assert int(total) == int(total2) == int(want_total) == int(rtotal)
+
+
+def test_plain_versions_do_not_alias_the_input():
+    bm = torch.from_numpy(np.arange(2 * kb.BLOCK, dtype=np.uint32).reshape(1, -1))
+    for fn in (kb.bitset_combine_plain, kb.bitset_combine_blocks_plain):
+        comb, _ = fn(bm, "and")
+        comb.view(torch.int32).zero_()
+        assert int(bm.view(torch.int32)[0, 1]) == 1
+
+
 @pytest.mark.parametrize("mode", ["and", "or"])
 def test_block_counts_match_the_pallas_kernel(rng, mode):
     """Per-1,024-word-block counts, with all-ones and all-zero words."""
@@ -62,3 +97,7 @@ def test_bitset_rejects_bad_inputs():
         kb.bitset_combine_blocks(z[:, :1000].contiguous(), "and")
     with pytest.raises(ValueError, match="uint32"):
         kb.bitset_combine_blocks(z.view(torch.int32), "and")
+    with pytest.raises(ValueError, match="T >= 1 and W >= 1"):
+        kb.bitset_combine(z[:, :0].contiguous(), "and")
+    with pytest.raises(ValueError, match="mode"):
+        kb.bitset_combine(z, "xor")

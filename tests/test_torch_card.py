@@ -18,6 +18,7 @@ from repro_torch.kernels import bitset as kb
 from repro_torch.kernels import decode_attn as kd
 from repro_torch.kernels import doc_topk as dk
 from repro_torch.kernels import ops
+from repro_torch.kernels import runtime
 from repro_torch.kernels import term_topk as kt
 from repro_torch.kernels import vector_topk as vk
 
@@ -812,7 +813,8 @@ def test_decode_step_on_card_matches_cpu(card):
 @pytest.mark.parametrize("mode", ["and", "or"])
 def test_bitset_kernel_matches_plain_on_card(card, mode):
     """bitset_combine against its plain version (words and block counts)
-    for T in {1, 2, 4, 7}, and ``ops.bitset_combine`` with a ragged W."""
+    for T in {1, 2, 4, 7}, and ``ops.bitset_combine`` with a ragged W, one
+    launch a call."""
     rng = np.random.default_rng(len(mode))
     for t in (1, 2, 4, 7):
         bits = rng.integers(0, 1 << 32, (t, 16 * kb.BLOCK), dtype=np.uint64)
@@ -825,6 +827,94 @@ def test_bitset_kernel_matches_plain_on_card(card, mode):
         _equal([x.view(torch.int32) for x in got], [x.view(torch.int32) for x in want])
         ragged = bits[:, :5000].contiguous()
         combined, count = ops.bitset_combine(ragged, mode)
+        assert kb.launches["bitset_combine"] == n0 + 2
         cpu_combined, cpu_count = ops.bitset_combine(ragged.cpu(), mode)
         _equal([combined.view(torch.int32)], [cpu_combined.view(torch.int32)])
         assert int(count) == int(cpu_count)
+
+
+def _bitmaps(rng, t, w):
+    """(T, W) uint32 bitmaps: random words, every fifth word all ones, some
+    words of the last row zero."""
+    bm = rng.integers(0, 1 << 32, (t, w), dtype=np.uint64).astype(np.uint32)
+    bm[:, ::5] = 0xFFFFFFFF
+    bm[-1, 2::7] = 0
+    return torch.from_numpy(bm)
+
+
+def _combine_checked(bits, mode):
+    """``ops.bitset_combine`` on the card, one launch, against the plain
+    version: the same words and total (0 ULP).  Returns the total."""
+    n0 = kb.launches["bitset_combine"]
+    got, total = ops.bitset_combine(bits, mode)
+    torch.cuda.synchronize()
+    assert kb.launches["bitset_combine"] == n0 + 1
+    want, want_total = kb.bitset_combine_plain(bits.cpu(), mode)
+    assert got.shape == want.shape and total.dtype == torch.int64 and total.dim() == 0
+    _equal([got.view(torch.int32)], [want.view(torch.int32)])
+    assert int(total) == int(want_total)
+    return int(total)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", [1, 31, 1023, 1025, 5000, 15625, 1_041_645])
+@pytest.mark.parametrize("mode", ["and", "or"])
+def test_bitset_ragged_matches_plain_on_card(card, w, mode):
+    """Any W, unpadded, T across the kernel's row chunks."""
+    rng = np.random.default_rng(w)
+    for t in (1, 2, 4, 7, 9):
+        _combine_checked(_bitmaps(rng, t, w).to(card), mode)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["and", "or"])
+def test_bitset_more_units_than_one_wave_on_card(card, mode):
+    """More 1,024-word units than the card holds blocks: every block takes
+    several units; the ragged path and the blocks API's counts."""
+    wave = kb.blocks_per_sm(torch.cuda.current_device()) * runtime.sm_count(card)
+    w = 3 * wave * kb.BLOCK + 17
+    assert kb.grid_blocks(w, card) == wave
+    rng = np.random.default_rng(3)
+    bits = _bitmaps(rng, 3, w).to(card)
+    _combine_checked(bits, mode)
+    aligned = bits[:, : w - 17].contiguous()
+    got = kb.bitset_combine_blocks(aligned, mode)
+    want = kb.bitset_combine_blocks_plain(aligned.cpu(), mode)
+    _equal([x.view(torch.int32) for x in got], [x.view(torch.int32) for x in want])
+
+
+@pytest.mark.gpu
+def test_bitset_scratch_stays_zero_between_calls_on_card(card):
+    """The ticket word is zero before and after each of three calls."""
+    rng = np.random.default_rng(5)
+    stream = torch.cuda.current_stream(card).cuda_stream
+    scratch = runtime.zeroed_scratch("bitset_combine", card, stream, 2)
+    for w, mode in ((15_625, "and"), (1_041_645, "or"), (1, "and")):
+        assert not scratch[:2].any()
+        _combine_checked(_bitmaps(rng, 4, w).to(card), mode)
+        assert runtime.zeroed_scratch("bitset_combine", card, stream, 2) is scratch
+    assert not scratch[:2].any()
+
+
+@pytest.mark.gpu
+def test_bitset_total_holds_over_200_calls_on_card(card):
+    """200 calls queued back to back, grids of 16 and 1,018 blocks in
+    turn, AND and OR: every total is the known one."""
+    rng = np.random.default_rng(7)
+    cases = [(_bitmaps(rng, 4, w).to(card), mode)
+             for w, mode in ((15_625, "and"), (1_041_645, "or"))]
+    known = [int(kb.bitset_combine_plain(b.cpu(), m)[1]) for b, m in cases]
+    n0 = kb.launches["bitset_combine"]
+    totals = [ops.bitset_combine(*cases[i % 2])[1] for i in range(200)]
+    got = torch.stack(totals).cpu().numpy()
+    assert kb.launches["bitset_combine"] == n0 + 200
+    np.testing.assert_array_equal(got, np.asarray(known * 100))
+
+
+@pytest.mark.gpu
+def test_bitset_blocks_api_still_raises_on_card(card):
+    bits = torch.zeros((2, 1000), dtype=torch.int32, device=card).view(torch.uint32)
+    n0 = kb.launches["bitset_combine"]
+    with pytest.raises(ValueError, match="multiple"):
+        kb.bitset_combine_blocks(bits, "and")
+    assert kb.launches["bitset_combine"] == n0
