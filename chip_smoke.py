@@ -92,6 +92,35 @@ Phases (any failure raises and the script exits non-zero):
               a 32,768-position cache, with SDPA as the library call, and
               one launch a call in the trace.
 
+  8. persist the paper's loop on the file path and the byte path: for each of
+              ``fs-ssd`` and ``byte-pmem``, ``SearchEngine(kind, path=<a fresh
+              temporary directory>)`` on the card (fused) ingests the main
+              path's corpus through ``add_documents`` -- the same 500,000
+              docs, flushes, NRT reopens and delete, without the ``_vec``
+              column -- then commits, reopens, runs the main path's term
+              batches (the paper's Fig 5 loop; the ``ram`` engine runs each
+              batch too, in turns, so the two QPS share one host window; the
+              searcher's df memo filled first for the whole vocabulary, as
+              the main path's df bands fill the ``ram`` searcher's),
+              crashes and recovers (``crash_and_recover()`` plus its
+              reopen) and runs them again.
+              Prints per kind: the filesystem of the directory (``df -T``;
+              ``byte-pmem`` is a file-backed memmap there, not NVDIMM),
+              ingest docs/s, the directory's flush and commit real seconds
+              (the paper's Fig 3 quantity) and ``SimClock``'s seconds for
+              the same operations under ``modeled`` (the paper's device
+              constants, not measurements), barriers per commit (byte),
+              files fsynced per commit (fs), reopen s, ``storage_bytes``,
+              device bytes, term QPS and batch p50/p99 (and ``ram``'s in
+              turns), recovery s, and the kernel launches of this engine's
+              calls (every count zeroed just before).
+              Checks: the segment list (names, doc counts, live docs)
+              equals the ``ram`` engine's; every term batch's ``TopDocs``
+              equal the ``ram`` main path's bit for bit (ids, score bits,
+              ``total_hits``) before the crash and after recovery; a byte
+              commit issues exactly one barrier (a compaction's barrier
+              apart); K1 was launched.
+
 The line before the last is the ``{"kernels": [...]}`` record of all ten
 kernels; the last is ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the repository beside it, the script fails before printing a
@@ -192,6 +221,9 @@ LM_PROFILE_STEPS = 5
 # the CPU at 28 layers (d 768: 0.050); the logits' spread is ~0.8
 LM_LOGIT_BOUND = 0.125
 DECODE_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # the reference's K10 tolerances
+# persist phase: the paper's two persistence paths, the file path through
+# the page cache and fsync, the byte path through the persistent heap
+PERSIST_KINDS = ("fs-ssd", "byte-pmem")
 
 
 def log(tag: str, obj) -> None:
@@ -1147,6 +1179,154 @@ def vector_kernel_records(eng, tasks: dict, launches: dict, bitmaps) -> list:
     return records
 
 
+def persist_phase(ram_eng, cfg, words, flush_every: int, queries, n_warm: int,
+                  want, rare: str) -> dict:
+    """Phase 8 (see the module docstring) on ``PERSIST_KINDS``: returns one
+    record per kind.  ``queries`` are the main path's term batches and
+    ``want`` the ``ram`` engine's results of each; ``rare`` its deleted
+    term."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.core.engine import SearchEngine
+    from repro_torch.core.query.types import TermQuery
+    from repro_torch.kernels import bitset as kb
+    from repro_torch.kernels import doc_topk as kd
+    from repro_torch.kernels import term_topk as kt
+    from repro_torch.kernels import vector_topk as kv
+
+    def segment_list(eng):
+        return [(sg.name, sg.n_docs, sg.n_live) for sg in eng.manager.infos.segments]
+
+    def counts():
+        return {**kt.launches, **kd.launches, **kv.launches, **kb.launches}
+
+    def term_loop(eng, ctx, launches):
+        """Every term batch through ``search_batch``, held to ``want``, the
+        ``ram`` engine running each batch too, in turns (which goes first
+        alternates), so both see the same host; host ms of each engine's
+        batches after the warm-up.  ``launches`` gains the kernel launches
+        of ``eng``'s calls alone.  The searcher's df memo is first filled
+        for the whole vocabulary, as the main path's df bands filled the
+        ``ram`` searcher's."""
+        for w in words:
+            eng.searcher.doc_freq(TermQuery("body", w))
+        lat, lat_ram = [], []
+        for i, (qs, ws) in enumerate(zip(queries, want)):
+            for e in ((eng, ram_eng) if i % 2 == 0 else (ram_eng, eng)):
+                before = counts()
+                t = time.perf_counter()
+                res = e.search_batch(qs, k=K)
+                dt = time.perf_counter() - t
+                if i >= n_warm:
+                    (lat if e is eng else lat_ram).append(dt * 1e3)
+                if e is eng:
+                    for name, n in counts().items():
+                        launches[name] = launches.get(name, 0) + n - before[name]
+                    for q, g, w in zip(qs, res, ws):
+                        same_topdocs(g, w, f"{ctx} {q.token}")
+        return np.asarray(lat), np.asarray(lat_ram)
+
+    ram_segments = segment_list(ram_eng)
+    out = {}
+    for kind in PERSIST_KINDS:
+        tmp = tempfile.mkdtemp(prefix=f"chip-smoke-{kind}-")
+        try:
+            fs = subprocess.run(["df", "-T", tmp], capture_output=True, text=True,
+                                check=True).stdout.strip().splitlines()[-1]
+            for mod in (kt, kd, kv, kb):
+                mod.reset_launches()
+            eng = SearchEngine(kind, tmp)  # the card, fused=True
+            d = eng.directory
+            ing = ingest(eng, cfg, words, flush_every)
+            if ing["rare"] != rare:
+                raise AssertionError(f"{kind}: deleted {ing['rare']!r}, ram {rare!r}")
+            flushed = dict(d.clock.real), dict(d.clock.modeled)
+            is_byte = kind.startswith("byte-")
+            syncs0 = d.heap.stats["barriers"] if is_byte else d.stats["fsyncs"]
+            comp0 = d.gc_info["compactions"] if is_byte else 0
+            t = time.perf_counter()
+            eng.commit()
+            commit_wall_s = time.perf_counter() - t
+            compactions = d.gc_info["compactions"] - comp0 if is_byte else 0
+            # a compaction barriers its fresh heap once; the commit's own
+            # barrier is the rest
+            syncs = (d.heap.stats["barriers"] if is_byte else d.stats["fsyncs"]) \
+                - syncs0 - compactions
+            if is_byte and syncs != 1:
+                raise AssertionError(f"{kind}: a commit issued {syncs} barriers")
+            t = time.perf_counter()
+            eng.reopen()
+            torch.cuda.synchronize()
+            reopen_s = time.perf_counter() - t
+            if segment_list(eng) != ram_segments:
+                raise AssertionError(f"{kind}: segments {segment_list(eng)} != ram's "
+                                     f"{ram_segments}")
+            launches: dict = {}
+            lat, lat_ram = term_loop(eng, f"{kind} term", launches)
+            k1_before_crash = launches["term_topk"]
+            storage = d.storage_bytes()
+            device_bytes = resident_bytes(
+                x for st in eng.device_cache._store.values() for x in st.values()
+                if isinstance(x, torch.Tensor))
+            clock = d.clock.snapshot()
+            t = time.perf_counter()
+            eng = eng.crash_and_recover()
+            eng.reopen()
+            torch.cuda.synchronize()
+            recover_s = time.perf_counter() - t
+            if segment_list(eng) != ram_segments:
+                raise AssertionError(f"{kind}: recovered segments differ from ram's")
+            lat_after, lat_ram_after = term_loop(eng, f"{kind} recovered term",
+                                                 launches)
+            if k1_before_crash == 0 or launches["term_topk"] == k1_before_crash:
+                raise AssertionError(f"{kind}: K1 was not launched on this path: {launches}")
+            n_timed = len(lat)
+            out[kind] = {
+                "filesystem": fs,
+                "docs": eng.searcher.total_docs,
+                "segments": len(ram_segments),
+                "ingest_docs_per_s": cfg.n_docs / ing["ingest_s"],
+                "flush_write_real_s": flushed[0].get("flush_write", 0.0),
+                "commit_real_s": clock["real"]["commit"] - flushed[0].get("commit", 0.0),
+                "commit_wall_s": commit_wall_s,
+                "gc_real_s": clock["real"].get("gc", 0.0),
+                "modeled": {
+                    "flush_write_s": flushed[1].get("flush_write", 0.0),
+                    "commit_s": clock["modeled"]["commit"] - flushed[1].get("commit", 0.0),
+                },
+                "barriers_per_commit" if is_byte else "files_fsynced_per_commit": syncs,
+                "compactions_at_commit": compactions,
+                "reopen_s": reopen_s,
+                "storage_bytes": storage,
+                "device_bytes": device_bytes,
+                "batch": BATCH, "k": K,
+                "term_qps": BATCH * n_timed / (lat.sum() / 1e3),
+                "batch_p50_ms": float(np.percentile(lat, 50)),
+                "batch_p99_ms": float(np.percentile(lat, 99)),
+                "ram_in_turns": {"term_qps": BATCH * n_timed / (lat_ram.sum() / 1e3),
+                                 "batch_p50_ms": float(np.percentile(lat_ram, 50))},
+                "recover_s": recover_s,
+                "term_qps_after_recovery": BATCH * n_timed / (lat_after.sum() / 1e3),
+                "batch_p50_ms_after_recovery": float(np.percentile(lat_after, 50)),
+                "batch_p99_ms_after_recovery": float(np.percentile(lat_after, 99)),
+                "ram_in_turns_after_recovery": {
+                    "term_qps": BATCH * n_timed / (lat_ram_after.sum() / 1e3),
+                    "batch_p50_ms": float(np.percentile(lat_ram_after, 50))},
+                "launches": launches,
+                "k1_launches_before_crash": k1_before_crash,
+                "segments_eq_ram": True, "topdocs_eq_ram": True,
+                "topdocs_eq_ram_after_recovery": True,
+            }
+            eng.directory.close()
+            del eng
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def forced_logits(params, cfg, prompt, tokens):
     """Logits (vocab,) float32 of the step that follows ``tokens`` when the
     engine serves ``prompt`` alone in slot 0 and emits ``tokens``: the
@@ -1634,6 +1814,15 @@ def main(argv=None) -> int:
     log("lm", dict(lm_stats, seconds=time.perf_counter() - t))
     records.append(decode_kernel_record(lm_launches, lm_eng))
     del lm_eng
+
+    # 8. the paper's loop on the file path and the byte path -------------
+    t = time.perf_counter()
+    persisted = persist_phase(eng, cfg, table, args.flush_every, queries, n_warm,
+                              fused_res, rare)
+    for kind, rec in persisted.items():
+        log("persist", dict(rec, kind=kind))
+    log("persist_phase", {"seconds": time.perf_counter() - t,
+                          "run_s": time.perf_counter() - t_start})
     for r in records:
         log("kernel", r)
     print(json.dumps({"kernels": [public(r) for r in records]}), flush=True)

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import re
 from functools import lru_cache
-from typing import Dict, List, Tuple
+from typing import Dict, Iterable, List, Tuple
 
 import numpy as np
 
@@ -50,13 +50,37 @@ class Analyzer:
         0,
     )
 
-    def __init__(self) -> None:
+    def __init__(self, stopwords: Iterable[str] = ()) -> None:  # Lucene: none
+        self.stopwords = frozenset(s.lower() for s in stopwords)
         # field -> token -> hash: FNV is pure Python, so ingest hashes each
         # distinct token once (capped: an open vocabulary resets the memo)
         self._hash_memo: Dict[str, Dict[str, int]] = {}
 
     def tokenize(self, text: str) -> List[str]:
-        return _TOKEN_RE.findall(text.lower())
+        toks = _TOKEN_RE.findall(text.lower())
+        if not self.stopwords:
+            return toks
+        return [t for t in toks if t not in self.stopwords]
+
+    def analyze(self, field: str, text: str) -> List[Tuple[int, int]]:
+        """[(term_hash, position)] in document order."""
+        return [
+            (term_hash(field, tok), pos)
+            for pos, tok in enumerate(self.tokenize(text))
+        ]
+
+    def term_freqs(
+        self, field: str, text: str
+    ) -> Tuple[Dict[int, int], Dict[int, List[int]], int]:
+        """({term: freq}, {term: positions}, doc_len): the dict form the
+        writer's ``use_reference_ingest`` path buffers."""
+        freqs: Dict[int, int] = {}
+        positions: Dict[int, List[int]] = {}
+        stream = self.analyze(field, text)
+        for th, pos in stream:
+            freqs[th] = freqs.get(th, 0) + 1
+            positions.setdefault(th, []).append(pos)
+        return freqs, positions, len(stream)
 
     def term_freqs_columnar(
         self, field: str, text: str

@@ -1,7 +1,10 @@
 """SearchEngine: the public facade (port of ``repro/core/engine.py``).
 
 Wires Analyzer -> IndexWriter -> Directory -> SearcherManager together:
-add documents, flush, commit, reopen, search.
+add documents, flush, commit, reopen, search, and ``crash_and_recover``.
+The first three arguments are the reference's: the directory (an instance
+or a kind: ``ram``, ``fs-ssd``, ``fs-pmem``, ``byte-pmem``, ``byte-dram``),
+its ``path`` (a fresh temporary directory when None) and the analyzer.
 
   ``device``  None means the card: CUDA on a Hopper GPU, or a RuntimeError
               that says to pass ``device="cpu"`` (which only the tests do).
@@ -15,12 +18,13 @@ add documents, flush, commit, reopen, search.
               the host either way.  On a CPU device the kernel wrappers run
               their plain PyTorch versions.
 
-This slice runs the ``ram`` directory kind; ``fs-*``/``byte-*`` and
-``use_wal`` raise ``NotImplementedError``.
+``use_wal`` (the reference's durable ingest buffer) raises
+``NotImplementedError``: it comes with ROADMAP queue 1, item 11.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional, Sequence
 
 from repro_torch.core.analyzer import Analyzer
@@ -39,6 +43,7 @@ class SearchEngine:
     def __init__(
         self,
         directory: Directory | str = "ram",
+        path: Optional[str] = None,
         analyzer: Optional[Analyzer] = None,
         device=None,
         fused: bool = True,
@@ -46,7 +51,7 @@ class SearchEngine:
     ) -> None:
         self.device = resolve_device(device)
         if isinstance(directory, str):
-            directory = make_directory(directory)
+            directory = make_directory(directory, path)
         self.directory = directory
         self.analyzer = analyzer or Analyzer()
         self.fused = fused
@@ -94,6 +99,29 @@ class SearchEngine:
     def search_batch(self, queries: Sequence[Query], k: int = 10) -> List[TopDocs]:
         """Primary serving entry point: one executor call per family group."""
         return self.manager.searcher.search_batch(queries, k)
+
+    # -- failure simulation -----------------------------------------------------
+    def crash_and_recover(self) -> "SearchEngine":
+        """Simulate power failure and reopen from the last commit point.
+
+        The new engine shares the directory, analyzer, device and ``fused``
+        flag; its writer recovers the committed segments and its device
+        cache starts cold (post-crash device state is untrusted) while the
+        cache's lifetime counters carry over."""
+        self.directory.crash()
+        eng = object.__new__(SearchEngine)
+        eng.device = self.device
+        eng.directory = self.directory
+        eng.analyzer = self.analyzer
+        eng.fused = self.fused
+        eng.writer = IndexWriter(self.directory, self.analyzer)
+        eng.device_cache = SegmentDeviceCache(tile=self.fused, device=self.device)
+        eng.device_cache.stats = dataclasses.replace(self.device_cache.stats)
+        eng.writer.merge_listeners.append(eng._on_merge)
+        eng.manager = SearcherManager(
+            eng.writer, fused=self.fused, device_cache=eng.device_cache
+        )
+        return eng
 
     def stats(self) -> dict:
         s = self.writer.stats()

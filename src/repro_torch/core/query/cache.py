@@ -74,14 +74,34 @@ class SegmentDeviceCache:
         self.device = torch.device(device)
         self.stats = CacheStats()
 
+    def __len__(self) -> int:
+        return len(self._store)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._store
+
     def _upload(self, host: np.ndarray) -> torch.Tensor:
+        """A device copy of ``host`` that shares no memory with it."""
         self.stats.array_uploads += 1
         self.stats.bytes_uploaded += host.nbytes
-        return torch.from_numpy(np.ascontiguousarray(host)).to(self.device)
+        if self.device.type == "cpu":
+            return torch.from_numpy(np.array(host))
+        # pin_memory() copies into a block of PyTorch's caching host
+        # allocator; the non-blocking copy records an event on that block,
+        # and the allocator hands the block out again only after the event,
+        # so a reused pinned buffer never feeds a copy still in flight
+        staged = torch.from_numpy(np.ascontiguousarray(host)).pin_memory()
+        return staged.to(self.device, non_blocking=True)
 
     # ------------------------------------------------------------------
     def _stage(self, seg: Segment) -> Dict[str, object]:
-        """Upload every doc-side array of ``seg`` (counted in stats)."""
+        """Upload every doc-side array of ``seg`` (counted in stats).
+
+        ``_live_version`` keeps ``seg.live`` itself, for the identity test
+        in ``get``.  On a segment ``read_segment`` loaned from the byte
+        path that is a loan held for as long as the entry lives; the
+        reference's cache holds the same object the same way, so its heap
+        compaction waits on the same entries."""
         st: Dict[str, object] = {"_live_version": seg.live}
         hosts = {"doc_lens": seg.doc_lens, "live": seg.live}
         for k, v in seg.doc_values.items():
@@ -198,3 +218,9 @@ class SegmentDeviceCache:
         output now, so the post-merge reopen finds everything resident."""
         self.stats.merge_warmups += 1
         self.sync(segments)
+
+    def clear(self) -> None:
+        """Evict everything and lift the retained view (the store may
+        repopulate with any segment)."""
+        self.retain([])
+        self._retained = None

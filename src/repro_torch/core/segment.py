@@ -16,9 +16,10 @@ doc-side arrays and the CSR on the card.
   doc_values[name]  (n_docs,)    int32   columnar doc values
   doc_values[_vec]  (n_docs, d)  float32 dense vectors (zero rows: none)
 
-The per-term-loop oracles (``build_segment_reference``,
-``merge_segments_reference``) are not ported: the tests hold this module
-against the JAX package's own builders.
+``build_segment_reference`` / ``merge_segments_reference`` are the
+reference's per-term and per-posting loops over a dict buffer, kept as the
+bit-parity oracle of the columnar builders and as the writer's
+``use_reference_ingest`` path.
 """
 
 from __future__ import annotations
@@ -85,6 +86,25 @@ class Segment:
             d[f"dv.{k}"] = v
         return d
 
+    @staticmethod
+    def from_arrays(name: str, base_doc: int, arrays: Dict[str, np.ndarray]) -> "Segment":
+        """The inverse of ``arrays()`` (what the directories read back);
+        the arrays are taken as they are, not copied."""
+        return Segment(
+            name=name,
+            base_doc=base_doc,
+            term_ids=arrays["term_ids"],
+            term_df=arrays["term_df"],
+            postings_offsets=arrays["postings_offsets"],
+            postings_docs=arrays["postings_docs"],
+            postings_freqs=arrays["postings_freqs"],
+            pos_offsets=arrays["pos_offsets"],
+            positions=arrays["positions"],
+            doc_lens=arrays["doc_lens"],
+            live=arrays["live"],
+            doc_values={k[3:]: v for k, v in arrays.items() if k.startswith("dv.")},
+        )
+
     # copy-on-write clones: a published Segment is immutable, so deletes and
     # merges swap in clones sharing every array except the changed field
     def with_live(self, live: np.ndarray) -> "Segment":
@@ -110,6 +130,138 @@ class Segment:
             return z, z
         s, e = int(self.postings_offsets[i]), int(self.postings_offsets[i + 1])
         return self.postings_docs[s:e], self.postings_freqs[s:e]
+
+    def positions_for(self, th: int, doc_local: int) -> np.ndarray:
+        """Token positions of term ``th`` in local doc ``doc_local``."""
+        i = self.term_slot(th)
+        if i < 0:
+            return np.zeros(0, dtype=np.int32)
+        s, e = int(self.postings_offsets[i]), int(self.postings_offsets[i + 1])
+        j = s + int(np.searchsorted(self.postings_docs[s:e], doc_local))
+        if j >= e or int(self.postings_docs[j]) != doc_local:
+            return np.zeros(0, dtype=np.int32)
+        return self.positions[int(self.pos_offsets[j]) : int(self.pos_offsets[j + 1])]
+
+
+def build_segment_reference(
+    name: str,
+    base_doc: int,
+    buffer: Dict[int, List],  # term -> [(doc_local, freq, positions)]
+    doc_lens: Sequence[int],
+    doc_values: Dict[str, np.ndarray],
+    live: Optional[np.ndarray] = None,
+) -> Segment:
+    """Freeze a dict-of-postings buffer into a segment with a per-term loop:
+    the bit-parity oracle of ``build_segment_columnar``."""
+    n_docs = len(doc_lens)
+    terms = np.fromiter(buffer.keys(), dtype=np.int64, count=len(buffer))
+    order = np.argsort(terms, kind="stable")
+    terms = terms[order]
+    keys = list(buffer.keys())
+
+    df = np.zeros(len(terms), dtype=np.int32)
+    offsets = np.zeros(len(terms) + 1, dtype=np.int32)
+    docs_chunks: List[np.ndarray] = []
+    freq_chunks: List[np.ndarray] = []
+    pos_lens: List[np.ndarray] = []
+    pos_chunks: List[np.ndarray] = []
+
+    for slot, src in enumerate(order):
+        plist = buffer[keys[src]]
+        d = np.fromiter((p[0] for p in plist), dtype=np.int32, count=len(plist))
+        f = np.fromiter((p[1] for p in plist), dtype=np.int32, count=len(plist))
+        if len(d) > 1 and not np.all(d[1:] > d[:-1]):  # sort unsorted lists
+            o = np.argsort(d, kind="stable")
+            d, f = d[o], f[o]
+            plist = [plist[i] for i in o]
+        docs_chunks.append(d)
+        freq_chunks.append(f)
+        df[slot] = len(d)
+        offsets[slot + 1] = offsets[slot] + len(d)
+        for p in plist:
+            pos = np.asarray(p[2], dtype=np.int32)
+            pos_lens.append(np.int32(len(pos)))
+            pos_chunks.append(pos)
+
+    postings_docs = (
+        np.concatenate(docs_chunks) if docs_chunks else np.zeros(0, np.int32)
+    )
+    postings_freqs = (
+        np.concatenate(freq_chunks) if freq_chunks else np.zeros(0, np.int32)
+    )
+    pos_offsets = np.zeros(len(postings_docs) + 1, dtype=np.int32)
+    if pos_lens:
+        np.cumsum(np.asarray(pos_lens, dtype=np.int32), out=pos_offsets[1:])
+    positions = np.concatenate(pos_chunks) if pos_chunks else np.zeros(0, np.int32)
+
+    return Segment(
+        name=name,
+        base_doc=base_doc,
+        term_ids=terms,
+        term_df=df,
+        postings_offsets=offsets,
+        postings_docs=postings_docs.astype(np.int32),
+        postings_freqs=postings_freqs.astype(np.int32),
+        pos_offsets=pos_offsets,
+        positions=positions.astype(np.int32),
+        doc_lens=np.asarray(doc_lens, dtype=np.int32),
+        live=(live if live is not None else np.ones(n_docs, dtype=bool)),
+        doc_values={k: np.asarray(v) for k, v in doc_values.items()},
+    )
+
+
+def merge_segments_reference(
+    name: str, base_doc: int, segments: Sequence[Segment]
+) -> Segment:
+    """Per-posting-loop merge over a dict buffer: the bit-parity oracle of
+    ``merge_segments`` (deleted docs dropped, ids remapped densely)."""
+    maps: List[np.ndarray] = []
+    new_doc_lens: List[np.ndarray] = []
+    new_dv: Dict[str, List[np.ndarray]] = {}
+    # a member missing a doc-values key contributes zero rows of the
+    # column's dtype and trailing shape, as flush pads it
+    dv_specs: Dict[str, tuple] = {}
+    for seg in segments:
+        for k, v in seg.doc_values.items():
+            dv_specs.setdefault(k, (v.dtype, v.shape[1:]))
+    cursor = 0
+    for seg in segments:
+        m = np.full(seg.n_docs, -1, dtype=np.int64)
+        kept = np.nonzero(seg.live)[0]
+        m[kept] = cursor + np.arange(len(kept))
+        cursor += len(kept)
+        maps.append(m)
+        new_doc_lens.append(seg.doc_lens[kept])
+        for k, (dt, tail) in dv_specs.items():
+            v = seg.doc_values.get(k)
+            new_dv.setdefault(k, []).append(
+                v[kept] if v is not None
+                else np.zeros((len(kept),) + tail, dtype=dt)
+            )
+
+    buffer: Dict[int, List] = {}
+    for seg, m in zip(segments, maps):
+        for slot in range(seg.n_terms):
+            th = int(seg.term_ids[slot])
+            s, e = int(seg.postings_offsets[slot]), int(seg.postings_offsets[slot + 1])
+            plist = buffer.setdefault(th, [])
+            for j in range(s, e):
+                nd = int(m[int(seg.postings_docs[j])])
+                if nd < 0:
+                    continue
+                pos = seg.positions[
+                    int(seg.pos_offsets[j]) : int(seg.pos_offsets[j + 1])
+                ]
+                plist.append((nd, int(seg.postings_freqs[j]), pos))
+            if not plist:
+                del buffer[th]
+
+    doc_lens = (
+        np.concatenate(new_doc_lens) if new_doc_lens else np.zeros(0, np.int32)
+    )
+    dv = {k: np.concatenate(v) for k, v in new_dv.items()}
+    # postings arrive ordered by (segment, local doc): increasing new ids
+    return build_segment_reference(name, base_doc, buffer, doc_lens, dv)
 
 
 def build_segment_columnar(

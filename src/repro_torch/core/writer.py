@@ -5,14 +5,20 @@ Semantics (paper §2.2-2.3, Fig 2):
 
   add_document  -> volatile DRAM buffer (not searchable, not durable)
   flush()       -> buffer frozen into an immutable segment, written through
-                   the Directory (searchable after the next reopen)
-  commit()      -> flush + new commit point + storage GC
+                   the Directory (searchable after the next reopen, durable
+                   at the next commit)
+  commit()      -> flush + durability barrier + new commit point + storage GC
+  crash+recover -> reopen from the latest commit point (``_recover``)
 
 Segment state is an immutable ``SegmentInfos`` snapshot: every flush,
 delete and merge publishes a new snapshot of copy-on-write clones, so a
 Searcher holding an older one keeps its exact view.  Merging is delegated
 to ``TieredMergePolicy`` + ``MergeScheduler``, which pick the same merges
-as the reference's.
+as the reference's.  ``flush_ram_mb`` flushes the buffer when its
+footprint reaches that many MiB (Lucene's ramBufferSizeMB; off by
+default).  ``use_reference_ingest`` buffers a dict of postings instead of
+the columnar buffer and builds and merges segments with the per-term
+oracles (``build_segment_reference``, ``merge_segments_reference``).
 
 Not in this slice: the durable write-ahead ingest buffer (``use_wal``) and
 the live buffer index behind search-at-ack; ``use_wal=True`` raises.
@@ -34,7 +40,13 @@ from repro_torch.core.lifecycle import (
     SegmentInfos,
     TieredMergePolicy,
 )
-from repro_torch.core.segment import Segment, build_segment_columnar, merge_segments
+from repro_torch.core.segment import (
+    Segment,
+    build_segment_columnar,
+    build_segment_reference,
+    merge_segments,
+    merge_segments_reference,
+)
 
 WAL_SLICE = (
     "use_wal (the durable ingest buffer) comes with the search-at-ack slice "
@@ -52,22 +64,32 @@ class IndexWriter:
         directory: Directory,
         analyzer: Optional[Analyzer] = None,
         merge_factor: int = 10,
+        merge_policy: Optional[TieredMergePolicy] = None,
+        merge_scheduler: Optional[MergeScheduler] = None,
+        flush_ram_mb: Optional[float] = None,
+        use_reference_ingest: bool = False,
         use_wal: bool = False,
     ) -> None:
         if use_wal:
             raise NotImplementedError(WAL_SLICE)
         self.directory = directory
         self.analyzer = analyzer or Analyzer()
-        self.merge_policy = TieredMergePolicy(
+        self.merge_policy = merge_policy or TieredMergePolicy(
             segments_per_tier=merge_factor, max_merge_at_once=merge_factor
         )
-        self.merge_scheduler = MergeScheduler(self.merge_policy)
+        self.merge_scheduler = merge_scheduler or MergeScheduler(self.merge_policy)
         # called once per converged merge cascade with the writer; the
         # engine hooks device-cache warmup of fresh merge outputs here
         self.merge_listeners: List[Callable[["IndexWriter"], None]] = []
         self.gc_stats: Dict[str, int] = {"runs": 0, "reclaimed_bytes": 0, "removed": 0}
 
+        self.flush_ram_mb = flush_ram_mb  # auto-flush threshold; None = off
+        self.use_reference_ingest = use_reference_ingest
+
+        # DRAM indexing buffer: columnar flat arrays, or the reference's
+        # term -> [(doc, freq, positions)] dict under use_reference_ingest
         self._buf = ColumnarBuffer()
+        self._buf_terms: Dict[int, List] = {}
         self._buf_doc_lens: List[int] = []
         self._buf_dv: Dict[str, List] = {}
         # (term hash, buffer watermark): a buffered delete applies only to
@@ -94,6 +116,15 @@ class IndexWriter:
     @property
     def generation(self) -> int:
         return self._infos.generation
+
+    @property
+    def merge_factor(self) -> int:
+        return self.merge_policy.segments_per_tier
+
+    @merge_factor.setter
+    def merge_factor(self, value: int) -> None:
+        self.merge_policy.segments_per_tier = value
+        self.merge_policy.max_merge_at_once = value
 
     def _recover(self) -> None:
         """Open from the latest commit point (none on a fresh directory)."""
@@ -128,13 +159,18 @@ class IndexWriter:
         doc_values: Optional[Dict[str, float]] = None,
     ) -> int:
         """Index one document into the DRAM buffer.  Returns global doc id."""
-        return self._append_document(fields, doc_values)
+        gid = self._append_document(fields, doc_values)
+        self._maybe_autoflush()
+        return gid
 
     def add_documents(
         self, docs: Sequence[Tuple[Dict[str, str], Optional[dict]]]
     ) -> List[int]:
-        """Index a batch of ``(fields, doc_values)`` documents."""
-        return [self._append_document(f, dv) for f, dv in docs]
+        """Index a batch of ``(fields, doc_values)`` documents (the
+        auto-flush check runs once, after the batch)."""
+        gids = [self._append_document(f, dv) for f, dv in docs]
+        self._maybe_autoflush()
+        return gids
 
     def _append_document(
         self,
@@ -143,14 +179,24 @@ class IndexWriter:
     ) -> int:
         local = len(self._buf_doc_lens)
         doc_len = 0
-        for fname, text in fields.items():
-            terms, freqs, starts, positions, flen = (
-                self.analyzer.term_freqs_columnar(fname, text)
-            )
-            doc_len += flen
-            self._ram_bytes += self._buf.append_field(
-                local, terms, freqs, starts, positions
-            )
+        if self.use_reference_ingest:
+            for fname, text in fields.items():
+                freqs, positions, flen = self.analyzer.term_freqs(fname, text)
+                doc_len += flen
+                for th, f in freqs.items():
+                    self._buf_terms.setdefault(th, []).append(
+                        (local, f, positions[th])
+                    )
+                self._ram_bytes += 24 * len(freqs)
+        else:
+            for fname, text in fields.items():
+                terms, freqs, starts, positions, flen = (
+                    self.analyzer.term_freqs_columnar(fname, text)
+                )
+                doc_len += flen
+                self._ram_bytes += self._buf.append_field(
+                    local, terms, freqs, starts, positions
+                )
         self._buf_doc_lens.append(doc_len)
         self._ram_bytes += 8
         if doc_values:
@@ -169,6 +215,13 @@ class IndexWriter:
             col.extend([0] * gap)
         col.append(val)
         self._ram_bytes += 4 * (gap + 1)
+
+    def _maybe_autoflush(self) -> None:
+        if (
+            self.flush_ram_mb is not None
+            and self._ram_bytes >= self.flush_ram_mb * (1 << 20)
+        ):
+            self.flush()
 
     # ------------------------------------------------------------------
     def delete_by_term(self, field: str, token: str) -> int:
@@ -192,8 +245,11 @@ class IndexWriter:
                 n += len(docs)
         wm = len(self._buf_doc_lens)
         self._buf_deletes.append((th, wm))
-        terms, docs_col = self._buf.term_hash.view(), self._buf.doc_local.view()
-        cand = np.unique(docs_col[terms == th]).tolist()
+        if self.use_reference_ingest:
+            cand = [d for (d, _, _) in self._buf_terms.get(th, ())]
+        else:
+            terms, docs_col = self._buf.term_hash.view(), self._buf.doc_local.view()
+            cand = np.unique(docs_col[terms == th]).tolist()
         newly = [d for d in cand if d < wm and d not in self._buf_dead]
         self._buf_dead.update(newly)
         n += len(newly)
@@ -217,15 +273,26 @@ class IndexWriter:
         vmat = self._buf.vector_matrix(n_docs)
         if vmat is not None:
             dv[VECTOR_FIELD] = vmat
-        cols = self._buf.columns()
-        live = self._apply_buffered_deletes(cols[0], cols[1], n_docs)
-        seg = build_segment_columnar(
-            name, base, *cols, doc_lens=self._buf_doc_lens,
-            doc_values=dv, live=live,
-        )
+        if self.use_reference_ingest:
+            live = np.ones(n_docs, dtype=bool)
+            for th, watermark in self._buf_deletes:
+                for (d, _, _) in self._buf_terms.get(th, ()):
+                    if d < watermark:  # only docs buffered before the delete
+                        live[d] = False
+            seg = build_segment_reference(
+                name, base, self._buf_terms, self._buf_doc_lens, dv, live
+            )
+        else:
+            cols = self._buf.columns()
+            live = self._apply_buffered_deletes(cols[0], cols[1], n_docs)
+            seg = build_segment_columnar(
+                name, base, *cols, doc_lens=self._buf_doc_lens,
+                doc_values=dv, live=live,
+            )
         self.directory.write_segment(seg)
         self._infos = self._infos.with_flushed(seg)
         self._buf = ColumnarBuffer()
+        self._buf_terms = {}
         self._buf_doc_lens = []
         self._buf_dv = {}
         self._buf_deletes = []
@@ -272,7 +339,10 @@ class IndexWriter:
         members = [by_name[n] for n in spec.segments]
         name = f"_m{self._seg_counter:06d}"
         self._seg_counter += 1
-        merged: Optional[Segment] = merge_segments(name, members[0].base_doc, members)
+        merge_fn = (
+            merge_segments_reference if self.use_reference_ingest else merge_segments
+        )
+        merged: Optional[Segment] = merge_fn(name, members[0].base_doc, members)
         if merged.n_docs == 0:
             merged = None  # every doc was deleted: drop the members outright
         if merged is not None:

@@ -6,9 +6,9 @@ keys/values sealed once full, shared between requests with a common prefix
 by content hash -- and a mutable tail block that new tokens append to.
 Block layout is (n_layers, block, n_kv, head_dim), float16 on the host.
 
-The byte tier of the reference (``heap_path``, ``flush_block``,
-``load_block`` over a ``PersistentHeap``) comes with the persistence slice
-(ROADMAP item 8); asking for it raises ``NotImplementedError``.
+The byte tier (``heap_path``): ``flush_block`` stores a sealed block's K and
+V into a ``PersistentHeap`` with CPU stores and one barrier, freeing the
+host arrays; ``load_block`` brings them back as copies, not heap views.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-BYTE_TIER = "the byte tier (PersistentHeap) comes with the persistence slice (ROADMAP item 8)"
+from repro_torch.storage.heap import PersistentHeap
 
 
 @dataclasses.dataclass
@@ -42,8 +42,6 @@ class KVSegmentStore:
         heap_path: Optional[str] = None,
         dtype=np.float16,
     ) -> None:
-        if heap_path is not None:
-            raise NotImplementedError(BYTE_TIER)
         self.shape_tail = (n_layers, block_size, n_kv, head_dim)
         self.block_size = block_size
         self.dtype = dtype
@@ -51,7 +49,7 @@ class KVSegmentStore:
         self._seqs: Dict[str, List[int]] = {}  # request -> block ids
         self._next = 0
         self._prefix_index: Dict[bytes, int] = {}  # content hash -> block id
-        self.heap = None
+        self.heap = PersistentHeap(heap_path) if heap_path else None
         self.stats = {"sealed": 0, "shared": 0, "flushed": 0, "restored": 0}
 
     # -- request lifecycle -----------------------------------------------------
@@ -108,12 +106,29 @@ class KVSegmentStore:
 
     # -- tiering -----------------------------------------------------------------
     def flush_block(self, block_id: int) -> None:
-        raise NotImplementedError(BYTE_TIER)
+        """Store a sealed block to the byte tier (K and V, one barrier) and
+        free its host arrays."""
+        if self.heap is None:
+            raise ValueError("flush_block needs a store made with a heap_path")
+        b = self._blocks[block_id]
+        if not b.sealed:
+            raise ValueError("only sealed (immutable) blocks can be flushed")
+        k_off = self.heap.store(b.k)
+        v_off = self.heap.store(b.v)
+        self.heap.barrier()
+        b.heap_off = (k_off, v_off)
+        b.k = b.v = None  # type: ignore
+        self.stats["flushed"] += 1
 
     def load_block(self, block_id: int) -> KVBlock:
-        """The block, resident (the byte tier is not ported: nothing is
-        ever flushed)."""
-        return self._blocks[block_id]
+        """The block, resident: a flushed one is restored from the heap as
+        copies, so no view outlives a heap remap."""
+        b = self._blocks[block_id]
+        if b.k is None and b.heap_off is not None:
+            b.k = self.heap.load(b.heap_off[0]).copy()
+            b.v = self.heap.load(b.heap_off[1]).copy()
+            self.stats["restored"] += 1
+        return b
 
     # -- view for attention -------------------------------------------------------
     def gather(self, rid: str) -> Tuple[np.ndarray, np.ndarray, int]:

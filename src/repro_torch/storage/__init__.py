@@ -1,2 +1,26 @@
-"""Storage device models (the persistent heap and WAL come with the
-persistence slice)."""
+"""Storage substrate (port of ``repro/storage``): the device cost models
+``SimClock`` charges and the persistent heap behind the byte path.
+
+The paper's two access paths:
+
+  - the **file path**: serialize -> syscall write -> fsync (Lucene's
+    Directory over ext4, with or without DAX), ``core/directory.py``'s
+    ``FSDirectory``;
+  - the **byte path**: load/store directly into a ``PersistentHeap``
+    (the paper's proposed future work), ``ByteAddressableDirectory``.
+
+The write-ahead log and the live buffer index come with ROADMAP queue 1,
+item 11.
+"""
+
+from repro_torch.storage.device_model import DEVICE_MODELS, DRAM, PMEM, SSD, DeviceModel
+from repro_torch.storage.heap import PersistentHeap
+
+__all__ = [
+    "DeviceModel",
+    "SSD",
+    "PMEM",
+    "DRAM",
+    "DEVICE_MODELS",
+    "PersistentHeap",
+]

@@ -35,6 +35,21 @@ def test_no_jax_or_reference_imports(path):
         assert root not in FORBIDDEN, f"{path.relative_to(ROOT)} imports {mod}"
 
 
+def test_persistence_modules_are_checked():
+    """The persistence modules are among the files checked above, and the
+    packages export what the reference's do (bar the WAL and sharding)."""
+    checked = {p.relative_to(PORT).as_posix() for p in _port_files() if PORT in p.parents}
+    assert {"storage/heap.py", "core/directory.py", "serve/kv_segments.py"} <= checked
+    import repro_torch.core as core
+    import repro_torch.storage as storage
+
+    assert {"PersistentHeap", "DEVICE_MODELS", "SSD", "PMEM", "DRAM"} <= set(storage.__all__)
+    assert {"FSDirectory", "ByteAddressableDirectory", "RAMDirectory", "SimClock",
+            "SearchEngine", "SegmentDeviceCache", "build_segment_reference",
+            "merge_segments_reference"} <= set(core.__all__)
+    assert all(hasattr(core, n) for n in core.__all__)
+
+
 def test_import_loads_no_jax_and_builds_nothing():
     mods = sorted(
         ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)

@@ -157,13 +157,31 @@ def test_segment_from_arrays_round_trip_and_checks():
         segment_from_arrays(seg.name, 0, {"term_ids": seg.term_ids})
 
 
-def test_unported_kinds_and_wal_raise():
-    with pytest.raises(NotImplementedError, match="persistence"):
-        make_directory("byte-pmem")
-    with pytest.raises(NotImplementedError, match="persistence"):
-        make_directory("fs-ssd")
+def test_unported_kinds_and_wal_raise(tmp_path):
+    """Every directory kind opens; only the write-ahead log raises, naming
+    its item (the writer's ``use_wal`` and each directory's WAL methods)."""
+    from repro_torch.core.directory import (
+        ByteAddressableDirectory,
+        FSDirectory,
+        RAMDirectory,
+    )
+
+    kinds = {"ram": RAMDirectory, "fs-ssd": FSDirectory, "fs-pmem": FSDirectory,
+             "byte-pmem": ByteAddressableDirectory, "byte-dram": ByteAddressableDirectory}
+    for kind, cls in kinds.items():
+        d = make_directory(kind, str(tmp_path / kind))
+        assert type(d) is cls
+        for call in (d.supports_wal, lambda: d.wal_append({}, {}), d.wal_replay,
+                     d.wal_retired,
+                     d.wal_last_seq, d.wal_acked_bytes, lambda: d.wal_set_retire(1),
+                     lambda: d.set_wal_on_ack(None)):
+            with pytest.raises(NotImplementedError, match="item 11"):
+                call()
+        d.close()
     with pytest.raises(NotImplementedError, match="use_wal"):
         IndexWriter(make_directory("ram"), use_wal=True)
+    with pytest.raises(ValueError, match="unknown"):
+        make_directory("tape")
 
 
 def test_commit_gc_and_reopen_writer_match_reference():

@@ -91,13 +91,32 @@ def test_store_empty_request_gathers_nothing():
 
 
 def test_byte_tier_waits_for_persistence(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        KVSegmentStore(2, 2, 8, heap_path=str(tmp_path / "kv.pmem"))
-    store = KVSegmentStore(1, 1, 2, block_size=1)
-    store.new_request("a")
-    store.append("a", np.ones((1, 1, 2), np.float16), np.ones((1, 1, 2), np.float16))
-    with pytest.raises(NotImplementedError, match="item 8"):
+    """The byte tier: a flushed block leaves the host, costs one barrier, and
+    comes back as a copy equal to the reference's round trip; a store
+    without a heap cannot flush."""
+    port = KVSegmentStore(1, 1, 2, block_size=1, heap_path=str(tmp_path / "p.pmem"))
+    ref = RefStore(1, 1, 2, block_size=1, heap_path=str(tmp_path / "r.pmem"))
+    tok = np.arange(2, dtype=np.float16).reshape(1, 1, 2)
+    for store in (port, ref):
+        store.new_request("a")
+        store.append("a", tok, tok + 1)
         store.flush_block(store._seqs["a"][0])
+    b = port._blocks[port._seqs["a"][0]]
+    assert b.k is None and port.heap.stats["barriers"] == 1
+    for got, want in zip(port.gather("a"), ref.gather("a")):
+        np.testing.assert_array_equal(got, want)
+    assert port.load_block(b.block_id).k.base is None  # a copy, not a heap view
+    assert port.stats == ref.stats
+    plain = KVSegmentStore(1, 1, 2, block_size=1)
+    plain.new_request("a")
+    plain.append("a", tok, tok)
+    with pytest.raises(ValueError, match="heap_path"):
+        plain.flush_block(plain._seqs["a"][0])
+    port.new_request("b")
+    port.append("b", tok, tok)  # block_size 1: sealed at once
+    port._blocks[port._seqs["b"][0]].sealed = False
+    with pytest.raises(ValueError, match="sealed"):
+        port.flush_block(port._seqs["b"][0])
 
 
 # ---------------------------------------------------------------------------
