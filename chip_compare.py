@@ -17,7 +17,10 @@ neither path reads), then reports:
     device busy ms, idle share and ``term_topk_kernel``'s device ms (one
     torch.profiler trace), and QPS over 60 timed batches; one batch's
     queries through ``search_single`` (kernel ``bm25_topk``) traced the
-    same way;
+    same way; where the host time of the 60 batches goes (``term_host``:
+    the objects the collector tracks in each generation before them, its
+    pauses while they ran, their QPS a second time, and a cProfile of a
+    third pass);
   * the tree's own families phase (``chip_smoke.families_phase``), then 5
     batches each of TermMonthFacets, BrowseMonthSSDVFacets and IntNRQ
     traced the same way, and each family task's QPS;
@@ -92,14 +95,20 @@ def worker(root: Path) -> dict:
     bands = h.band_ids(df, s.total_docs)
     batches = h.draw_batches(bands, table, WARM + TERM_TIMED, h.BATCH, h.SEED + 1)
     queries = [[TermQuery("body", w) for w in b] for b in batches]
+    import gc
+
+    tracked = [len(gc.get_objects(g)) for g in range(3)]  # before the timed batches
     lat = []
-    for i, qs in enumerate(queries):
-        t = time.perf_counter()
-        eng.search_batch(qs, k=h.K)
-        if i >= WARM:
-            lat.append(time.perf_counter() - t)
+    with gc_pauses() as pauses:
+        for i, qs in enumerate(queries):
+            t = time.perf_counter()
+            eng.search_batch(qs, k=h.K)
+            if i >= WARM:
+                lat.append(time.perf_counter() - t)
     out = {"root": str(root), "build_s": build_s, "setup_s": setup_s,
-           "term_qps": h.BATCH * len(lat) / sum(lat)}
+           "term_qps": h.BATCH * len(lat) / sum(lat),
+           "term_host": dict(term_host(eng, queries[WARM:], h.K), gc_pauses_ms=pauses,
+                                gc_tracked_by_generation=tracked)}
 
     def profiled(batch_list, run=lambda qs: eng.search_batch(qs, k=h.K)):
         prof = h.device_profile(lambda: [run(qs) for qs in batch_list])
@@ -131,6 +140,59 @@ def worker(root: Path) -> dict:
     out["bitset"] = bitset_turn(h, eng, bands, table)
     out["total_s"] = time.perf_counter() - t0
     return out
+
+
+class gc_pauses:
+    """Context manager: the garbage collector's pauses while it is open, as
+    [generation, ms] pairs (``gc.callbacks``)."""
+
+    def __enter__(self):
+        import gc
+
+        self.pauses, self._t = [], 0.0
+        gc.callbacks.append(self._on_gc)
+        return self.pauses
+
+    def _on_gc(self, phase, info):
+        if phase == "start":
+            self._t = time.perf_counter()
+        else:
+            self.pauses.append([info["generation"], (time.perf_counter() - self._t) * 1e3])
+
+    def __exit__(self, *exc):
+        import gc
+
+        gc.callbacks.remove(self._on_gc)
+
+
+def term_host(eng, queries, k: int, top: int = 12) -> dict:
+    """Where a term batch's host time goes: ``queries`` timed again (QPS, the
+    collector's pauses), then under cProfile: Python calls a batch and the
+    ``top`` functions by own time (ms a batch, calls a batch)."""
+    import cProfile
+    import pstats
+
+    t = time.perf_counter()
+    with gc_pauses() as pauses:
+        for qs in queries:
+            eng.search_batch(qs, k=k)
+    again_s = time.perf_counter() - t
+    prof = cProfile.Profile()
+    prof.enable()
+    for qs in queries:
+        eng.search_batch(qs, k=k)
+    prof.disable()
+    stats = pstats.Stats(prof).stats  # (file, line, name) -> (cc, nc, tt, ct, callers)
+    n = len(queries)
+    rows = sorted(stats.items(), key=lambda kv: -kv[1][2])[:top]
+    return {
+        "term_qps_again": len(queries[0]) * n / again_s,
+        "gc_pauses_again_ms": pauses,
+        "profiled_calls_per_batch": sum(v[1] for v in stats.values()) / n,
+        "profiled_ms_per_batch": sum(v[2] for v in stats.values()) * 1e3 / n,
+        "top_own_ms_per_batch": [[f"{Path(f).name}:{line}({name})", v[2] * 1e3 / n,
+                                  v[1] / n] for (f, line, name), v in rows],
+    }
 
 
 def bitset_turn(h, eng, bands, table) -> dict:
@@ -205,6 +267,7 @@ def main(argv) -> int:
     summary["kernel_ms"] = [t["kernel_ms"] for _, t in turns]
     summary["bitset"] = [t["bitset"] for _, t in turns]
     summary["term_qps"] = [t["term_qps"] for _, t in turns]
+    summary["term_host"] = [t["term_host"] for _, t in turns]
     summary["task_qps"] = [t["task_qps"] for _, t in turns]
     print("SUMMARY " + json.dumps(summary), flush=True)
     return 0

@@ -120,6 +120,37 @@ Phases (any failure raises and the script exits non-zero):
               ``total_hits``) before the crash and after recovery; a byte
               commit issues exactly one barrier (a compaction's barrier
               apart); K1 was launched.
+              Then the write-ahead log and search-at-ack: ``byte-pmem`` with
+              ``use_wal=True`` takes the same corpus (no ``_vec``) in acked
+              batches of ACK_BATCH docs (one WAL record and one barrier
+              each), flushing every ``flush_every`` docs but the last
+              ``flush_every``, which stay a live tail; it commits (a
+              publish: no flush) halfway through the tail, times
+              ACK_VISIBLE_SAMPLES acks to visibility (the default reopen
+              plus one term batch), deletes the main path's rare term (a logged record)
+              and runs the term batches over the committed segments and the
+              live tail, then one batch of every family task, crashes,
+              recovers (the unretired log replayed), runs the term batches
+              again, and finally flushes the tail (``force_flush=True``).
+              Prints ack p50/p99 ms, barriers per ack, the commit's real and
+              modeled s, ack-to-visible ms (live against a flush-and-reopen
+              at the full tail), term QPS with the live tail, recover s, the
+              kernel launches of the tail's own pass over the same batches
+              (``query.live.tail_pass``, every count zeroed just before) and
+              K1 and K3-K6 held to their plain versions at the tail's mini
+              segments, with their times and bounds.  Checks: one barrier
+              per ack, a commit of one barrier that leaves the tail
+              buffered, every acked doc live after each sampled ack and
+              after recovery, every term and family batch equal to
+              ``ram``'s flush-then-search results bit for bit before the
+              crash and after recovery, K1 and K3-K6 launched on the tail,
+              the flushed segments equal ``ram``'s.
+              Last, the ``ram`` engine acks ``flush_every`` more seeded docs
+              with 768-dim vectors and serves them live: one batch of each
+              vector task (and two at k VECTOR_WIDE_K) equals the eager
+              executors' combined pass on the card, K7/K8 and their scores
+              modes launched on the tail and held to their plain versions at
+              its mini segment.
 
 The line before the last is the ``{"kernels": [...]}`` record of all ten
 kernels; the last is ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -224,6 +255,8 @@ DECODE_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # the reference's K10 toleranc
 # persist phase: the paper's two persistence paths, the file path through
 # the page cache and fsync, the byte path through the persistent heap
 PERSIST_KINDS = ("fs-ssd", "byte-pmem")
+ACK_BATCH = 100  # docs per acked batch (the reference's benchmarks/commit_bench.py:40)
+ACK_VISIBLE_SAMPLES = 10  # acks of the live tail timed to visibility
 
 
 def log(tag: str, obj) -> None:
@@ -718,10 +751,14 @@ def bm25_kernel_record(eng, qs, launches: int) -> dict:
     return rec
 
 
-def doc_kernel_records(eng, tasks: dict, launches: dict) -> list:
+def doc_kernel_records(eng, tasks: dict, launches: dict, tail: bool = False,
+                       batch: int = FAMILY_WARM) -> list:
     """K3-K6 against their plain versions on the card at the main path's
-    shapes: the largest segment and one 32-query group of the busiest task
-    of each kernel's family.  Returns the kernel records."""
+    shapes: the largest segment and one 32-query group (batch ``batch``) of
+    the busiest task of each kernel's family.  With ``tail`` at the live
+    tail's shapes instead: each task's mini segment, as the tail's pass
+    stages it (``Searcher._live_segment_for``).  Returns the kernel
+    records."""
     import torch
 
     from repro_torch.core.query.plan import stage_bool_meta, stage_term_meta
@@ -731,46 +768,60 @@ def doc_kernel_records(eng, tasks: dict, launches: dict) -> list:
 
     s = eng.searcher
     dev = eng.device
-    seg = max(s.segments, key=lambda sg: sg.n_docs)
-    st = eng.device_cache.ensure_tiled(seg)
-    nd_pad = st["tiled.live"].shape[0]
-    n_tiles = nd_pad // kt.TILE
-    live = st["tiled.live"]
+    largest = max(s.segments, key=lambda sg: sg.n_docs)
+
+    def seg_for(qs):
+        return s._live_segment_for(qs, False) if tail else largest
 
     def up(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     def group(family):
-        """The busiest task of a family (most postings of its first timed
-        batch in the segment): (name, queries, CSR meta)."""
+        """The busiest task of a family (most postings of its batch in its
+        segment): (name, queries, CSR meta, segment)."""
         best = None
         for name, batches in tasks.items():
-            qs = batches[FAMILY_WARM]
+            qs = batches[batch]
             if not isinstance(qs[0], family):
                 continue
+            seg = seg_for(qs)
             meta = (stage_bool_meta(seg, qs, tile=True) if family is BooleanQuery
                     else stage_term_meta(seg, [q.term for q in qs], tile=True))
             if best is None or meta.lengths.sum() > best[2].lengths.sum():
-                best = (name, qs, meta)
+                best = (name, qs, meta, seg)
         return best
 
-    def rows(meta):
+    def rows(st, meta):
         docs, freqs = kt.csr_rows(st["csr.docs"], st["csr.freqs"], up(meta.starts),
                                   up(meta.lengths), max(int(meta.lengths.max()), 1))
         return docs, freqs
 
     records = []
+    rows_b = BATCH
 
-    def record(name, fn, plain, args, library, n_bytes, n_ops, shape):
+    def doc_side(seg):
+        """The segment's device tensors, tiles, the bytes of the per-tile
+        counts every kernel writes, and the docs whose columns the work
+        needs: the padded doc space, or on the tail its docs (to a tile
+        multiple; the mini segment's padding is dead)."""
+        st = s._seg_dev(seg, tiled=True)
+        nd_pad = st["tiled.live"].shape[0]
+        nd = min(nd_pad, -(-s._live.n_docs // kt.TILE) * kt.TILE) if tail else nd_pad
+        return st, nd_pad // kt.TILE, rows_b * (nd_pad // kt.TILE) * 4, nd
+
+    def shape_of(seg, st, shape):
+        out = dict(shape, segment_docs=seg.n_docs, nd_pad=st["tiled.live"].shape[0], k=K)
+        if tail:
+            out["tail_docs"] = s._live.n_docs
+        return out
+
+    def record(name, seg, st, fn, plain, args, library, n_bytes, n_ops, shape):
         records.append(kernel_record(
-            name, DOC_SOURCE, launches[name], fn, plain, args, library, n_bytes,
-            n_ops, dict(shape, segment_docs=seg.n_docs, nd_pad=nd_pad, k=K),
+            name, DOC_SOURCE, launches.get(name, 0), fn, plain, args, library,
+            n_bytes, n_ops, shape_of(seg, st, shape),
             winners_k=None if name == "facet_hist" else K))
 
-    rows_b = BATCH
-    counts_b = rows_b * n_tiles * 4  # the per-tile counts every kernel writes
-
-    def grid(name, smem=0):
+    def grid(name, n_tiles, smem=0):
         """K3-K6's launch (``grid_record``), under the record's shape, so
         only the ``kernel`` lines print it."""
         items = rows_b * n_tiles
@@ -779,92 +830,105 @@ def doc_kernel_records(eng, tasks: dict, launches: dict) -> list:
                            items, dev)
 
     # K3 bool_topk: term-ordered BM25 sums, AND/OR filter, tile top-k
-    name, qs, meta = group(BooleanQuery)
+    name, qs, meta, seg = group(BooleanQuery)
+    st, n_tiles, counts_b, nd = doc_side(seg)
     n_terms = len(qs[0].terms)
     conj = qs[0].mode == "and"
     idfs = up(np.asarray([[s.idf(t) for t in q.terms] for q in qs], np.float32))
     args = (st["csr.docs"], st["csr.freqs"], st["tiled.dl_live"], up(meta.starts),
             up(meta.lengths), idfs, s.avgdl, s.k1, s.b, conj, K)
-    docs, freqs = rows(meta)
+    docs, freqs = rows(st, meta)
     score, _ = dk.bool_dense(docs, freqs, idfs, st["tiled.dl_live"] >> 1,
                              (st["tiled.dl_live"] & 1) > 0,
                              *kt.scalars(dev, s.avgdl, s.k1, s.b), conj, n_terms)
     postings = int(meta.lengths.sum())
     # 8 B per posting (doc, freq), dl_live once (every doc's length and
     # live bit), the (start, length, idf) of each (row, term)
-    record("bool_topk", dk.bool_topk_tiles, dk.bool_topk_tiles_plain, args,
+    record("bool_topk", seg, st, dk.bool_topk_tiles, dk.bool_topk_tiles_plain, args,
            lambda: torch.topk(score, K, dim=-1),
-           postings * 8 + nd_pad * 4 + rows_b * n_terms * 12 + counts_b,
+           postings * 8 + nd * 4 + rows_b * n_terms * 12 + counts_b,
            postings * (OPS_PER_SCORE + 1),
            {"task": name, "rows": rows_b, "terms": n_terms, "postings": postings})
-    records[-1]["shape"]["grid"] = grid("bool_topk")
+    records[-1]["shape"]["grid"] = grid("bool_topk", n_tiles)
 
     # K4 sort_topk: matched live docs, float32 doc-value keys, tile top-k
-    name, qs, meta = group(SortQuery)
+    name, qs, meta, seg = group(SortQuery)
+    st, n_tiles, counts_b, nd = doc_side(seg)
+    live = st["tiled.live"]
     dv = st[f"tiled.dv.{qs[0].dv_field}"]
     args = (st["csr.docs"], st["csr.freqs"], live, dv, up(meta.starts),
             up(meta.lengths), K)
-    docs, freqs = rows(meta)
+    docs, freqs = rows(st, meta)
     key = dk.sort_keys(dk.matched_docs(docs, freqs, live > 0), dv)
     postings = int(meta.lengths.sum())
-    record("sort_topk", dk.sort_topk_tiles, dk.sort_topk_tiles_plain, args,
+    record("sort_topk", seg, st, dk.sort_topk_tiles, dk.sort_topk_tiles_plain, args,
            lambda: torch.topk(key, K, dim=-1),
-           postings * 8 + nd_pad * 8 + rows_b * 8 + counts_b,
-           rows_b * nd_pad,
+           postings * 8 + nd * 8 + rows_b * 8 + counts_b,
+           rows_b * nd,
            {"task": name, "rows": rows_b, "postings": postings})
-    records[-1]["shape"]["grid"] = grid("sort_topk")
+    records[-1]["shape"]["grid"] = grid("sort_topk", n_tiles)
 
     # K5 range_topk: the doc-values window, the k lowest doc ids
-    qs = tasks["IntNRQ"][FAMILY_WARM]
+    qs = tasks["IntNRQ"][batch]
+    seg = seg_for(qs)
+    st, n_tiles, counts_b, nd = doc_side(seg)
+    live = st["tiled.live"]
     los = up(np.asarray([q.lo for q in qs], np.int32))
     his = up(np.asarray([q.hi for q in qs], np.int32))
     dv = st["tiled.dv.timestamp"]
     args = (dv, live, los, his, K)
     masked = torch.where(dk.range_ok(dv, live > 0, los, his), 1.0, -torch.inf)
-    record("range_topk", dk.range_topk_tiles, dk.range_topk_tiles_plain, args,
+    record("range_topk", seg, st, dk.range_topk_tiles, dk.range_topk_tiles_plain, args,
            lambda: torch.topk(masked, K, dim=-1),
-           nd_pad * 8 + rows_b * 8 + counts_b, 3 * rows_b * nd_pad,
+           nd * 8 + rows_b * 8 + counts_b, 3 * rows_b * nd,
            {"task": "IntNRQ", "rows": rows_b})
-    records[-1]["shape"]["grid"] = grid("range_topk")  # a warp an item
+    records[-1]["shape"]["grid"] = grid("range_topk", n_tiles)  # a warp an item
 
     # K6 facet_hist: the term-filtered month histogram
-    qs = tasks["TermMonthFacets"][FAMILY_WARM]
+    qs = tasks["TermMonthFacets"][batch]
+    seg = seg_for(qs)
+    st, n_tiles, counts_b, nd = doc_side(seg)
+    live = st["tiled.live"]
     n_bins = qs[0].n_bins
     meta = stage_term_meta(seg, [q.term for q in qs], tile=True)
     bins = st[f"tiled.dv.{qs[0].dv_field}"]
     args = (st["csr.docs"], st["csr.freqs"], live, bins, up(meta.starts),
             up(meta.lengths), n_bins)
-    docs, freqs = rows(meta)
+    docs, freqs = rows(st, meta)
     matched = dk.matched_docs(docs, freqs, live > 0)
     b = bins.long().clamp(min=0)
     keep = matched & (b < n_bins)
     flat = (torch.arange(rows_b, device=dev)[:, None] * n_bins + b)[keep]
     postings = int(meta.lengths.sum())
-    record("facet_hist", dk.facet_hist_tiles, dk.facet_hist_tiles_plain, args,
+    record("facet_hist", seg, st, dk.facet_hist_tiles, dk.facet_hist_tiles_plain, args,
            lambda: torch.bincount(flat, minlength=rows_b * n_bins),
-           postings * 8 + nd_pad * 8 + rows_b * 8 + rows_b * n_bins * 4 + counts_b,
-           2 * rows_b * nd_pad,
+           postings * 8 + nd * 8 + rows_b * 8 + rows_b * n_bins * 4 + counts_b,
+           2 * rows_b * nd,
            {"task": "TermMonthFacets", "rows": rows_b, "postings": postings,
             "n_bins": n_bins})
-    records[-1]["shape"]["grid"] = grid("facet_hist", smem=dk.facet_smem(n_bins))
+    records[-1]["shape"]["grid"] = grid("facet_hist", n_tiles, smem=dk.facet_smem(n_bins))
     # its match-all row: one row whose matched set is the live bitmap
-    qs = tasks["BrowseMonthSSDVFacets"][FAMILY_WARM]
+    qs = tasks["BrowseMonthSSDVFacets"][batch]
+    seg = seg_for(qs)
+    st, n_tiles, _, nd = doc_side(seg)
+    live = st["tiled.live"]
     n_bins = qs[0].n_bins
     bins = st[f"tiled.dv.{qs[0].dv_field}"]
     b = bins.long().clamp(min=0)
     flat = b[(live > 0) & (b < n_bins)]
     smem = dk.facet_smem(n_bins)
     records[-1]["match_all"] = kernel_record(
-        "facet_hist_match_all", DOC_SOURCE, launches["facet_hist_match_all"],
+        "facet_hist_match_all", DOC_SOURCE, launches.get("facet_hist_match_all", 0),
         dk.facet_hist_tiles, dk.facet_hist_tiles_plain,
         (st["csr.docs"], st["csr.freqs"], live, bins, None, None, n_bins),
         lambda: torch.bincount(flat, minlength=n_bins),
-        nd_pad * 8 + n_bins * 4 + n_tiles * 4, 2 * nd_pad,
-        {"task": "BrowseMonthSSDVFacets", "rows": 1, "n_bins": n_bins,
-         "segment_docs": seg.n_docs, "nd_pad": nd_pad,
-         "grid": grid_record(dk.grid_blocks("facet_hist", n_tiles, dev, smem),
-                             dk.blocks_per_sm("facet_hist", torch.cuda.current_device(), smem),
-                             n_tiles, dev)})
+        nd * 8 + n_bins * 4 + n_tiles * 4, 2 * nd,
+        shape_of(seg, st, {
+            "task": "BrowseMonthSSDVFacets", "rows": 1, "n_bins": n_bins,
+            "grid": grid_record(dk.grid_blocks("facet_hist", n_tiles, dev, smem),
+                                dk.blocks_per_sm("facet_hist", torch.cuda.current_device(),
+                                                 smem),
+                                n_tiles, dev)}))
     for r in records + [records[-1]["match_all"]]:  # one launch a call
         one_kernel(r["name"].removesuffix("_match_all"), r["phases_ms"])
     return records
@@ -1062,52 +1126,72 @@ def vectors_phase(eng, bands: dict, words, vecs, has_vec, n_batches: int):
     return stats, launches, tasks, bitmaps, bit_stats, profs, checks
 
 
-def vector_kernel_records(eng, tasks: dict, launches: dict, bitmaps) -> list:
-    """K7-K9 against their plain versions on the card at the main path's
-    shapes: the largest segment and one 32-query group (K7: VectorCosine,
-    K8: HybridDot); K9 the bitset task's last four bitmaps as they are,
-    and (``wikimediumall``) four at luceneutil's wikimediumall doc count,
-    one kernel a call.  Returns the kernel records."""
+def vector_pair_records(eng, tasks: dict, launches: dict, tail: bool = False,
+                        batch: int = FAMILY_WARM) -> list:
+    """K7 and K8 (each with its scores mode) against their plain versions
+    on the card: one 32-query group of batch ``batch`` (K7: VectorCosine,
+    K8: HybridDot) over the largest segment, or with ``tail`` over its
+    mini segment of the live tail with the strict norm and BM25 arguments
+    the tail's pass gives them (``fused.vector_segment`` /
+    ``hybrid_segment`` with ``unfused``).  Returns the kernel records."""
     import torch
 
     from repro_torch.core.query.exec import hybrid_params, query_vectors
+    from repro_torch.core.query.fused import _unfused_norms
     from repro_torch.core.query.plan import FamilyGroup, stage_term_meta
-    from repro_torch.kernels import bitset as kb
-    from repro_torch.kernels import vector_topk as vk
     from repro_torch.kernels import term_topk as kt
+    from repro_torch.kernels import vector_topk as vk
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the library yardstick
     s = eng.searcher
     dev = eng.device
-    seg = max(s.segments, key=lambda sg: sg.n_docs)
-    st = eng.device_cache.ensure_tiled(seg)
-    vmat = st["tiled.dv._vec"]
-    nd, dp = seg.n_docs, vmat.shape[1]
-    n_tiles = vmat.shape[0] // kt.TILE
-    shape = {"segment_docs": nd, "nd_pad": vmat.shape[0], "dim": DIM, "rows": BATCH, "k": K}
+    largest = max(s.segments, key=lambda sg: sg.n_docs)
     records = []
 
+    def side(qs):
+        seg = s._live_segment_for(qs, False) if tail else largest
+        st = s._seg_dev(seg, tiled=True)
+        vmat = st["tiled.dv._vec"]
+        shape = {"segment_docs": seg.n_docs, "nd_pad": vmat.shape[0], "dim": DIM,
+                 "rows": BATCH, "k": K}
+        if tail:
+            shape["tail_docs"] = s._live.n_docs
+        # the strict arguments of the tail's pass (none on a committed
+        # segment at k <= 128)
+        strict = _unfused_norms(seg, BATCH >= 2, tail, K)
+        return seg, st, vmat, shape, strict
+
     # K7 vector_topk: cosine of 32 queries against every doc of the segment
-    qs = tasks["VectorCosine"][FAMILY_WARM]
+    qs = tasks["VectorCosine"][batch]
+    seg, st, vmat, shape, strict = side(qs)
+    nd, dp = (s._live.n_docs if tail else seg.n_docs), vmat.shape[1]
+    n_tiles = vmat.shape[0] // kt.TILE
     qvecs = query_vectors(s, [q.vector for q in qs], BATCH, dp)
-    args = (vmat, st["tiled.live"], qvecs, K, True, DIM)
+    extra = tuple(strict.values())  # strict_rows, strict_q
+    args = (vmat, st["tiled.live"], qvecs, K, True, DIM) + extra
     ops = 2 * BATCH * nd * DIM + 2 * nd * DIM + 2 * BATCH * DIM + 4 * BATCH * nd
     in_bytes = nd * dp * 4 + nd * 4 + BATCH * dp * 4 + BATCH * n_tiles * 4
     records.append(kernel_record(
-        "vector_topk", VECTOR_SOURCE, launches["vector_topk"], vk.vector_topk_tiles,
-        vk.vector_topk_tiles_plain, args,
+        "vector_topk", VECTOR_SOURCE, launches.get("vector_topk", 0),
+        vk.vector_topk_tiles, vk.vector_topk_tiles_plain, args,
         lambda: torch.topk(torch.mm(qvecs, vmat.t()), K, dim=-1),
-        in_bytes, ops, dict(shape, task="VectorCosine"), winners_k=K, plain_iters=2,
-        plain_warmup=1))
+        in_bytes, ops, dict(shape, task="VectorCosine", **strict), winners_k=K,
+        plain_iters=2, plain_warmup=1))
     # its scores mode: every (row, doc) score written, (B, ND_pad) float32
     records[-1]["scores_mode"] = kernel_record(
-        "vector_score_rows", VECTOR_SOURCE, launches["vector_score_rows"],
+        "vector_score_rows", VECTOR_SOURCE, launches.get("vector_score_rows", 0),
         vk.vector_score_rows, vk.vector_score_rows_plain, args[:3] + args[4:],
-        lambda q=qvecs: torch.mm(q, vmat.t()), in_bytes + BATCH * vmat.shape[0] * 4, ops,
-        dict(shape, task="VectorCosine", k=None), plain_iters=2, plain_warmup=1)
+        lambda q=qvecs, v=vmat: torch.mm(q, v.t()), in_bytes + BATCH * vmat.shape[0] * 4,
+        ops, dict(shape, task="VectorCosine", k=None, **strict), plain_iters=2,
+        plain_warmup=1)
 
     # K8 hybrid_topk: one term + one vector per row, dot
-    qs = tasks["HybridDot"][FAMILY_WARM]
+    qs = tasks["HybridDot"][batch]
+    seg, st, vmat, shape, strict = side(qs)
+    if tail:
+        strict["strict_bm25"] = kt.one_doc(seg.doc_lens)
+    nd, dp = (s._live.n_docs if tail else seg.n_docs), vmat.shape[1]
+    n_tiles = vmat.shape[0] // kt.TILE
     group = FamilyGroup(key=("hybrid", DIM, "dot"), indices=list(range(BATCH)), queries=qs)
     meta = stage_term_meta(seg, [q.term for q in qs], tile=True)
     idfs, alphas = hybrid_params(s, group, BATCH)
@@ -1115,24 +1199,40 @@ def vector_kernel_records(eng, tasks: dict, launches: dict, bitmaps) -> list:
     up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
     args = (st["csr.docs"], st["csr.freqs"], st["tiled.dl_live"], up(meta.starts),
             up(meta.lengths), idfs, s.avgdl, s.k1, s.b, vmat, qvecs, alphas, K,
-            False, DIM)
+            False, DIM) + tuple(strict.values())
     postings = int(meta.lengths.sum())
     # the dot products, OPS_PER_SCORE per posting's BM25, 9 per blend
     ops = 2 * BATCH * nd * DIM + postings * OPS_PER_SCORE + 9 * BATCH * nd
     in_bytes = (nd * dp * 4 + nd * 4 + postings * 8 + BATCH * 16 + BATCH * dp * 4
                 + BATCH * n_tiles * 4)
     records.append(kernel_record(
-        "hybrid_topk", VECTOR_SOURCE, launches["hybrid_topk"], vk.hybrid_topk_tiles,
-        vk.hybrid_topk_tiles_plain, args,
+        "hybrid_topk", VECTOR_SOURCE, launches.get("hybrid_topk", 0),
+        vk.hybrid_topk_tiles, vk.hybrid_topk_tiles_plain, args,
         lambda: torch.topk(torch.mm(qvecs, vmat.t()), K, dim=-1),
-        in_bytes, ops, dict(shape, task="HybridDot", postings=postings),
+        in_bytes, ops, dict(shape, task="HybridDot", postings=postings, **strict),
         winners_k=K, plain_iters=2, plain_warmup=1))
     records[-1]["scores_mode"] = kernel_record(
-        "hybrid_score_rows", VECTOR_SOURCE, launches["hybrid_score_rows"],
+        "hybrid_score_rows", VECTOR_SOURCE, launches.get("hybrid_score_rows", 0),
         vk.hybrid_score_rows, vk.hybrid_score_rows_plain, args[:12] + args[13:],
         lambda: torch.mm(qvecs, vmat.t()), in_bytes + BATCH * vmat.shape[0] * 4, ops,
-        dict(shape, task="HybridDot", postings=postings, k=None), plain_iters=2,
-        plain_warmup=1)
+        dict(shape, task="HybridDot", postings=postings, k=None, **strict),
+        plain_iters=2, plain_warmup=1)
+    return records
+
+
+def vector_kernel_records(eng, tasks: dict, launches: dict, bitmaps) -> list:
+    """K7-K9 against their plain versions on the card at the main path's
+    shapes: K7/K8 as ``vector_pair_records``; K9 the bitset task's last
+    four bitmaps as they are, and (``wikimediumall``) four at luceneutil's
+    wikimediumall doc count, one kernel a call.  Returns the kernel
+    records."""
+    import torch
+
+    from repro_torch.kernels import bitset as kb
+
+    s = eng.searcher
+    dev = eng.device
+    records = vector_pair_records(eng, tasks, launches)
 
     # K9 bitset_combine through ops.bitset_combine, unpadded, AND: the bitset
     # task's four doc bitsets over the whole doc space, then four seeded
@@ -1179,6 +1279,66 @@ def vector_kernel_records(eng, tasks: dict, launches: dict, bitmaps) -> list:
     return records
 
 
+def segment_list(eng):
+    """(name, docs, live docs) of each segment the engine's searcher holds."""
+    return [(sg.name, sg.n_docs, sg.n_live) for sg in eng.manager.infos.segments]
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count, by kernel name."""
+    from repro_torch.kernels import bitset as kb
+    from repro_torch.kernels import doc_topk as kd
+    from repro_torch.kernels import term_topk as kt
+    from repro_torch.kernels import vector_topk as kv
+
+    return {**kt.launches, **kd.launches, **kv.launches, **kb.launches}
+
+
+def reset_launch_counts() -> None:
+    from repro_torch.kernels import bitset as kb
+    from repro_torch.kernels import doc_topk as kd
+    from repro_torch.kernels import term_topk as kt
+    from repro_torch.kernels import vector_topk as kv
+
+    for mod in (kt, kd, kv, kb):
+        mod.reset_launches()
+
+
+def counted(fn, launches: dict):
+    """``fn()``, adding the kernel launches it made to ``launches``."""
+    before = launch_counts()
+    out = fn()
+    for name, n in launch_counts().items():
+        launches[name] = launches.get(name, 0) + n - before[name]
+    return out
+
+
+def persisted_term_loop(eng, ram_eng, words, queries, want, n_warm: int, ctx: str,
+                        launches: dict):
+    """Every term batch through ``eng.search_batch``, held to ``want``, the
+    ``ram`` engine running each batch too, in turns (which goes first
+    alternates), so both see the same host; host ms of each engine's batches
+    after the warm-up.  ``launches`` gains the kernel launches of ``eng``'s
+    calls alone.  The searcher's df memo is first filled for the whole
+    vocabulary, as the main path's df bands filled the ``ram`` searcher's."""
+    from repro_torch.core.query.types import TermQuery
+
+    for w in words:
+        eng.searcher.doc_freq(TermQuery("body", w))
+    lat, lat_ram = [], []
+    for i, (qs, ws) in enumerate(zip(queries, want)):
+        for e in ((eng, ram_eng) if i % 2 == 0 else (ram_eng, eng)):
+            t = time.perf_counter()
+            res = counted(lambda: e.search_batch(qs, k=K), launches if e is eng else {})
+            dt = time.perf_counter() - t
+            if i >= n_warm:
+                (lat if e is eng else lat_ram).append(dt * 1e3)
+            if e is eng:
+                for q, g, w in zip(qs, res, ws):
+                    same_topdocs(g, w, f"{ctx} {q.token}")
+    return np.asarray(lat), np.asarray(lat_ram)
+
+
 def persist_phase(ram_eng, cfg, words, flush_every: int, queries, n_warm: int,
                   want, rare: str) -> dict:
     """Phase 8 (see the module docstring) on ``PERSIST_KINDS``: returns one
@@ -1191,43 +1351,6 @@ def persist_phase(ram_eng, cfg, words, flush_every: int, queries, n_warm: int,
     import torch
 
     from repro_torch.core.engine import SearchEngine
-    from repro_torch.core.query.types import TermQuery
-    from repro_torch.kernels import bitset as kb
-    from repro_torch.kernels import doc_topk as kd
-    from repro_torch.kernels import term_topk as kt
-    from repro_torch.kernels import vector_topk as kv
-
-    def segment_list(eng):
-        return [(sg.name, sg.n_docs, sg.n_live) for sg in eng.manager.infos.segments]
-
-    def counts():
-        return {**kt.launches, **kd.launches, **kv.launches, **kb.launches}
-
-    def term_loop(eng, ctx, launches):
-        """Every term batch through ``search_batch``, held to ``want``, the
-        ``ram`` engine running each batch too, in turns (which goes first
-        alternates), so both see the same host; host ms of each engine's
-        batches after the warm-up.  ``launches`` gains the kernel launches
-        of ``eng``'s calls alone.  The searcher's df memo is first filled
-        for the whole vocabulary, as the main path's df bands filled the
-        ``ram`` searcher's."""
-        for w in words:
-            eng.searcher.doc_freq(TermQuery("body", w))
-        lat, lat_ram = [], []
-        for i, (qs, ws) in enumerate(zip(queries, want)):
-            for e in ((eng, ram_eng) if i % 2 == 0 else (ram_eng, eng)):
-                before = counts()
-                t = time.perf_counter()
-                res = e.search_batch(qs, k=K)
-                dt = time.perf_counter() - t
-                if i >= n_warm:
-                    (lat if e is eng else lat_ram).append(dt * 1e3)
-                if e is eng:
-                    for name, n in counts().items():
-                        launches[name] = launches.get(name, 0) + n - before[name]
-                    for q, g, w in zip(qs, res, ws):
-                        same_topdocs(g, w, f"{ctx} {q.token}")
-        return np.asarray(lat), np.asarray(lat_ram)
 
     ram_segments = segment_list(ram_eng)
     out = {}
@@ -1236,8 +1359,7 @@ def persist_phase(ram_eng, cfg, words, flush_every: int, queries, n_warm: int,
         try:
             fs = subprocess.run(["df", "-T", tmp], capture_output=True, text=True,
                                 check=True).stdout.strip().splitlines()[-1]
-            for mod in (kt, kd, kv, kb):
-                mod.reset_launches()
+            reset_launch_counts()
             eng = SearchEngine(kind, tmp)  # the card, fused=True
             d = eng.directory
             ing = ingest(eng, cfg, words, flush_every)
@@ -1265,7 +1387,8 @@ def persist_phase(ram_eng, cfg, words, flush_every: int, queries, n_warm: int,
                 raise AssertionError(f"{kind}: segments {segment_list(eng)} != ram's "
                                      f"{ram_segments}")
             launches: dict = {}
-            lat, lat_ram = term_loop(eng, f"{kind} term", launches)
+            lat, lat_ram = persisted_term_loop(eng, ram_eng, words, queries, want,
+                                               n_warm, f"{kind} term", launches)
             k1_before_crash = launches["term_topk"]
             storage = d.storage_bytes()
             device_bytes = resident_bytes(
@@ -1279,8 +1402,9 @@ def persist_phase(ram_eng, cfg, words, flush_every: int, queries, n_warm: int,
             recover_s = time.perf_counter() - t
             if segment_list(eng) != ram_segments:
                 raise AssertionError(f"{kind}: recovered segments differ from ram's")
-            lat_after, lat_ram_after = term_loop(eng, f"{kind} recovered term",
-                                                 launches)
+            lat_after, lat_ram_after = persisted_term_loop(
+                eng, ram_eng, words, queries, want, n_warm, f"{kind} recovered term",
+                launches)
             if k1_before_crash == 0 or launches["term_topk"] == k1_before_crash:
                 raise AssertionError(f"{kind}: K1 was not launched on this path: {launches}")
             n_timed = len(lat)
@@ -1325,6 +1449,282 @@ def persist_phase(ram_eng, cfg, words, flush_every: int, queries, n_warm: int,
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
     return out
+
+
+def term_tail_record(eng, qs, launches: int) -> dict:
+    """K1 over the live tail's mini segment for the TermQuerys ``qs`` (one
+    batch, padded as ``search_batch`` pads it): held bit-equal to its plain
+    version, both timed, with its bound (12 B a posting, 12 B a row, 4 B a
+    tile that holds postings, 8 B a winner; OPS_PER_SCORE a posting)."""
+    import torch
+
+    from repro_torch.core.query.plan import bucket_batch, stage_term_meta
+    from repro_torch.kernels import term_topk as kt
+
+    s = eng.searcher
+    mini = s._live_segment_for(qs, False)
+    st = s._seg_dev(mini, tiled=True)
+    pad = bucket_batch(len(qs)) - len(qs)
+    meta = stage_term_meta(mini, qs, pad_rows=pad, tile=True)
+    idfs = torch.tensor([s.idf(q) for q in qs] + [0.0] * pad, dtype=torch.float32,
+                        device=eng.device)
+    args = (st["csr.docs"], st["csr.freqs"], st["tiled.dl_live"],
+            torch.from_numpy(meta.starts).to(eng.device),
+            torch.from_numpy(meta.lengths).to(eng.device), idfs, s.avgdl, s.k1, s.b,
+            meta.p, K)
+    kv_, ki, kc = (x.cpu().numpy() for x in kt.term_topk_tiles(*args))
+    pv, pi, pc = (x.cpu().numpy() for x in kt.term_topk_tiles_plain(*args))
+    if not (bits_equal(kv_, pv) and bits_equal(ki, pi) and bits_equal(kc, pc)):
+        raise AssertionError("term_topk on the live tail differs from its plain version")
+    postings = int(meta.lengths.sum())
+    tiles = int((-(-meta.lengths // kt.TILE)).sum())
+    b = bound(postings * 12 + len(meta.lengths) * 12 + tiles * 4
+              + int(np.minimum(kc, K).sum()) * 8, postings * OPS_PER_SCORE)
+    return {"name": "term_topk", "launches": launches, "max_abs_err": max_abs_err(kv_, pv),
+            "ms": cuda_ms(lambda: kt.term_topk_tiles(*args), 50)[0],
+            "plain_ms": cuda_ms(lambda: kt.term_topk_tiles_plain(*args), 5)[0],
+            "bound_ms": b[0], "bound_by": b[1],
+            "shape": {"rows": len(meta.lengths), "p": meta.p, "postings": postings,
+                      "tail_docs": eng.manager.live.n_docs, "mini_segment_docs": mini.n_docs}}
+
+
+def tail_launches(eng, batches) -> dict:
+    """Kernel launches of the live tail's own pass over ``batches`` ((queries,
+    k) pairs): each planned group but phrase (which takes the combined
+    pass) through ``query.live.tail_pass``, the pass ``run_group`` runs
+    over the tail's mini segment, every count zeroed just before and read
+    just after."""
+    import torch
+
+    from repro_torch.core.query.live import tail_pass
+    from repro_torch.core.query.plan import plan_batch
+
+    s = eng.searcher
+    reset_launch_counts()
+    for qs, k in batches:
+        for group in plan_batch(qs).groups:
+            if group.kind != "phrase":
+                tail_pass(s, group, k)
+    torch.cuda.synchronize()
+    return {name: n for name, n in launch_counts().items() if n}
+
+
+def wal_phase(ram_eng, cfg, words, flush_every: int, queries, n_warm: int, want,
+              rare: str, tasks: dict, smi: str) -> dict:
+    """Phase 8's write-ahead log (see the module docstring): ``byte-pmem``
+    with ``use_wal=True`` ingests the main path's corpus (no ``_vec``) in
+    acked batches of ACK_BATCH docs; returns its record."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.core.engine import SearchEngine
+    from repro_torch.core.query.types import FacetQuery
+    from repro_torch.data.corpus import synthetic_corpus
+
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-wal-")
+    try:
+        reset_launch_counts()
+        eng = SearchEngine("byte-pmem", tmp, use_wal=True)  # the card, fused=True
+        if not eng.wal_enabled:
+            raise AssertionError("byte-pmem with use_wal=True does not ack durably")
+        d = eng.directory
+        gen = synthetic_corpus(cfg)
+        tail_from = cfg.n_docs - flush_every  # the last flush_every docs stay a live tail
+        commit_at = tail_from + flush_every // 2
+        sample_every = flush_every // ACK_VISIBLE_SAMPLES
+        ack_ms, ack_barriers, visible_ms = [], [], []
+        added, ingest_s, commit = 0, 0.0, None
+        while added < cfg.n_docs:
+            batch = list(itertools.islice(gen, ACK_BATCH))
+            b0 = d.heap.stats["barriers"]
+            t = time.perf_counter()
+            eng.add_documents(batch)
+            dt = time.perf_counter() - t
+            ack_barriers.append(d.heap.stats["barriers"] - b0)
+            ack_ms.append(dt * 1e3)
+            ingest_s += dt
+            added += len(batch)
+            if added <= tail_from and added % flush_every == 0:
+                t = time.perf_counter()
+                eng.flush()
+                ingest_s += time.perf_counter() - t
+                eng.reopen()  # NRT, as the ram path
+            elif added == commit_at:
+                # commit with a buffered tail: publish, no flush
+                b0, c0 = d.heap.stats["barriers"], d.gc_info["compactions"]
+                real0 = d.clock.snapshot()["real"].get("commit", 0.0)
+                t = time.perf_counter()
+                eng.commit()
+                wall = time.perf_counter() - t
+                compactions = d.gc_info["compactions"] - c0
+                clock = d.clock.snapshot()
+                commit = {"commit_real_s": clock["real"]["commit"] - real0,
+                          "commit_wall_s": wall, "gc_real_s": clock["real"].get("gc", 0.0),
+                          "barriers": d.heap.stats["barriers"] - b0 - compactions,
+                          "compactions": compactions,
+                          "buffered_docs": eng.writer.buffered_docs,
+                          "wal_retired_seq": d.wal_retired()}
+                if commit["barriers"] != 1 or commit["buffered_docs"] != flush_every // 2:
+                    raise AssertionError(f"a WAL commit is not a publish: {commit}")
+            elif added > tail_from and (added - tail_from) % sample_every == 0:
+                # ack -> visible: the default reopen serves the tail live and
+                # the next term batch sees every acked doc
+                t = time.perf_counter()
+                eng.reopen()
+                eng.search_batch(queries[n_warm], k=K)
+                torch.cuda.synchronize()
+                visible_ms.append((added - tail_from, (time.perf_counter() - t) * 1e3))
+                if eng.searcher.total_docs != added or eng.writer.buffered_docs == 0:
+                    raise AssertionError(f"acked docs not live at {added}")
+        if set(ack_barriers) != {1}:
+            raise AssertionError(f"barriers per acked batch: {sorted(set(ack_barriers))}")
+        if eng.delete("body", rare) == 0:  # logged: one more acked record
+            raise AssertionError(f"the delete of {rare!r} found no doc")
+        t = time.perf_counter()
+        eng.reopen()
+        eng.search_batch(queries[n_warm], k=K)
+        torch.cuda.synchronize()
+        visible_live_ms = (time.perf_counter() - t) * 1e3
+        if eng.writer.buffered_docs != flush_every or eng.manager.live.n_docs != flush_every:
+            raise AssertionError("the tail was flushed by a default reopen")
+
+        launches: dict = {}
+        lat, lat_ram = persisted_term_loop(eng, ram_eng, words, queries, want, n_warm,
+                                           "wal live-tail term", launches)
+        fam_launches: dict = {}
+        fam_batches = [batches[0] for batches in tasks.values()]
+        for name, qs in zip(tasks, fam_batches):
+            got = counted(lambda: eng.search_batch(qs, k=K), fam_launches)
+            for g, w in zip(got, ram_eng.search_batch(qs, k=K)):
+                same_topdocs(g, w, f"wal live-tail {name}")
+        on_tail = tail_launches(eng, [(qs, K) for qs in queries])
+        fam_on_tail = tail_launches(eng, [(qs, K) for qs in fam_batches])
+        for name in ("term_topk", "bool_topk", "sort_topk", "range_topk", "facet_hist",
+                     "facet_hist_match_all"):
+            if not (on_tail.get(name) or fam_on_tail.get(name)):
+                raise AssertionError(f"{name} never ran on the live tail: {on_tail} "
+                                     f"{fam_on_tail}")
+        k1_tail = term_tail_record(eng, queries[n_warm], on_tail["term_topk"])
+        # K3-K6 at the tail's shapes: the family batches that ran on it
+        doc_tail = doc_kernel_records(eng, tasks, fam_on_tail, tail=True, batch=0)
+        storage = d.storage_bytes()
+        clock = d.clock.snapshot()
+
+        t = time.perf_counter()
+        eng = eng.crash_and_recover()
+        replayed = eng.writer.wal_stats["replayed"]
+        eng.reopen()
+        torch.cuda.synchronize()
+        recover_s = time.perf_counter() - t
+        everything = FacetQuery(None, "month", 12)
+        if (eng.writer.buffered_docs != flush_every or eng.searcher.total_docs != cfg.n_docs
+                or eng.search(everything, k=12).total_hits
+                != ram_eng.search(everything, k=12).total_hits):
+            raise AssertionError("acked docs lost in the crash")
+        launches_after: dict = {}
+        lat_after, _ = persisted_term_loop(eng, ram_eng, words, queries, want, n_warm,
+                                           "wal recovered live-tail term", launches_after)
+        t = time.perf_counter()
+        eng.manager.maybe_reopen(force_flush=True)
+        got = eng.search_batch(queries[n_warm], k=K)
+        torch.cuda.synchronize()
+        visible_flush_ms = (time.perf_counter() - t) * 1e3
+        for q, g, w in zip(queries[n_warm], got, want[n_warm]):
+            same_topdocs(g, w, f"wal flushed {q.token}")
+        if segment_list(eng) != segment_list(ram_eng):
+            raise AssertionError("the flushed WAL index's segments differ from ram's")
+        n_timed = len(lat)
+        acks = np.asarray(ack_ms)
+        return {
+            "card": smi,
+            "filesystem": subprocess.run(["df", "-T", tmp], capture_output=True, text=True,
+                                         check=True).stdout.strip().splitlines()[-1],
+            "docs": cfg.n_docs, "ack_batch": ACK_BATCH, "acks": len(acks),
+            "tail_docs": flush_every,
+            "ingest_docs_per_s": cfg.n_docs / ingest_s,
+            "ack_p50_ms": float(np.percentile(acks, 50)),
+            "ack_p99_ms": float(np.percentile(acks, 99)),
+            "barriers_per_ack": 1,
+            "wal_append_real_s": clock["real"].get("wal_append", 0.0),
+            "modeled": {"wal_append_s": clock["modeled"].get("wal_append", 0.0),
+                        "commit_s": clock["modeled"].get("commit", 0.0)},
+            "commit": commit,
+            "ack_to_visible_ms": {"live_by_tail_docs": visible_ms,
+                                  "live_p50": float(np.median([v for _, v in visible_ms])),
+                                  "live_tail_full": visible_live_ms,
+                                  "force_flush_tail_full": visible_flush_ms},
+            "storage_bytes": storage,
+            "batch": BATCH, "k": K,
+            "term_qps_live_tail": BATCH * n_timed / (lat.sum() / 1e3),
+            "batch_p50_ms": float(np.percentile(lat, 50)),
+            "batch_p99_ms": float(np.percentile(lat, 99)),
+            "ram_in_turns": {"term_qps": BATCH * n_timed / (lat_ram.sum() / 1e3),
+                             "batch_p50_ms": float(np.percentile(lat_ram, 50))},
+            "launches": launches, "launches_on_tail": on_tail,
+            "family_batches_on_tail": len(fam_batches),
+            "family_launches_on_tail": fam_on_tail,
+            "k1_on_tail": k1_tail,
+            "k3_k6_on_tail": doc_tail,
+            "recover_s": recover_s, "replayed_records": replayed,
+            "term_qps_after_recovery": BATCH * n_timed / (lat_after.sum() / 1e3),
+            "launches_after_recovery": launches_after,
+            "topdocs_eq_ram": True, "topdocs_eq_ram_after_recovery": True,
+            "families_eq_ram": True, "acked_docs_after_recovery": cfg.n_docs,
+            "segments_eq_ram_after_flush": True,
+        }
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def vector_tail_phase(eng, vec_tasks: dict, n_docs: int) -> dict:
+    """K7 and K8 on a live tail: ``n_docs`` more seeded docs with 768-dim
+    vectors acked into the ``ram`` engine and served live; one batch of each
+    vector task (and VectorCosine and HybridDot at k VECTOR_WIDE_K), fused
+    (the tail's mini segment through the kernels) held to the eager
+    executors' combined pass on the card; the tail pass's own
+    launches (``tail_launches``); K7/K8 with their scores modes held to
+    their plain versions at the tail's shape.  Returns its record."""
+    import torch
+
+    from repro_torch.core.search import Searcher
+    from repro_torch.core.writer import VECTOR_FIELD
+    from repro_torch.data.corpus import CorpusConfig, synthetic_corpus
+
+    rng = np.random.default_rng(VECTOR_SEED + 10)
+    docs = list(synthetic_corpus(CorpusConfig(n_docs=n_docs, seed=SEED + 10)))
+    vecs = rng.standard_normal((n_docs, DIM), dtype=np.float32)
+    for (_, dv), v in zip(docs, vecs):
+        dv[VECTOR_FIELD] = v
+    t = time.perf_counter()
+    eng.add_documents(docs)
+    ack_s = time.perf_counter() - t
+    t = time.perf_counter()
+    eng.reopen()
+    reopen_s = time.perf_counter() - t
+    if eng.manager.live is None or eng.manager.live.n_docs != n_docs:
+        raise AssertionError("the vector tail is not live")
+    eager = Searcher(eng.manager.infos, fused=False, device_cache=eng.device_cache,
+                     live=eng.manager.live)
+    # each task's first batch, then VectorCosine and HybridDot above the
+    # kernels' k of 128 (their scores mode)
+    batches = [(name, b[0], VECTOR_TASK_K[name]) for name, b in vec_tasks.items()]
+    batches += [(name, vec_tasks[name][0], VECTOR_WIDE_K)
+                for name in ("VectorCosine", "HybridDot")]
+    for name, qs, k in batches:
+        for g, w in zip(eng.search_batch(qs, k=k), eager.search_batch(qs, k=k)):
+            same_topdocs(g, w, f"vector tail {name} k={k}")
+    torch.cuda.synchronize()
+    on_tail = tail_launches(eng, [(qs, k) for _, qs, k in batches])
+    for name in ("vector_topk", "hybrid_topk", "vector_score_rows", "hybrid_score_rows"):
+        if not on_tail.get(name):
+            raise AssertionError(f"{name} never ran on the live tail: {on_tail}")
+    return {"tail_docs": n_docs, "add_documents_s": ack_s, "reopen_s": reopen_s,
+            "batches": len(batches), "launches_on_tail": on_tail,
+            "k7_k8_on_tail": vector_pair_records(eng, vec_tasks, on_tail, tail=True,
+                                                 batch=0),
+            "fused_eq_eager_card": True}
 
 
 def forced_logits(params, cfg, prompt, tokens):
@@ -1821,6 +2221,11 @@ def main(argv=None) -> int:
                               fused_res, rare)
     for kind, rec in persisted.items():
         log("persist", dict(rec, kind=kind))
+    t_wal = time.perf_counter()
+    log("wal", dict(wal_phase(eng, cfg, table, args.flush_every, queries, n_warm,
+                              fused_res, rare, tasks, smi),
+                    seconds=time.perf_counter() - t_wal))
+    log("vector_tail", vector_tail_phase(eng, vec_tasks, args.flush_every))
     log("persist_phase", {"seconds": time.perf_counter() - t,
                           "run_s": time.perf_counter() - t_start})
     for r in records:

@@ -14,8 +14,8 @@ components (one fixed-dim span per vectored doc) and ``vec_doc`` the
 buffer-local doc id of each span.  The first vector pins ``vec_dim``; the
 flush densifies the spans into an (n_docs, dim) doc-values column.
 
-Host-side numpy, as in the reference.  WAL replay (``extend_raw``,
-``extend_raw_vectors``) comes with its later slice.
+Host-side numpy, as in the reference.  WAL replay appends logged column
+slices verbatim (``extend_raw``, ``extend_raw_vectors``).
 """
 
 from __future__ import annotations
@@ -113,6 +113,27 @@ class ColumnarBuffer:
         self.positions.extend(positions)
         return k * (8 + 4 + 4 + 8) + len(positions) * 4
 
+    def extend_raw(
+        self,
+        term_hash: np.ndarray,
+        doc_local: np.ndarray,
+        freq: np.ndarray,
+        pos_offset: np.ndarray,
+        positions: np.ndarray,
+    ) -> int:
+        """Append previously captured column slices verbatim (WAL replay).
+
+        The slices are what a batch of ``append_field`` calls produced, so
+        ``pos_offset`` values are already absolute: replaying records in log
+        order rebuilds every column bit for bit.  Returns the bytes
+        appended (``append_field``'s accounting)."""
+        self.term_hash.extend(term_hash)
+        self.doc_local.extend(doc_local)
+        self.freq.extend(freq)
+        self.pos_offset.extend(pos_offset)
+        self.positions.extend(positions)
+        return len(term_hash) * (8 + 4 + 4 + 8) + len(positions) * 4
+
     def append_vector(self, doc_local: int, vec) -> int:
         """Append one document's dense vector.  The first vector pins
         ``vec_dim``; a later one of another length raises ``ValueError``.
@@ -125,6 +146,19 @@ class ColumnarBuffer:
         self.vec.extend(v)
         self.vec_doc.extend_fill(doc_local, 1)
         return len(v) * 4 + 4
+
+    def extend_raw_vectors(self, vec: np.ndarray, vec_doc: np.ndarray, dim: int) -> int:
+        """Append previously captured vector column slices verbatim (WAL
+        replay): the flat float32 components and per-span doc ids as a
+        batch of ``append_vector`` calls produced them."""
+        if dim:
+            if self.vec_dim == 0:
+                self.vec_dim = int(dim)
+            elif int(dim) != self.vec_dim:
+                raise ValueError(f"replayed vector dim {dim} != buffer dim {self.vec_dim}")
+        self.vec.extend(np.asarray(vec, dtype=np.float32))
+        self.vec_doc.extend(np.asarray(vec_doc, dtype=np.int32))
+        return len(vec) * 4 + len(vec_doc) * 4
 
     def vector_columns(self) -> Tuple[np.ndarray, np.ndarray, int]:
         """(flat components, per-span doc ids, dim) trimmed views."""

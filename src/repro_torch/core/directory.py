@@ -25,9 +25,10 @@ codec (and its legacy npz read), the generational ``.liv`` files, the
 ``segments_N`` manifests, heap layout v2 and the byte path's ``root.json``
 record, so either package opens a directory the other committed.
 
-The write-ahead log (``wal_*``) comes with ROADMAP queue 1, item 11: its
-methods raise ``NotImplementedError`` on every kind, and a byte directory
-whose heap holds unretired log records refuses to open.
+The write-ahead ingest log (``wal_*``) lives only on the byte path
+(``supports_wal``): one record and one barrier a batch in the heap
+(``storage.wal.HeapWAL``), retired by the commit point's ``wal_retired``
+and replayed from there on open.  The other kinds make ``use_wal`` a no-op.
 """
 
 from __future__ import annotations
@@ -53,8 +54,7 @@ from repro_torch.storage.device_model import (
     DeviceModel,
 )
 from repro_torch.storage.heap import PersistentHeap
-
-WAL_ITEM = "the write-ahead log comes with ROADMAP queue 1, item 11"
+from repro_torch.storage.wal import HeapWAL
 
 _SEG_NAME_RE = re.compile(r"^_[a-z]\d{6}$")
 
@@ -132,31 +132,46 @@ class Directory(ABC):
             return gen == -1
         return latest[0] == gen
 
-    # -- write-ahead ingest log (ROADMAP item 11) ---------------------------
+    # -- write-ahead ingest log ----------------------------------------------
     def supports_wal(self) -> bool:
-        raise NotImplementedError(WAL_ITEM)
+        """Can this directory make an ingest batch durable at ack time?
+        Only the byte path: one barrier a batch costs microseconds there,
+        where a file-path log would pay an fsync a batch.  Elsewhere the
+        writer's ``use_wal`` is a no-op."""
+        return False
 
     def wal_append(self, meta: dict, arrays: Dict[str, np.ndarray],
                    live_root: Optional[int] = None) -> int:
-        raise NotImplementedError(WAL_ITEM)
+        """Durably append one ingest record (ack = durable); returns its
+        seq.  ``live_root`` (byte path) publishes the live index's root
+        block on the same barrier."""
+        raise NotImplementedError(f"{type(self).__name__} has no WAL")
 
     def wal_replay(self) -> List[Tuple[dict, Dict[str, np.ndarray]]]:
-        raise NotImplementedError(WAL_ITEM)
+        """Unretired records past the last commit, oldest first."""
+        return []
 
     def set_wal_on_ack(self, cb) -> None:
-        raise NotImplementedError(WAL_ITEM)
+        """Register ``cb(seq, nbytes)``, fired after each durable append's
+        barrier.  No-op on kinds without a WAL."""
 
     def wal_acked_bytes(self) -> int:
-        raise NotImplementedError(WAL_ITEM)
+        """Cumulative bytes durably acked through the WAL (0 without one)."""
+        return 0
 
     def wal_set_retire(self, seq: int) -> None:
-        raise NotImplementedError(WAL_ITEM)
+        """Stage a retire watermark for the NEXT commit: records up to
+        ``seq`` are inside the segments it publishes, so its commit point
+        retires them (and a rollback to the previous one un-retires
+        them)."""
 
     def wal_retired(self) -> int:
-        raise NotImplementedError(WAL_ITEM)
+        """Highest seq retired by the latest commit point (0 = none)."""
+        return 0
 
     def wal_last_seq(self) -> int:
-        raise NotImplementedError(WAL_ITEM)
+        """Seq of the newest durable record (0 = empty log)."""
+        return 0
 
     # -- storage reclamation -------------------------------------------------
     def gc(
@@ -607,9 +622,10 @@ class ByteAddressableDirectory(Directory):
         # the root record names the heap file: compaction re-packs into a
         # FRESH file and swaps the root atomically
         self._heap_file = "heap.pmem"
-        # highest WAL seq the latest commit point retired (the reference's
-        # root key; the port writes no WAL, so it only carries it along)
+        # highest WAL seq the latest commit point retired (0 = none); the
+        # value a writer stages for its NEXT commit lives separately
         self._wal_retired = 0
+        self._wal_pending_retire: Optional[int] = None
         if os.path.exists(self._root):
             with open(self._root) as f:
                 rec = json.load(f)
@@ -622,27 +638,12 @@ class ByteAddressableDirectory(Directory):
             self._wal_retired = int(rec.get("wal_retired", 0))
             self._toc = {k: dict(v) for k, v in self._committed_toc.items()}
         self.heap = PersistentHeap(os.path.join(path, self._heap_file), capacity)
-        self._refuse_unretired_wal()
+        self._wal = HeapWAL(self.heap)
         # a crash between compaction's root flip and the old-file unlink
         # leaves an orphan heap file: sweep anything the root doesn't name
         for fn in os.listdir(path):
             if fn.endswith(".pmem") and fn != self._heap_file:
                 os.remove(os.path.join(path, fn))
-
-    def _refuse_unretired_wal(self) -> None:
-        """A heap the reference wrote with its WAL on may hold acked records
-        no commit retired; replaying them is item 11's.  Opening without
-        them would silently drop acked documents, so refuse."""
-        head = self.heap.wal_head
-        if head:
-            seq = int(self.heap.load(head)[16:24].view(np.uint64)[0])
-            if seq > self._wal_retired:
-                self.heap.close()
-                raise NotImplementedError(
-                    f"{self.path}: the heap holds write-ahead-log records up to "
-                    f"seq {seq}, past the retired {self._wal_retired}; "
-                    f"{WAL_ITEM}"
-                )
 
     def _write_root(self, rec: dict) -> None:
         """Atomic root-record update (tmp + fsync + rename)."""
@@ -706,7 +707,8 @@ class ByteAddressableDirectory(Directory):
         gen = self._committed_gen + 1
         if self._committed_gen >= 0:
             # retain the superseded commit for rollback_to: same heap file,
-            # offsets valid until the next compaction
+            # offsets valid until the next compaction.  Its WAL watermark
+            # rides along, so a rollback un-retires the newer records
             self._prev = {
                 "gen": self._committed_gen,
                 "segments": list(self._committed_names),
@@ -714,6 +716,9 @@ class ByteAddressableDirectory(Directory):
                 "meta": dict(self._meta),
                 "wal_retired": self._wal_retired,
             }
+        if self._wal_pending_retire is not None:
+            self._wal_retired = max(self._wal_retired, self._wal_pending_retire)
+            self._wal_pending_retire = None
         rec = {
             "gen": gen,
             "segments": list(seg_names),
@@ -759,7 +764,10 @@ class ByteAddressableDirectory(Directory):
             self._meta = {}
             self._prev = None
             self._toc = {}
+            # un-retire everything: a torn first commit's acked batches are
+            # still in the heap's WAL chain and must replay
             self._wal_retired = 0
+            self._wal_pending_retire = None
             return True
         if self._prev is not None and self._prev["gen"] == gen:
             rec = {
@@ -777,18 +785,58 @@ class ByteAddressableDirectory(Directory):
             self._meta = dict(rec["meta"])
             self._toc = {n: dict(v) for n, v in rec["toc"].items()}
             self._wal_retired = rec["wal_retired"]
+            self._wal_pending_retire = None
             self._prev = None
             return True
         return False
+
+    # -- write-ahead ingest log ----------------------------------------------
+    def supports_wal(self) -> bool:
+        return True
+
+    def wal_append(self, meta: dict, arrays: Dict[str, np.ndarray],
+                   live_root: Optional[int] = None) -> int:
+        """Durable ack: one record store + ONE barrier, which also flips the
+        chain head and (when the writer keeps its live index in this heap)
+        the live-index root."""
+        t0 = time.perf_counter()
+        seq = self._wal.append(meta, arrays, live_root=live_root)
+        nbytes = sum(a.nbytes for a in arrays.values())
+        self.clock.add_real("wal_append", time.perf_counter() - t0)
+        self.clock.add_modeled(
+            "wal_append",
+            self.device.byte_store_time(nbytes) + self.device.byte_barrier_s,
+        )
+        return seq
+
+    def wal_replay(self) -> List[Tuple[dict, Dict[str, np.ndarray]]]:
+        return self._wal.records(after_seq=self._wal_retired)
+
+    def wal_set_retire(self, seq: int) -> None:
+        self._wal_pending_retire = seq
+
+    def wal_retired(self) -> int:
+        return self._wal_retired
+
+    def wal_last_seq(self) -> int:
+        return self._wal.last_seq
+
+    def set_wal_on_ack(self, cb) -> None:
+        self._wal.on_ack = cb
+
+    def wal_acked_bytes(self) -> int:
+        return self._wal.acked_bytes
 
     # -- storage reclamation -------------------------------------------------
     def gc(
         self, live_names: List[str], live_heap_bytes: int = 0
     ) -> Dict[str, int]:
         """Free TOC entries of dead segments; compact the heap when the
-        garbage (dead allocations + superseded live bitmaps) outweighs the
-        live data.  Runs right after a commit, so ``live_names`` equals the
-        committed set and the compacted state can be re-rooted in place."""
+        garbage (dead allocations + superseded live bitmaps + retired WAL
+        records) outweighs the live data.  Runs right after a commit, so
+        ``live_names`` equals the committed set and the compacted state can
+        be re-rooted in place.  The unretired WAL tail and the writer's
+        live index (``live_heap_bytes``) count as live."""
         keep = set(live_names)
         removed = 0
         for name in [n for n in self._toc if n not in keep]:
@@ -801,6 +849,7 @@ class ByteAddressableDirectory(Directory):
             for entry in self._toc.values()
             for off in entry.values()
         )
+        live_bytes += self._wal.live_bytes(after_seq=self._wal_retired)
         live_bytes += int(live_heap_bytes)
         dead_bytes = max(0, self.heap.tail - self.heap.HEADER - live_bytes)
         reclaimed = 0
@@ -841,9 +890,10 @@ class ByteAddressableDirectory(Directory):
         new_toc: Dict[str, Dict[str, int]] = {}
         for name, arrays in hosts.items():
             new_toc[name] = {k: new_heap.store(a) for k, a in arrays.items()}
-        # no WAL records to carry (the reference carries its unretired
-        # tail here): the fresh heap's WAL head stays 0
-        new_heap.barrier()
+        # the unretired WAL tail moves with the live data (retired records
+        # are the garbage this compaction drops); its head rides the barrier
+        wal_head = self._wal.carry_to(new_heap, after_seq=self._wal_retired)
+        new_heap.barrier(wal_head=wal_head)
         # observability counters survive the heap swap
         for k, v in self.heap.stats.items():
             new_heap.stats[k] += v
@@ -860,6 +910,14 @@ class ByteAddressableDirectory(Directory):
         self.heap.close()
         os.remove(os.path.join(self.path, old_file))
         self.heap = new_heap
+        old_wal = self._wal
+        self._wal = HeapWAL(new_heap)  # rebind the chain to the new file
+        # seq numbering stays monotone across heap swaps, and the ack
+        # ledger and its observer are the directory's, not the heap's
+        self._wal.last_seq = max(self._wal.last_seq, old_wal.last_seq)
+        self._wal.on_ack = old_wal.on_ack
+        self._wal.acked_bytes = old_wal.acked_bytes
+        self._wal.acked_records = old_wal.acked_records
         self._heap_file = new_file
         self._toc = new_toc
         self._committed_toc = {n: dict(v) for n, v in new_toc.items()}
@@ -877,9 +935,12 @@ class ByteAddressableDirectory(Directory):
 
     def crash(self) -> None:
         """NVM after power loss: the committed watermark survives, the rest
-        is gone; the TOC reloads from the last commit's."""
+        is gone; the TOC reloads from the last commit's and the WAL resyncs
+        to its durable chain head (an un-acked record is what tears off)."""
         self.heap.truncate_to_committed()
         self._toc = {k: dict(v) for k, v in self._committed_toc.items()}
+        self._wal_pending_retire = None
+        self._wal._resync()
 
     def list_segments(self) -> List[str]:
         return sorted(self._toc)

@@ -18,8 +18,14 @@ its ``path`` (a fresh temporary directory when None) and the analyzer.
               the host either way.  On a CPU device the kernel wrappers run
               their plain PyTorch versions.
 
-``use_wal`` (the reference's durable ingest buffer) raises
-``NotImplementedError``: it comes with ROADMAP queue 1, item 11.
+  ``use_wal``  the durable ingest buffer: on the byte path every
+              ``add_documents`` batch is one write-ahead record and one
+              barrier (ack = durable), ``commit`` only publishes and
+              ``crash_and_recover`` replays the unretired log.  A no-op on
+              ``ram`` and ``fs-*`` (``wal_enabled`` says which).
+
+``reopen()`` serves the buffered tail live (search-at-ack) without a flush;
+``manager.maybe_reopen(force_flush=True)`` flushes first.
 """
 
 from __future__ import annotations
@@ -55,6 +61,7 @@ class SearchEngine:
         self.directory = directory
         self.analyzer = analyzer or Analyzer()
         self.fused = fused
+        self.use_wal = use_wal
         self.writer = IndexWriter(directory, self.analyzer, use_wal=use_wal)
         # engine-owned device cache: segment tensors stay resident across
         # NRT reopens; fused engines stage the kernel layout at upload
@@ -70,10 +77,16 @@ class SearchEngine:
         self.device_cache.warm_merged(writer.segments)
 
     # -- indexing -------------------------------------------------------------
+    @property
+    def wal_enabled(self) -> bool:
+        """True when ingest acks are durable (``use_wal`` on the byte path)."""
+        return self.writer.wal_enabled
+
     def add(self, fields: Dict[str, str], doc_values: Optional[Dict] = None) -> int:
         return self.writer.add_document(fields, doc_values)
 
     def add_documents(self, docs) -> List[int]:
+        """Batch ingest; with the WAL on the return is a durable ack."""
         return self.writer.add_documents(docs)
 
     def delete(self, field: str, token: str) -> int:
@@ -102,19 +115,22 @@ class SearchEngine:
 
     # -- failure simulation -----------------------------------------------------
     def crash_and_recover(self) -> "SearchEngine":
-        """Simulate power failure and reopen from the last commit point.
+        """Simulate power failure and reopen from the last commit point --
+        then, with the WAL on, replay the log back to the last ack.
 
-        The new engine shares the directory, analyzer, device and ``fused``
-        flag; its writer recovers the committed segments and its device
-        cache starts cold (post-crash device state is untrusted) while the
-        cache's lifetime counters carry over."""
+        The new engine shares the directory, analyzer, device, ``fused``
+        and ``use_wal``; its writer recovers the committed segments (and
+        the replayed tail) and its device cache starts cold (post-crash
+        device state is untrusted) while the cache's lifetime counters
+        carry over."""
         self.directory.crash()
         eng = object.__new__(SearchEngine)
         eng.device = self.device
         eng.directory = self.directory
         eng.analyzer = self.analyzer
         eng.fused = self.fused
-        eng.writer = IndexWriter(self.directory, self.analyzer)
+        eng.use_wal = self.use_wal
+        eng.writer = IndexWriter(self.directory, self.analyzer, use_wal=self.use_wal)
         eng.device_cache = SegmentDeviceCache(tile=self.fused, device=self.device)
         eng.device_cache.stats = dataclasses.replace(self.device_cache.stats)
         eng.writer.merge_listeners.append(eng._on_merge)

@@ -50,6 +50,35 @@ def _pad_tile(host: np.ndarray, fill) -> np.ndarray:
     return out
 
 
+def to_device(host: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A copy of ``host`` on ``device`` that shares no memory with it."""
+    if device.type == "cpu":
+        return torch.from_numpy(np.array(host))
+    # pin_memory() copies into a block of PyTorch's caching host allocator;
+    # the non-blocking copy records an event on that block, and the
+    # allocator hands the block out again only after the event, so a reused
+    # pinned buffer never feeds a copy still in flight
+    staged = torch.from_numpy(np.ascontiguousarray(host)).pin_memory()
+    return staged.to(device, non_blocking=True)
+
+
+def tiled_host(key: str, host: np.ndarray) -> np.ndarray:
+    """The kernel layout of one doc-side or CSR array (see the module
+    docstring): axis 0 padded to a TILE multiple -- doc lengths with 1,
+    everything else with 0 -- and a 2-D column's components with zeros to
+    ``pad_dim``."""
+    if host.ndim == 2:
+        host = _pad_tile(np.asarray(host), 0)
+        extra = pad_dim(host.shape[1]) - host.shape[1]
+        # zero components up to the kernels' 16-byte loads (they add only
+        # the first d)
+        return np.pad(host, ((0, 0), (0, extra))) if extra else host
+    host = np.asarray(host)
+    if key != "dv":  # doc lengths, live bits, CSR postings: int32 words
+        host = host.astype(np.int32)
+    return _pad_tile(host, 1 if key == "doc_lens" else 0)
+
+
 @dataclasses.dataclass
 class CacheStats:
     segment_uploads: int = 0  # segments staged into the shared store
@@ -81,17 +110,9 @@ class SegmentDeviceCache:
         return name in self._store
 
     def _upload(self, host: np.ndarray) -> torch.Tensor:
-        """A device copy of ``host`` that shares no memory with it."""
         self.stats.array_uploads += 1
         self.stats.bytes_uploaded += host.nbytes
-        if self.device.type == "cpu":
-            return torch.from_numpy(np.array(host))
-        # pin_memory() copies into a block of PyTorch's caching host
-        # allocator; the non-blocking copy records an event on that block,
-        # and the allocator hands the block out again only after the event,
-        # so a reused pinned buffer never feeds a copy still in flight
-        staged = torch.from_numpy(np.ascontiguousarray(host)).pin_memory()
-        return staged.to(self.device, non_blocking=True)
+        return to_device(host, self.device)
 
     # ------------------------------------------------------------------
     def _stage(self, seg: Segment) -> Dict[str, object]:
@@ -120,23 +141,18 @@ class SegmentDeviceCache:
         """Upload the kernel layout for ``seg`` into ``st``: CSR postings
         padded with (doc 0, freq 0) past ``nnz``; doc space padded with dead
         docs (live 0)."""
-        dl_pad = _pad_tile(seg.doc_lens.astype(np.int32), 1)
-        live_pad = _pad_tile(seg.live.astype(np.int32), 0)
+        dl_pad = tiled_host("doc_lens", seg.doc_lens)
+        live_pad = tiled_host("live", seg.live)
         hosts = {
-            "csr.docs": _pad_tile(seg.postings_docs.astype(np.int32), 0),
-            "csr.freqs": _pad_tile(seg.postings_freqs.astype(np.int32), 0),
+            "csr.docs": tiled_host("csr", seg.postings_docs),
+            "csr.freqs": tiled_host("csr", seg.postings_freqs),
             "tiled.doc_lens": dl_pad,
             "tiled.live": live_pad,
             # doc length and deletion bit in one word (doc_lens < 2^30)
             "tiled.dl_live": (dl_pad << 1) | live_pad,
         }
         for k, v in seg.doc_values.items():
-            host = _pad_tile(np.asarray(v), 0)
-            extra = pad_dim(host.shape[1]) - host.shape[1] if host.ndim == 2 else 0
-            if extra:  # the vector column: zero components up to the
-                # kernels' 16-byte loads (they add only the first d)
-                host = np.pad(host, ((0, 0), (0, extra)))
-            hosts[f"tiled.dv.{k}"] = host
+            hosts[f"tiled.dv.{k}"] = tiled_host("dv", v)
         for key, host in hosts.items():
             st[key] = self._upload(host)
 
@@ -184,9 +200,7 @@ class SegmentDeviceCache:
             st["_live_version"] = seg.live
             self.stats.live_refreshes += 1
             if "tiled.live" in st:  # keep the kernel bitmap in step
-                st["tiled.live"] = self._upload(
-                    _pad_tile(seg.live.astype(np.int32), 0)
-                )
+                st["tiled.live"] = self._upload(tiled_host("live", seg.live))
                 # rebuild the packed word on device from resident tensors
                 st["tiled.dl_live"] = (st["tiled.doc_lens"] << 1) | st["tiled.live"]
         else:

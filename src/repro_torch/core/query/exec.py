@@ -45,7 +45,7 @@ from repro_torch.core.query.types import TermQuery, TopDocs, empty_topdocs
 from repro_torch.core.writer import VECTOR_FIELD
 from repro_torch.kernels import doc_topk as dk
 from repro_torch.kernels import vector_topk as vk
-from repro_torch.kernels.term_topk import bm25, scalars
+from repro_torch.kernels.term_topk import bm25, one_doc, scalars
 
 __all__ = [
     "bm25",
@@ -70,7 +70,7 @@ def _term_core(docs, freqs, doc_lens, live, idf, avgdl, k1, b, k):
     """Single term: top-k straight over one (P,) postings row.  ``idf``,
     ``avgdl``, ``k1``, ``b`` are 0-d float32 tensors on the device."""
     d = docs.long()
-    score = bm25(freqs, doc_lens[d], idf, avgdl, k1, b)
+    score = bm25(freqs, doc_lens[d], idf, avgdl, k1, b, one_doc(doc_lens))
     valid = (freqs > 0) & live[d]
     score = torch.where(valid, score, -torch.inf)
     vals, pos = _topk_stable(score, k)
@@ -97,7 +97,7 @@ def _bool_core(docs, freqs, idfs, doc_lens, live, avgdl, k1, b, k,
     float32; avgdl/k1/b: Python floats."""
     avgdl, k1, b = scalars(docs.device, avgdl, k1, b)
     score, ok = dk.bool_dense(docs, freqs, idfs, doc_lens, live, avgdl, k1, b,
-                              conjunctive, n_terms)
+                              conjunctive, n_terms, one_doc(doc_lens))
     vals, ids = _topk_stable(score, k)
     return vals, ids, ok.sum(-1)
 
@@ -120,8 +120,12 @@ def _range_core(dv, live, los, his, k):
 
 def _vector_core(vmat, live, qvecs, k, cosine):
     """Exact top-k of B query vectors (B, d) over a dense (ND, d) vector
-    column: every live doc is a candidate and a hit (match-all-live)."""
-    score = torch.where(live, vk.similarity(vmat, qvecs, cosine), -torch.inf)
+    column: every live doc is a candidate and a hit (match-all-live).
+    Cosine norms at 5-8 components as the reference's unfused route rounds
+    them (``vector_topk.strict_norm_rows``)."""
+    sims = vk.similarity(vmat, qvecs, cosine, strict_rows=vk.strict_norm_rows(
+        vmat.shape[0]), strict_q=qvecs.shape[0] >= 2)
+    score = torch.where(live, sims, -torch.inf)
     vals, ids = _topk_stable(score, k)
     return vals, ids, live.sum().expand(qvecs.shape[0])
 
@@ -131,10 +135,14 @@ def _hybrid_core(docs, freqs, doc_lens, vmat, live, qvecs, idfs, avgdl, k1, b,
     """BM25 (+) vector over every live doc: the row's term postings
     docs/freqs (B, P) become a dense BM25 column (0 where a doc lacks the
     term), blended with the similarity by fixed normalisations, then top-k.
-    idfs/alphas: (B,) float32; avgdl/k1/b: Python floats."""
+    idfs/alphas: (B,) float32; avgdl/k1/b: Python floats.  The reference
+    runs hybrid batches of two or more rows (``bucket_batch_min2``), so its
+    query norms are strict at 5-8 components."""
     avgdl, k1, b = scalars(docs.device, avgdl, k1, b)
-    dense = vk.hybrid_dense(docs, freqs, idfs, doc_lens, avgdl, k1, b)
-    sims = vk.similarity(vmat, qvecs, cosine)
+    dense = vk.hybrid_dense(docs, freqs, idfs, doc_lens, avgdl, k1, b,
+                            one_doc(doc_lens))
+    sims = vk.similarity(vmat, qvecs, cosine,
+                         strict_rows=vk.strict_norm_rows(vmat.shape[0]), strict_q=True)
     score = torch.where(live, vk.hybrid_scores(dense, sims, alphas, cosine), -torch.inf)
     vals, ids = _topk_stable(score, k)
     return vals, ids, live.sum().expand(qvecs.shape[0])

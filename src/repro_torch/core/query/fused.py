@@ -74,6 +74,7 @@ from repro_torch.kernels.term_topk import (
     MAX_K,
     csr_rows,
     csr_rows_scored,
+    one_doc,
     term_topk_tiles,
 )
 
@@ -114,7 +115,7 @@ def _term_metas(ctx, terms, pad: int, use_kernel: bool):
 
 
 def _tiled(ctx, seg):
-    return ctx.device_cache.ensure_tiled(seg, fallback=ctx._transient_dev)
+    return ctx._seg_dev(seg, tiled=True)
 
 
 def _select_term(st, starts, lengths, idfs, avgdl, k1, b, p: int, k: int):
@@ -286,29 +287,48 @@ def _ranked(scores, cnt, k: int):
     return vals, ids, cnt.sum(-1)
 
 
-def vector_segment(ctx, seg, qvecs, k: int, cosine: bool, dim: int):
+def vector_segment(ctx, seg, qvecs, k: int, cosine: bool, dim: int,
+                   unfused: bool = False):
     """One segment's vector candidates for B rows of ``qvecs`` (B, D_pad):
     kernel ``vector_topk``'s tile winners for k <= MAX_K, else its scores
-    mode ranked whole.  Returns (vals (B, C), segment-local ids, hits (B,))."""
+    mode ranked whole.  Returns (vals (B, C), segment-local ids, hits (B,)).
+
+    The reference runs k > MAX_K, ``search_single`` (``unfused``) and a
+    live tail through its jnp cores, not its kernels: there the kernels
+    round the cosine norms as XLA:CPU does (``vector_topk.strict_norm_rows``,
+    over the segment's unpadded rows)."""
     st = _tiled(ctx, seg)
     args = (st[f"tiled.dv.{VECTOR_FIELD}"], st["tiled.live"], qvecs)
+    strict = _unfused_norms(seg, qvecs.shape[0] >= 2, unfused, k)
     if kernel_enabled(k):
-        return _flat(*vk.vector_topk_tiles(*args, k, cosine, dim))
-    return _ranked(*vk.vector_score_rows(*args, cosine, dim), k)
+        return _flat(*vk.vector_topk_tiles(*args, k, cosine, dim, **strict))
+    return _ranked(*vk.vector_score_rows(*args, cosine, dim, **strict), k)
+
+
+def _unfused_norms(seg, strict_q: bool, unfused: bool, k: int) -> dict:
+    if kernel_enabled(k) and not unfused:
+        return {}
+    return {"strict_rows": vk.strict_norm_rows(seg.n_docs), "strict_q": strict_q}
 
 
 def hybrid_segment(ctx, seg, starts, lengths, idfs, alphas, qvecs, k: int,
-                   cosine: bool, dim: int):
+                   cosine: bool, dim: int, unfused: bool = False):
     """As ``vector_segment`` for hybrid rows, with kernel ``hybrid_topk``:
     ``starts``/``lengths`` (B,) are the rows' coordinates into the
-    segment's tiled CSR ((0, 0) where the term is absent)."""
+    segment's tiled CSR ((0, 0) where the term is absent).  Where the
+    reference takes its jnp cores, its hybrid batches have two or more rows
+    (strict query norms) and its BM25 runs strict over a one-document
+    segment (``term_topk.one_doc``)."""
     st = _tiled(ctx, seg)
     args = (st["csr.docs"], st["csr.freqs"], st["tiled.dl_live"], starts, lengths,
             idfs, ctx.avgdl, ctx.k1, ctx.b, st[f"tiled.dv.{VECTOR_FIELD}"], qvecs,
             alphas)
+    strict = _unfused_norms(seg, True, unfused, k)
+    if strict:
+        strict["strict_bm25"] = one_doc(seg.doc_lens)
     if kernel_enabled(k):
-        return _flat(*vk.hybrid_topk_tiles(*args, k, cosine, dim))
-    return _ranked(*vk.hybrid_score_rows(*args, cosine, dim), k)
+        return _flat(*vk.hybrid_topk_tiles(*args, k, cosine, dim, **strict))
+    return _ranked(*vk.hybrid_score_rows(*args, cosine, dim, **strict), k)
 
 
 def hybrid_coords(ctx, segs, terms, pad: int):
@@ -329,7 +349,8 @@ def exec_vector_fused(ctx, group: FamilyGroup, k: int) -> List[TopDocs]:
                           vk.pad_dim(dim))
     per_seg = []
     for seg in segs:
-        vals, ids, hits = vector_segment(ctx, seg, qvecs, k, cosine, dim)
+        vals, ids, hits = vector_segment(ctx, seg, qvecs, k, cosine, dim,
+                                         ctx.unfused_rounding)
         per_seg.append((vals, ids.long() + seg.base_doc, hits))
     profile.record(_tag("vector", kernel_enabled(k)))
     return _merge_segment_candidates(per_seg, n, k)
@@ -349,7 +370,8 @@ def exec_hybrid_fused(ctx, group: FamilyGroup, k: int) -> List[TopDocs]:
     per_seg = []
     for i, seg in enumerate(segs):
         vals, ids, hits = hybrid_segment(ctx, seg, coords[i, 0], coords[i, 1], idfs,
-                                         alphas, qvecs, k, cosine, dim)
+                                         alphas, qvecs, k, cosine, dim,
+                                         ctx.unfused_rounding)
         per_seg.append((vals, ids.long() + seg.base_doc, hits))
     profile.record(_tag("hybrid", kernel_enabled(k)))
     return _merge_segment_candidates(per_seg, n, k)

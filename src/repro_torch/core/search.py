@@ -8,6 +8,12 @@ through the CUDA kernels (``query/fused.py``); with ``fused=False`` through
 the eager executors, the counterpart of the JAX package's vmapped path.
 Phrase groups are a positions merge on the host either way.
 
+A Searcher opened with ``live`` (a ``query.live.LiveSnapshot`` of the
+writer's acked tail, the default NRT reopen) also searches the buffered
+documents, through a mini segment per family group (``query/live.py``);
+their doc and token counts fold into the BM25 statistics, as a flushed
+segment's would.
+
 ``search_single`` is the sequential per-query path: one call per segment
 and a heapq merge on the host, the oracle the batched executors are held
 to.  With ``fused=True`` its term scoring runs kernel ``bm25_topk`` (the
@@ -35,6 +41,7 @@ import torch
 
 from repro_torch.core.analyzer import Analyzer, term_hash
 from repro_torch.core.lifecycle.infos import SegmentInfos
+from repro_torch.core.query import live as live_mod
 from repro_torch.core.query.cache import SegmentDeviceCache
 from repro_torch.core.query.exec import (
     _bool_core,
@@ -95,6 +102,10 @@ class Searcher:
     segments.
     """
 
+    #: do the kernels stand for the reference's unfused cores?  Only a live
+    #: tail's pass does (``query.live._CombinedView``)
+    unfused_rounding = False
+
     def __init__(
         self,
         segments: "SegmentInfos | Sequence[Segment]",
@@ -104,6 +115,7 @@ class Searcher:
         fused: bool = True,
         device_cache: Optional[SegmentDeviceCache] = None,
         device=None,
+        live=None,
     ) -> None:
         if isinstance(segments, SegmentInfos):
             self.infos: Optional[SegmentInfos] = segments
@@ -120,7 +132,19 @@ class Searcher:
         )
         self.total_docs = sum(s.n_docs for s in self.segments)
         tokens = sum(s.total_tokens for s in self.segments)
+        # the live tail's docs and tokens fold into the statistics as a
+        # flushed segment's would, so BM25 equals flush-then-search's
+        self._live = live if (live is not None and live.n_docs) else None
+        self._live_base = self.total_docs  # committed docs: the tail's base
+        if self._live is not None:
+            self.total_docs += self._live.n_docs
+            tokens += self._live.total_tokens
         self.avgdl = float(tokens) / max(self.total_docs, 1)
+        # the tail's mini segments (per term set) and their device staging,
+        # private to this point-in-time view
+        self._live_segs: Dict[tuple, Segment] = {}
+        self._live_dev_map = None
+        self._live_seg_devs: Dict[int, object] = {}  # by id of a held mini segment
         # explicit None check: an empty cache is falsy (it has __len__)
         self.device_cache = (
             device_cache
@@ -138,8 +162,36 @@ class Searcher:
         # df memo: document frequencies never change under a point-in-time view
         self._df_cache: Dict[int, int] = {}
 
-    def _seg_dev(self, seg: Segment) -> Dict[str, object]:
+    def _seg_dev(self, seg: Segment, tiled: bool = False) -> Dict[str, object]:
+        """Device tensors of ``seg``; ``tiled`` adds the kernels' layout."""
+        if seg.name == live_mod.LIVE_SEGMENT_NAME:
+            return self._live_dev(seg)
+        if tiled:
+            return self.device_cache.ensure_tiled(seg, fallback=self._transient_dev)
         return self.device_cache.get(seg, fallback=self._transient_dev)
+
+    # -- the live tail ----------------------------------------------------------
+    def _live_dev(self, seg: Segment):
+        """A mini segment's device tensors: its CSR (once per mini segment)
+        over the snapshot's doc side (once per snapshot)."""
+        if self._live_dev_map is None:
+            self._live_dev_map = live_mod._LiveDev(self._live, seg, self.device)
+        dev = self._live_seg_devs.get(id(seg))
+        if dev is None:
+            dev = self._live_seg_devs[id(seg)] = live_mod._LiveSegDev(
+                self._live_dev_map, seg)
+        return dev
+
+    def _live_segment_for(self, queries, with_positions: bool) -> Segment:
+        """The tail's mini segment over the terms of ``queries`` (memoized
+        per term set)."""
+        hs = [h for q in queries for h in live_mod.query_term_hashes(q)]
+        key = (tuple(sorted(set(hs))), with_positions)
+        seg = self._live_segs.get(key)
+        if seg is None:
+            seg = self._live_segs[key] = live_mod.materialize_segment(
+                self._live, key[0], with_positions=key[1], base_doc=self._live_base)
+        return seg
 
     # -- stats ----------------------------------------------------------------
     def doc_freq(self, q: TermQuery) -> int:
@@ -151,6 +203,8 @@ class Searcher:
                 i = seg.term_slot(th)
                 if i >= 0:
                     df += int(seg.term_df[i])
+            if self._live is not None:
+                df += self._live.df(th)  # raw, like term_df (deleted incl.)
             self._df_cache[th] = df
         return df
 
@@ -169,13 +223,25 @@ class Searcher:
         plan = plan_batch(queries)
         results: List[Optional[TopDocs]] = [None] * plan.n_queries
         for group in plan.groups:
-            for qi, td in zip(group.indices, execute_group(self, group, k)):
+            for qi, td in zip(group.indices, self.execute_group(group, k)):
                 results[qi] = td
         return results  # type: ignore[return-value]
 
+    def execute_group(self, group, k: int) -> List[TopDocs]:
+        """One planned family group: committed segments, plus the live tail
+        when this view holds one (``query.live.run_group``)."""
+        if self._live is None:
+            return execute_group(self, group, k)
+        return live_mod.run_group(self, group, k)
+
     def search_single(self, query: Query, k: int = 10) -> TopDocs:
         """The sequential per-query path (one call per segment, heapq merge
-        on the host): the oracle the batched executors are held to."""
+        on the host): the oracle the batched executors are held to.  With a
+        live tail its mini segment is one more segment of the walk."""
+        if self._live is not None:
+            lseg = self._live_segment_for([query], isinstance(query, PhraseQuery))
+            view = live_mod._CombinedView(self, list(self.segments) + [lseg], self.fused)
+            return view.search_single(query, k)
         if isinstance(query, TermQuery):
             return self._search_term(query, k)
         if isinstance(query, BooleanQuery):
@@ -377,7 +443,8 @@ class Searcher:
         if self.fused:
             qvec = query_vectors(self, [q.vector], 1, vk.pad_dim(q.dim))
             return self._single_rows(
-                lambda i, seg: vector_segment(self, seg, qvec, k, cosine, q.dim), k)
+                lambda i, seg: vector_segment(self, seg, qvec, k, cosine, q.dim,
+                                              unfused=True), k)
         qvec = query_vectors(self, [q.vector], 1, q.dim)
         return self._single_rows(
             lambda i, seg: _vector_core(_seg_vector(self, seg),
@@ -397,7 +464,8 @@ class Searcher:
             coords = hybrid_coords(self, segs, [q.term], 0) if segs else None
             return self._single_rows(
                 lambda i, seg: hybrid_segment(self, seg, coords[i, 0], coords[i, 1], idfs,
-                                              alphas, qvec, k, cosine, q.vector.dim), k)
+                                              alphas, qvec, k, cosine, q.vector.dim,
+                                              unfused=True), k)
         qvec = query_vectors(self, [q.vector.vector], 1, q.vector.dim)
 
         def eager(i, seg):

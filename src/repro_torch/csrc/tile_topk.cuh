@@ -43,13 +43,16 @@ __device__ __forceinline__ bool beats(float av, int ap, float bv, int bp) {
 // idf * (tf * (k1 + 1)) / fma(k1, (1 - b) + (b * dl) / avgdl, tf): every
 // step IEEE round-to-nearest, and the one fused multiply-add that XLA:CPU
 // puts in the reference's bm25 (the library is built with -fmad=false, so
-// nvcc adds no other)
+// nvcc adds no other).  strict: tf + k1 * x in two roundings, as XLA:CPU
+// computes the reference's unfused bm25 over a one-document segment
+// (repro_torch/kernels/term_topk.py::one_doc)
 __device__ __forceinline__ float bm25_score(int tf_i, int dl_i, float idf,
-                                            float avgdl, float k1, float b) {
+                                            float avgdl, float k1, float b,
+                                            bool strict = false) {
   const float tf = __int2float_rn(tf_i);
   const float dl = __int2float_rn(dl_i);
   const float x = __fadd_rn(__fsub_rn(1.0f, b), __fdiv_rn(__fmul_rn(b, dl), avgdl));
-  const float denom = __fmaf_rn(k1, x, tf);
+  const float denom = strict ? __fadd_rn(tf, __fmul_rn(k1, x)) : __fmaf_rn(k1, x, tf);
   const float num = __fmul_rn(idf, __fmul_rn(tf, __fadd_rn(k1, 1.0f)));
   return __fdiv_rn(num, denom);
 }

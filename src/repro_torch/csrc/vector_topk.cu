@@ -46,7 +46,11 @@
 //     l < 8 of warp w; then __fsqrt_rn, __fmul_rn and __fdiv_rn, 0 where
 //     den <= 0.  Every step is IEEE round-to-nearest: the library is built
 //     with -fmad=false and the only fused multiply-adds are the explicit
-//     ones.
+//     ones.  At 5-8 components the callers that stand for the reference's
+//     unfused route ask for strict norms (each square rounded, then
+//     added): doc rows below strict_rows, and every query row under flag
+//     bit 0 -- what XLA:CPU computes there (repro_torch/kernels/
+//     vector_topk.py::strict_norm_rows).  Flag bit 1: strict BM25.
 //   * Hybrid: two binary searches a row find its postings among the
 //     block's docs while the first copies fly; after the component loop
 //     the one-FMA BM25 of those postings goes into the freed ring (dense
@@ -98,11 +102,23 @@ __device__ __forceinline__ void fma4(float& acc, const float4 v, const float4 q)
   acc = __fmaf_rn(v.w, q.w, acc);
 }
 
+// one step of a norm chain: fma(x, x, acc), or strict: acc + round(x * x)
+__device__ __forceinline__ float sq_step(float acc, float x, bool strict) {
+  return strict ? __fadd_rn(acc, __fmul_rn(x, x)) : __fmaf_rn(x, x, acc);
+}
+
+__device__ __forceinline__ void sq4(float& acc, const float4 v, bool strict) {
+  acc = sq_step(acc, v.x, strict);
+  acc = sq_step(acc, v.y, strict);
+  acc = sq_step(acc, v.z, strict);
+  acc = sq_step(acc, v.w, strict);
+}
+
 template <bool HYBRID>
 __global__ void __launch_bounds__(VTHREADS, 3) vector_score_kernel(
     const float* __restrict__ vmat, int d_pad, int dim,
     const float* __restrict__ qvecs, const int* __restrict__ doc_words,
-    int cosine, const int* __restrict__ csr_docs,
+    int cosine, int strict_rows, int flags, const int* __restrict__ csr_docs,
     const int* __restrict__ csr_freqs, const int* __restrict__ starts,
     const int* __restrict__ lengths, const float* __restrict__ idfs,
     const float* __restrict__ alphas, float avgdl, float k1, float b,
@@ -165,6 +181,9 @@ __global__ void __launch_bounds__(VTHREADS, 3) vector_score_kernel(
   const bool active = row0 + warp * RT < n_rows;  // warp-uniform
   const int qrow = warp * RT + (lane & (RT - 1));
   const int vdoc = (lane + 32 * warp) * VPITCH;
+  const bool narrow = dim >= 5 && dim <= 8;  // strict norms apply only here
+  const bool vstrict = narrow && base + lane + 32 * warp < strict_rows;
+  const bool qstrict = narrow && (flags & 1);
 
   for (int st = 0; st < n_stages; ++st) {
     cp_async_wait<VSTAGES - 2>();  // this thread's copies of stage st landed
@@ -177,9 +196,9 @@ __global__ void __launch_bounds__(VTHREADS, 3) vector_score_kernel(
     if (cosine) {  // every warp, one doc a thread: the doc norms
       for (int jj = 0; jj < nq; jj += 4) {
         const float4 v4 = *reinterpret_cast<const float4*>(vs + vdoc + jj);
-        fma4(vv, v4, v4);
+        sq4(vv, v4, vstrict);
       }
-      for (int jj = nq; jj < n; ++jj) vv = __fmaf_rn(vs[vdoc + jj], vs[vdoc + jj], vv);
+      for (int jj = nq; jj < n; ++jj) vv = sq_step(vv, vs[vdoc + jj], vstrict);
     }
     if (!active) continue;
     #pragma unroll 4
@@ -196,7 +215,7 @@ __global__ void __launch_bounds__(VTHREADS, 3) vector_score_kernel(
       }
       if (cosine && lane < RT) {
         const float4 q4 = *reinterpret_cast<const float4*>(qs + qrow * KC + jj);
-        fma4(qq, q4, q4);
+        sq4(qq, q4, qstrict);
       }
     }
     for (int jj = nq; jj < n; ++jj) {  // the last 1-3 components of dim
@@ -210,8 +229,7 @@ __global__ void __launch_bounds__(VTHREADS, 3) vector_score_kernel(
         for (int i = 0; i < DT; ++i) acc[r][i] = __fmaf_rn(v[i], q, acc[r][i]);
       }
       if (cosine && lane < RT) {
-        const float x = qs[qrow * KC + jj];
-        qq = __fmaf_rn(x, x, qq);
+        qq = sq_step(qq, qs[qrow * KC + jj], qstrict);
       }
     }
   }
@@ -237,7 +255,8 @@ __global__ void __launch_bounds__(VTHREADS, 3) vector_score_kernel(
         const int f = freqs[i];
         if (f > 0) {
           const int d = docs[i];
-          sc[rr * VDOCS + d - base] = bm25_score(f, doc_words[d] >> 1, idf, avgdl, k1, b);
+          sc[rr * VDOCS + d - base] =
+              bm25_score(f, doc_words[d] >> 1, idf, avgdl, k1, b, flags & 2);
         }
       }
     }
@@ -325,7 +344,8 @@ __global__ void __launch_bounds__(THREADS) tile_select_kernel(
 
 template <bool HYBRID>
 static int launch(const float* vmat, int d_pad, int dim, const float* qvecs,
-                  const int* doc_words, int cosine, const int* csr_docs,
+                  const int* doc_words, int cosine, int strict_rows, int flags,
+                  const int* csr_docs,
                   const int* csr_freqs, const int* starts, const int* lengths,
                   const float* idfs, const float* alphas, float avgdl,
                   float k1, float b, int n_rows, int n_tiles, int k,
@@ -340,7 +360,8 @@ static int launch(const float* vmat, int d_pad, int dim, const float* qvecs,
   // row groups fastest: the blocks that read one doc range run together
   const dim3 grid((n_rows + VROWS - 1) / VROWS, n_tiles * (TILE / VDOCS));
   vector_score_kernel<HYBRID><<<grid, VTHREADS, smem, s>>>(
-      vmat, d_pad, dim, qvecs, doc_words, cosine, csr_docs, csr_freqs, starts,
+      vmat, d_pad, dim, qvecs, doc_words, cosine, strict_rows, flags, csr_docs,
+      csr_freqs, starts,
       lengths, idfs, alphas, avgdl, k1, b, n_rows, n_tiles, scores, out_cnt);
   err = cudaGetLastError();
   if (err != cudaSuccess || out_vals == nullptr) return (int)err;
@@ -358,47 +379,52 @@ int vector_dim_align() { return DIM_ALIGN; }
 // top-k mode: scores (n_rows, n_tiles * TILE) float32 scratch that the
 // score pass fills and the select launch reads
 int vector_topk(const float* vmat, int d_pad, int dim, const float* qvecs,
-                const int* live, int cosine, int n_rows, int n_tiles, int k,
-                float* scores, float* out_vals, int* out_ids, int* out_cnt,
-                void* stream) {
-  return launch<false>(vmat, d_pad, dim, qvecs, live, cosine, nullptr, nullptr,
+                const int* live, int cosine, int strict_rows, int flags, int n_rows,
+                int n_tiles, int k, float* scores, float* out_vals, int* out_ids,
+                int* out_cnt, void* stream) {
+  return launch<false>(vmat, d_pad, dim, qvecs, live, cosine, strict_rows, flags,
+                       nullptr, nullptr,
                        nullptr, nullptr, nullptr, nullptr, 0.0f, 0.0f, 0.0f,
                        n_rows, n_tiles, k, scores, out_vals, out_ids, out_cnt,
                        stream);
 }
 
 int hybrid_topk(const float* vmat, int d_pad, int dim, const float* qvecs,
-                const int* dl_live, int cosine, const int* csr_docs,
+                const int* dl_live, int cosine, int strict_rows, int flags,
+                const int* csr_docs,
                 const int* csr_freqs, const int* starts, const int* lengths,
                 const float* idfs, const float* alphas, float avgdl, float k1,
                 float b, int n_rows, int n_tiles, int k, float* scores,
                 float* out_vals, int* out_ids, int* out_cnt, void* stream) {
-  return launch<true>(vmat, d_pad, dim, qvecs, dl_live, cosine, csr_docs,
-                      csr_freqs, starts, lengths, idfs, alphas, avgdl, k1, b,
-                      n_rows, n_tiles, k, scores, out_vals, out_ids, out_cnt,
-                      stream);
+  return launch<true>(vmat, d_pad, dim, qvecs, dl_live, cosine, strict_rows, flags,
+                      csr_docs, csr_freqs, starts, lengths, idfs, alphas, avgdl,
+                      k1, b, n_rows, n_tiles, k, scores, out_vals, out_ids,
+                      out_cnt, stream);
 }
 
 // scores mode: out_scores (n_rows, n_tiles * TILE) float32, out_cnt as above
 int vector_score_rows(const float* vmat, int d_pad, int dim, const float* qvecs,
-                      const int* live, int cosine, int n_rows, int n_tiles,
-                      float* out_scores, int* out_cnt, void* stream) {
-  return launch<false>(vmat, d_pad, dim, qvecs, live, cosine, nullptr, nullptr,
+                      const int* live, int cosine, int strict_rows, int flags,
+                      int n_rows, int n_tiles, float* out_scores, int* out_cnt,
+                      void* stream) {
+  return launch<false>(vmat, d_pad, dim, qvecs, live, cosine, strict_rows, flags,
+                       nullptr, nullptr,
                        nullptr, nullptr, nullptr, nullptr, 0.0f, 0.0f, 0.0f,
                        n_rows, n_tiles, 0, out_scores, nullptr, nullptr, out_cnt,
                        stream);
 }
 
 int hybrid_score_rows(const float* vmat, int d_pad, int dim, const float* qvecs,
-                      const int* dl_live, int cosine, const int* csr_docs,
+                      const int* dl_live, int cosine, int strict_rows, int flags,
+                      const int* csr_docs,
                       const int* csr_freqs, const int* starts, const int* lengths,
                       const float* idfs, const float* alphas, float avgdl,
                       float k1, float b, int n_rows, int n_tiles,
                       float* out_scores, int* out_cnt, void* stream) {
-  return launch<true>(vmat, d_pad, dim, qvecs, dl_live, cosine, csr_docs,
-                      csr_freqs, starts, lengths, idfs, alphas, avgdl, k1, b,
-                      n_rows, n_tiles, 0, out_scores, nullptr, nullptr, out_cnt,
-                      stream);
+  return launch<true>(vmat, d_pad, dim, qvecs, dl_live, cosine, strict_rows, flags,
+                      csr_docs, csr_freqs, starts, lengths, idfs, alphas, avgdl,
+                      k1, b, n_rows, n_tiles, 0, out_scores, nullptr, nullptr,
+                      out_cnt, stream);
 }
 
 }  // extern "C"

@@ -213,17 +213,18 @@ def grid_blocks(kind: str, n_items: int, dev: torch.device, smem: int = 0) -> in
 
 
 def bool_dense(docs, freqs, idfs, doc_lens, live, avgdl, k1, b,
-               conjunctive: bool, n_terms: int):
+               conjunctive: bool, n_terms: int, strict: bool = False):
     """Boolean scores over a segment's doc space.
 
     docs/freqs: (B, T, P) postings rows (freq 0 = padding); idfs: (B, T)
     float32; doc_lens: (ND,) int; live: (ND,) bool; avgdl/k1/b: 0-d float32.
     Returns (score (B, ND) float32, -inf where the doc fails the filter;
     ok (B, ND) bool): AND keeps docs that all T terms hit, OR docs that any
-    term hits, and both keep only live docs."""
+    term hits, and both keep only live docs.  ``strict``: BM25 without its
+    fused multiply-add (``term_topk.one_doc``)."""
     bsz, nd = docs.shape[0], doc_lens.shape[0]
     d = docs.long()
-    score = bm25(freqs, doc_lens[d], idfs[..., None], avgdl, k1, b)
+    score = bm25(freqs, doc_lens[d], idfs[..., None], avgdl, k1, b, strict)
     valid = freqs > 0
     # padding lanes go to a spill column past the doc space, dropped below
     d = torch.where(valid, d, nd)

@@ -165,11 +165,11 @@ def library() -> ctypes.CDLL:
                 "doc_topk_layout": [i32],
                 "range_topk": [vp] * 4 + [i32] * 4 + [vp] * 4,
                 "facet_hist": [vp] * 6 + [i32] * 5 + [vp] * 4,
-                "vector_topk": [vp, i32, i32, vp, vp] + [i32] * 4 + [vp] * 5,
-                "hybrid_topk": ([vp, i32, i32, vp, vp, i32] + [vp] * 6
+                "vector_topk": [vp, i32, i32, vp, vp] + [i32] * 6 + [vp] * 5,
+                "hybrid_topk": ([vp, i32, i32, vp, vp] + [i32] * 3 + [vp] * 6
                                 + [f32] * 3 + [i32] * 3 + [vp] * 5),
-                "vector_score_rows": [vp, i32, i32, vp, vp] + [i32] * 3 + [vp] * 3,
-                "hybrid_score_rows": ([vp, i32, i32, vp, vp, i32] + [vp] * 6
+                "vector_score_rows": [vp, i32, i32, vp, vp] + [i32] * 5 + [vp] * 3,
+                "hybrid_score_rows": ([vp, i32, i32, vp, vp] + [i32] * 3 + [vp] * 6
                                       + [f32] * 3 + [i32] * 2 + [vp] * 3),
                 "bitset_combine": [vp, i32, ctypes.c_longlong, i32, i32] + [vp] * 5,
                 "bitset_blocks_per_sm": [],

@@ -88,13 +88,25 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return s.float()
 
 
-def bm25(tf, dl, idf, avgdl, k1, b):
+def bm25(tf, dl, idf, avgdl, k1, b, strict: bool = False):
     """Float32 BM25 of int tf/dl; ``idf``, ``avgdl``, ``k1``, ``b`` are
-    float32 tensors on the same device (0-d or broadcastable)."""
+    float32 tensors on the same device (0-d or broadcastable).  ``strict``
+    rounds ``tf + k1 * x`` in two steps instead of the one fused
+    multiply-add (see ``one_doc``)."""
     tf = tf.float()
     dl = dl.float()
     x = (1.0 - b) + (b * dl) / avgdl
-    return idf * (tf * (k1 + 1.0)) / fma_f32(k1, x, tf)
+    denom = tf + k1 * x if strict else fma_f32(k1, x, tf)
+    return idf * (tf * (k1 + 1.0)) / denom
+
+
+def one_doc(doc_lens) -> bool:
+    """Does the reference's unfused BM25 run strict over this doc-length
+    column?  XLA:CPU contracts ``tf + k1 * x`` into one fused multiply-add
+    except where the gathered ``doc_lens`` has a single entry -- a segment
+    of one document (a live tail's mini segment pads it to 8 or more).
+    Its Pallas routes read the tiled column and always contract."""
+    return doc_lens.shape[0] == 1
 
 
 def scalars(device, *values) -> Tuple[torch.Tensor, ...]:
@@ -406,6 +418,7 @@ __all__ = [
     "reset_launches",
     "fma_f32",
     "bm25",
+    "one_doc",
     "scalars",
     "csr_rows",
     "csr_rows_scored",

@@ -34,11 +34,16 @@ and the oracle share one definition:
     cosine norms are chains of the same kind, then ``sqrt(vv) * sqrt(qq)``
     and ``dot / den``, 0 where ``den <= 0`` (vectorless docs are zero rows).
     Up to 32 components this is what XLA:CPU computes for the JAX package's
-    ``_similarity``, bit for bit; above 32 XLA vectorises the reduction in
-    another order and the two agree within the error bound stated in
+    ``_similarity``, bit for bit, except the cosine norms at 5-8
+    components, which its jnp route sums strictly on most rows
+    (``strict_norm_rows``: the callers that stand for that route ask for
+    it); above 32 XLA vectorises the reduction in another order and the
+    two agree within the error bound stated in
     ``tests/test_torch_vectors.py``;
   * a hybrid score blends ``t = s/(s+1)``, with ``s`` the one-FMA BM25 of
-    the row's term (0 where the doc lacks it), and ``vnorm(c)``, with one
+    the row's term (0 where the doc lacks it; ``strict_bm25``: without the
+    FMA, as the reference's jnp core over a one-document segment), and
+    ``vnorm(c)``, with one
     fused multiply-add where XLA:CPU puts it in the reference's blend
     ``a*t + (1-a)*vnorm``: ``fma(a, t, (1-a) * (c/(1+|c|)))`` for dot and
     ``fma(1-a, (c+1)*0.5, a*t)`` for cosine.
@@ -108,11 +113,33 @@ def pad_dim(dim: int) -> int:
 # ---------------------------------------------------------------------------
 
 
-def similarity(vmat, qvecs, cosine: bool, dim: int = None):
+#: component counts at which the reference's unfused route (its jnp
+#: cores, which XLA:CPU compiles) sums cosine norms without fused
+#: multiply-adds on some rows; see ``strict_norm_rows``
+STRICT_NORM_DIMS = range(5, 9)
+
+
+def strict_norm_rows(n_docs: int) -> int:
+    """Doc rows of an (n_docs, d) vector column whose cosine norm the
+    reference's unfused route sums strictly (each square rounded, then
+    added) at d in ``STRICT_NORM_DIMS``: the rows of XLA:CPU's whole 8-row
+    vector steps; the last ``n_docs % 8`` rows take the FMA chain.  Its
+    query norm is strict in a batch of two or more rows and an FMA chain
+    in a batch of one.  (Measured on the CPU; the rule holds on most
+    shapes, not all: ROADMAP.md, faults of the reference.)  The
+    reference's Pallas route takes FMA chains at every d."""
+    return n_docs - n_docs % 8
+
+
+def similarity(vmat, qvecs, cosine: bool, dim: int = None, strict_rows: int = 0,
+               strict_q: bool = False):
     """(B, ND) float32 similarities of every row of ``vmat`` (ND, >= dim)
     against every row of ``qvecs`` (B, >= dim), over the first ``dim``
     components: sequential float32 FMA chains from 0.0 (see the module
-    docstring).  Both norm chains of a cosine run in one pass."""
+    docstring).  Both norm chains of a cosine run in one pass.  At
+    ``dim`` in ``STRICT_NORM_DIMS`` the norms of doc rows below
+    ``strict_rows``, and with ``strict_q`` the query norms, are strict
+    sums instead (``strict_norm_rows``)."""
     dim = vmat.shape[1] if dim is None else dim
     # component-major float64 copies (exact): step j reads one contiguous row
     vt = vmat[:, :dim].double().t().contiguous()  # (dim, ND)
@@ -122,10 +149,16 @@ def similarity(vmat, qvecs, cosine: bool, dim: int = None):
     if cosine:
         both = torch.cat([vt, qt], dim=1)  # (dim, ND + B): vv and qq chains
         norms = torch.zeros(nd + nb, dtype=torch.float32, device=vmat.device)
+        strict = torch.zeros(nd + nb, dtype=torch.bool, device=vmat.device)
+        if dim in STRICT_NORM_DIMS:
+            strict[:min(strict_rows, nd)] = True
+            strict[nd:] = strict_q
     for j in range(dim):
         dot = fma_f32(qt[j][:, None], vt[j][None, :], dot)
         if cosine:
-            norms = fma_f32(both[j], both[j], norms)
+            # float64 squares of float32 values are exact: .float() rounds once
+            norms = torch.where(strict, norms + (both[j] * both[j]).float(),
+                                fma_f32(both[j], both[j], norms))
     if not cosine:
         return dot
     # sqrt in float64, then rounded: the correctly rounded float32 sqrt
@@ -135,15 +168,15 @@ def similarity(vmat, qvecs, cosine: bool, dim: int = None):
     return torch.where(den > 0, dot / den, 0.0)
 
 
-def hybrid_dense(docs, freqs, idfs, doc_lens, avgdl, k1, b):
+def hybrid_dense(docs, freqs, idfs, doc_lens, avgdl, k1, b, strict: bool = False):
     """(B, ND) float32 dense BM25 of one term per row: ``docs``/``freqs``
     (B, P) postings rows (freq 0 = padding), ``idfs`` (B,) float32,
     ``doc_lens`` (ND,).  A doc's score is added onto 0.0 (docs are unique in
     a row); docs without the term score 0.  ``avgdl``/``k1``/``b`` are 0-d
-    float32."""
+    float32; ``strict``: BM25 without its fused multiply-add."""
     nd = doc_lens.shape[0]
     d = docs.long()
-    s = bm25(freqs, doc_lens[d], idfs[:, None], avgdl, k1, b)
+    s = bm25(freqs, doc_lens[d], idfs[:, None], avgdl, k1, b, strict)
     valid = freqs > 0
     # padding lanes go to a spill column past the doc space, dropped below
     d = torch.where(valid, d, nd)
@@ -171,35 +204,49 @@ def _live_tiles(live, rows: int):
     return _tile_counts((live > 0)[None].expand(rows, -1).contiguous())
 
 
-def vector_score_rows_plain(vmat, live, qvecs, cosine: bool, dim: int):
-    score = torch.where(live > 0, similarity(vmat, qvecs, cosine, dim), -torch.inf)
+def vector_score_rows_plain(vmat, live, qvecs, cosine: bool, dim: int,
+                            strict_rows: int = 0, strict_q: bool = False):
+    sims = similarity(vmat, qvecs, cosine, dim, strict_rows, strict_q)
+    score = torch.where(live > 0, sims, -torch.inf)
     return score, _live_tiles(live, qvecs.shape[0])
 
 
 def hybrid_score_rows_plain(csr_docs, csr_freqs, dl_live, starts, lengths, idfs,
                             avgdl, k1, b, vmat, qvecs, alphas, cosine: bool,
-                            dim: int):
+                            dim: int, strict_rows: int = 0, strict_q: bool = False,
+                            strict_bm25: bool = False):
     p = max(int(lengths.max()), 1) if lengths.numel() else 1
     docs, freqs = csr_rows(csr_docs, csr_freqs, starts, lengths, p)
     avgdl, k1, b = scalars(csr_docs.device, avgdl, k1, b)
-    dense = hybrid_dense(docs, freqs, idfs, dl_live >> 1, avgdl, k1, b)
-    score = hybrid_scores(dense, similarity(vmat, qvecs, cosine, dim), alphas, cosine)
-    score = torch.where((dl_live & 1) > 0, score, -torch.inf)
+    dense = hybrid_dense(docs, freqs, idfs, dl_live >> 1, avgdl, k1, b, strict_bm25)
+    sims = similarity(vmat, qvecs, cosine, dim, strict_rows, strict_q)
+    score = torch.where((dl_live & 1) > 0, hybrid_scores(dense, sims, alphas, cosine),
+                        -torch.inf)
     return score, _live_tiles(dl_live & 1, qvecs.shape[0])
 
 
-def vector_topk_tiles_plain(vmat, live, qvecs, k: int, cosine: bool, dim: int):
-    score, cnt = vector_score_rows_plain(vmat, live, qvecs, cosine, dim)
+def vector_topk_tiles_plain(vmat, live, qvecs, k: int, cosine: bool, dim: int,
+                            strict_rows: int = 0, strict_q: bool = False):
+    score, cnt = vector_score_rows_plain(vmat, live, qvecs, cosine, dim,
+                                         strict_rows, strict_q)
     return (*_doc_tiles_topk(score, k), cnt)
 
 
 def hybrid_topk_tiles_plain(csr_docs, csr_freqs, dl_live, starts, lengths, idfs,
                             avgdl, k1, b, vmat, qvecs, alphas, k: int,
-                            cosine: bool, dim: int):
+                            cosine: bool, dim: int, strict_rows: int = 0,
+                            strict_q: bool = False, strict_bm25: bool = False):
     score, cnt = hybrid_score_rows_plain(csr_docs, csr_freqs, dl_live, starts,
                                          lengths, idfs, avgdl, k1, b, vmat,
-                                         qvecs, alphas, cosine, dim)
+                                         qvecs, alphas, cosine, dim, strict_rows,
+                                         strict_q, strict_bm25)
     return (*_doc_tiles_topk(score, k), cnt)
+
+
+def _flags(strict_q: bool, strict_bm25: bool = False) -> int:
+    """The kernels' ``flags`` word: bit 0 strict query norms, bit 1 strict
+    BM25."""
+    return int(strict_q) | int(strict_bm25) << 1
 
 
 # ---------------------------------------------------------------------------
@@ -282,73 +329,83 @@ def _check_hybrid_args(csr_docs, csr_freqs, dl_live, starts, lengths, idfs,
     return n_tiles
 
 
-def vector_topk_tiles(vmat, live, qvecs, k: int, cosine: bool, dim: int):
+def vector_topk_tiles(vmat, live, qvecs, k: int, cosine: bool, dim: int,
+                      strict_rows: int = 0, strict_q: bool = False):
     """Per-tile top-k of B query vectors over a segment's vector column.
 
     vmat: (ND_pad, D_pad) float32; live: (ND_pad,) int32; qvecs: (B, D_pad)
-    float32; ``dim``: the components that count (the rest are zeros).
+    float32; ``dim``: the components that count (the rest are zeros);
+    ``strict_rows``/``strict_q``: ``similarity``'s strict norms.
     Returns (vals (B, ND_pad/TILE, k) float32 similarities, ids
     segment-local doc ids, cnt (B, ND_pad/TILE) live docs per tile)."""
     n_tiles = _check_vector_args(vmat, live, qvecs, dim)
     check_k(k)
     if vmat.device.type == "cpu":
-        return vector_topk_tiles_plain(vmat, live, qvecs, k, cosine, dim)
+        return vector_topk_tiles_plain(vmat, live, qvecs, k, cosine, dim,
+                                       strict_rows, strict_q)
     rows = qvecs.shape[0]
     scratch, vals, ids, cnt = _winners(rows, n_tiles, k, vmat.device)
     _launch("vector_topk", vals, vmat.data_ptr(), vmat.shape[1], dim,
-            qvecs.data_ptr(), live.data_ptr(), int(cosine), rows, n_tiles, k,
-            scratch.data_ptr(), vals.data_ptr(), ids.data_ptr(), cnt.data_ptr())
+            qvecs.data_ptr(), live.data_ptr(), int(cosine), strict_rows,
+            _flags(strict_q), rows, n_tiles, k, scratch.data_ptr(), vals.data_ptr(),
+            ids.data_ptr(), cnt.data_ptr())
     return vals, ids, cnt
 
 
-def vector_score_rows(vmat, live, qvecs, cosine: bool, dim: int):
+def vector_score_rows(vmat, live, qvecs, cosine: bool, dim: int,
+                      strict_rows: int = 0, strict_q: bool = False):
     """Scores mode of ``vector_topk_tiles``: (scores (B, ND_pad) float32,
     -inf for dead and padded docs; cnt (B, ND_pad/TILE) live docs per
     tile)."""
     n_tiles = _check_vector_args(vmat, live, qvecs, dim)
     if vmat.device.type == "cpu":
-        return vector_score_rows_plain(vmat, live, qvecs, cosine, dim)
+        return vector_score_rows_plain(vmat, live, qvecs, cosine, dim,
+                                       strict_rows, strict_q)
     rows = qvecs.shape[0]
     scores = torch.empty((rows, vmat.shape[0]), dtype=torch.float32, device=vmat.device)
     cnt = torch.empty((rows, n_tiles), dtype=torch.int32, device=vmat.device)
     _launch("vector_score_rows", scores, vmat.data_ptr(), vmat.shape[1], dim,
-            qvecs.data_ptr(), live.data_ptr(), int(cosine), rows, n_tiles,
-            scores.data_ptr(), cnt.data_ptr())
+            qvecs.data_ptr(), live.data_ptr(), int(cosine), strict_rows,
+            _flags(strict_q), rows, n_tiles, scores.data_ptr(), cnt.data_ptr())
     return scores, cnt
 
 
 def hybrid_topk_tiles(csr_docs, csr_freqs, dl_live, starts, lengths, idfs,
                       avgdl: float, k1: float, b: float, vmat, qvecs, alphas,
-                      k: int, cosine: bool, dim: int):
+                      k: int, cosine: bool, dim: int, strict_rows: int = 0,
+                      strict_q: bool = False, strict_bm25: bool = False):
     """Per-tile top-k of B hybrid queries (one term + one vector each).
 
     csr_docs/csr_freqs: (nnz_pad,) int32 CSR postings, doc-sorted per row;
     dl_live: (ND_pad,) int32 packed ``(doc_len << 1) | live``; starts/
     lengths: (B,) int32 row coordinates ((0, 0) where the term is absent);
-    idfs/alphas: (B,) float32; vmat/qvecs/dim as ``vector_topk_tiles``.
-    Returns (vals (B, ND_pad/TILE, k) float32 blended scores, ids, cnt live
-    docs per tile)."""
+    idfs/alphas: (B,) float32; vmat/qvecs/dim/strict_rows/strict_q as
+    ``vector_topk_tiles``; ``strict_bm25``: BM25 without its fused
+    multiply-add (``term_topk.one_doc``).  Returns (vals (B, ND_pad/TILE,
+    k) float32 blended scores, ids, cnt live docs per tile)."""
     n_tiles = _check_hybrid_args(csr_docs, csr_freqs, dl_live, starts, lengths,
                                  idfs, vmat, qvecs, alphas, dim)
     check_k(k)
     if vmat.device.type == "cpu":
         return hybrid_topk_tiles_plain(csr_docs, csr_freqs, dl_live, starts,
                                        lengths, idfs, avgdl, k1, b, vmat,
-                                       qvecs, alphas, k, cosine, dim)
+                                       qvecs, alphas, k, cosine, dim, strict_rows,
+                                       strict_q, strict_bm25)
     rows = qvecs.shape[0]
     scratch, vals, ids, cnt = _winners(rows, n_tiles, k, vmat.device)
     _launch("hybrid_topk", vals, vmat.data_ptr(), vmat.shape[1], dim,
-            qvecs.data_ptr(), dl_live.data_ptr(), int(cosine),
-            csr_docs.data_ptr(), csr_freqs.data_ptr(), starts.data_ptr(),
-            lengths.data_ptr(), idfs.data_ptr(), alphas.data_ptr(), avgdl, k1,
-            b, rows, n_tiles, k, scratch.data_ptr(), vals.data_ptr(), ids.data_ptr(),
-            cnt.data_ptr())
+            qvecs.data_ptr(), dl_live.data_ptr(), int(cosine), strict_rows,
+            _flags(strict_q, strict_bm25), csr_docs.data_ptr(), csr_freqs.data_ptr(),
+            starts.data_ptr(), lengths.data_ptr(), idfs.data_ptr(), alphas.data_ptr(),
+            avgdl, k1, b, rows, n_tiles, k, scratch.data_ptr(), vals.data_ptr(),
+            ids.data_ptr(), cnt.data_ptr())
     return vals, ids, cnt
 
 
 def hybrid_score_rows(csr_docs, csr_freqs, dl_live, starts, lengths, idfs,
                       avgdl: float, k1: float, b: float, vmat, qvecs, alphas,
-                      cosine: bool, dim: int):
+                      cosine: bool, dim: int, strict_rows: int = 0,
+                      strict_q: bool = False, strict_bm25: bool = False):
     """Scores mode of ``hybrid_topk_tiles``: (scores (B, ND_pad) float32
     blended scores, -inf for dead and padded docs; cnt live docs per
     tile)."""
@@ -357,15 +414,16 @@ def hybrid_score_rows(csr_docs, csr_freqs, dl_live, starts, lengths, idfs,
     if vmat.device.type == "cpu":
         return hybrid_score_rows_plain(csr_docs, csr_freqs, dl_live, starts,
                                        lengths, idfs, avgdl, k1, b, vmat,
-                                       qvecs, alphas, cosine, dim)
+                                       qvecs, alphas, cosine, dim, strict_rows,
+                                       strict_q, strict_bm25)
     rows = qvecs.shape[0]
     scores = torch.empty((rows, vmat.shape[0]), dtype=torch.float32, device=vmat.device)
     cnt = torch.empty((rows, n_tiles), dtype=torch.int32, device=vmat.device)
     _launch("hybrid_score_rows", scores, vmat.data_ptr(), vmat.shape[1], dim,
-            qvecs.data_ptr(), dl_live.data_ptr(), int(cosine),
-            csr_docs.data_ptr(), csr_freqs.data_ptr(), starts.data_ptr(),
-            lengths.data_ptr(), idfs.data_ptr(), alphas.data_ptr(), avgdl, k1,
-            b, rows, n_tiles, scores.data_ptr(), cnt.data_ptr())
+            qvecs.data_ptr(), dl_live.data_ptr(), int(cosine), strict_rows,
+            _flags(strict_q, strict_bm25), csr_docs.data_ptr(), csr_freqs.data_ptr(),
+            starts.data_ptr(), lengths.data_ptr(), idfs.data_ptr(), alphas.data_ptr(),
+            avgdl, k1, b, rows, n_tiles, scores.data_ptr(), cnt.data_ptr())
     return scores, cnt
 
 
@@ -376,6 +434,8 @@ __all__ = [
     "launches",
     "reset_launches",
     "pad_dim",
+    "STRICT_NORM_DIMS",
+    "strict_norm_rows",
     "similarity",
     "hybrid_dense",
     "hybrid_scores",

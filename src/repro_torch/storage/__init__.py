@@ -9,8 +9,9 @@ The paper's two access paths:
   - the **byte path**: load/store directly into a ``PersistentHeap``
     (the paper's proposed future work), ``ByteAddressableDirectory``.
 
-The write-ahead log and the live buffer index come with ROADMAP queue 1,
-item 11.
+Inside the heap the byte path also keeps the write-ahead ingest log
+(``wal.HeapWAL``: ack = one record + one barrier) and the live buffer index
+(``live_index.LiveIndex``: the acked tail, searchable before a flush).
 """
 
 from repro_torch.storage.device_model import DEVICE_MODELS, DRAM, PMEM, SSD, DeviceModel

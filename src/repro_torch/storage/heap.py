@@ -14,11 +14,11 @@ Layout (all little-endian):
              durable as of the last barrier; this is the "commit point".
     [16:24)  bump-allocator tail (uint64)
     [24:32)  WAL head (uint64) -- heap offset of the newest durable
-             write-ahead-log record (0 = none).  The port writes no WAL
-             yet (ROADMAP queue 1, item 11): ``barrier`` publishes the
-             word only when asked to.
-    [32:40)  live-index root (uint64) -- published by the same barrier as
-             the WAL head (0 = none).
+             write-ahead-log record (0 = none); see ``storage.wal``.
+    [32:40)  live-index root (uint64) -- heap offset of the newest durable
+             live-buffer-index root block (0 = none); see
+             ``storage.live_index``.  Published by the same barrier as the
+             WAL head, so an ack stays one barrier.
     [40:64)  reserved
     [64:...) allocations, each 64-byte aligned:
              [dtype code u32][ndim u32][shape u64 x ndim][payload]

@@ -918,3 +918,109 @@ def test_bitset_blocks_api_still_raises_on_card(card):
     with pytest.raises(ValueError, match="multiple"):
         kb.bitset_combine_blocks(bits, "and")
     assert kb.launches["bitset_combine"] == n0
+
+
+def _one_doc_segment(rng, dim):
+    """A one-document segment in the kernels' layout: doc 0 live with its
+    length, 1,023 dead padding docs; its CSR holds one posting per term
+    (two terms, tf 3 and 1), padded with a tile of zeros; a vector column
+    of ``dim`` components."""
+    dl = np.ones(kt.TILE, np.int32)
+    dl[0] = 4
+    live = np.zeros(kt.TILE, np.int32)
+    live[0] = 1
+    cd = np.zeros(2 + kt.TILE, np.int32)  # both terms: doc 0
+    cf = np.zeros(2 + kt.TILE, np.int32)
+    cf[:2] = (3, 1)
+    dp = vk.pad_dim(dim)
+    vmat = np.zeros((kt.TILE, dp), np.float32)
+    vmat[0, :dim] = rng.standard_normal(dim)
+    return dl, live, cd, cf, vmat
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 10])
+def test_one_document_segment_kernels_on_card(card, k):
+    """K1, K2 and K3 over a one-document segment (their one-FMA BM25, which
+    the reference's kernels keep there), and K8 with and without the strict
+    BM25 its unfused callers ask for, in both modes: 0 ULP against the
+    plain versions."""
+    rng = np.random.default_rng(7 + k)
+    dl, live, cd, cf, vmat = _one_doc_segment(rng, 24)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(card)
+
+    dl_live = dev((dl << 1) | live)
+    idf, avgdl = 1.7917594909667969, 3.6666667461395264  # the F1 index's
+    rows = 4
+    starts = dev(np.asarray([0, 1, 0, 0], np.int32))
+    lengths = dev(np.asarray([1, 1, 0, 1], np.int32))
+    idfs = dev(np.full(rows, idf, np.float32))
+    args = (dev(cd), dev(cf), dl_live, starts, lengths, idfs, avgdl, K1, B, kt.TILE, k)
+    _equal(kt.term_topk_tiles(*args), kt.term_topk_tiles_plain(*args))
+    args = (dev(np.where(np.arange(kt.TILE) == 0, 3, 0).astype(np.int32)), dev(dl),
+            dev(live), idf, avgdl, K1, B, k)  # K2's staged row: doc 0's posting
+    _equal(kt.bm25_topk_blocks(*args), kt.bm25_topk_blocks_plain(*args))
+    bstarts = dev(np.asarray([[0, 1], [1, 0], [0, 0], [0, 1]], np.int32))
+    blengths = dev(np.asarray([[1, 1], [1, 1], [0, 1], [1, 0]], np.int32))
+    for conj in (True, False):
+        args = (dev(cd), dev(cf), dl_live, bstarts, blengths,
+                dev(np.full((rows, 2), idf, np.float32)), avgdl, K1, B, conj, k)
+        _equal(dk.bool_topk_tiles(*args), dk.bool_topk_tiles_plain(*args))
+    qvecs = np.zeros((rows, vmat.shape[1]), np.float32)
+    qvecs[:, :24] = rng.standard_normal((rows, 24))
+    alphas = dev(np.asarray([1.0, 0.5, 0.3, 0.0], np.float32))
+    for cosine in (False, True):
+        for strict in (False, True):
+            base = (dev(cd), dev(cf), dl_live, starts, lengths, idfs, avgdl, K1, B,
+                    dev(vmat), dev(qvecs), alphas)
+            kw = dict(strict_rows=1, strict_q=True, strict_bm25=strict)
+            _equal(vk.hybrid_topk_tiles(*base, k, cosine, 24, **kw),
+                   vk.hybrid_topk_tiles_plain(*base, k, cosine, 24, **kw))
+            _equal(vk.hybrid_score_rows(*base, cosine, 24, **kw),
+                   vk.hybrid_score_rows_plain(*base, cosine, 24, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dim", [5, 6, 7, 8])
+def test_vector_strict_norms_on_card(card, dim):
+    """K7 and K8, top-k and scores modes, at 5-8 components: the FMA norm
+    chains, the strict sums of the reference's unfused route on the first
+    ``strict_rows`` docs (none, a partial tile, every row) and strict or
+    FMA query norms: 0 ULP against the plain versions."""
+    rng = np.random.default_rng(dim)
+    rows, n_docs, nd_pad = 11, 3003, 3 * kt.TILE
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(card)
+
+    dp = vk.pad_dim(dim)
+    vmat = np.zeros((nd_pad, dp), np.float32)
+    vmat[:n_docs, :dim] = rng.standard_normal((n_docs, dim))
+    vmat[: n_docs : 7] = 0
+    qvecs = np.zeros((rows, dp), np.float32)
+    qvecs[:, :dim] = rng.standard_normal((rows, dim))
+    live = (rng.random(nd_pad) > 0.2).astype(np.int32)
+    live[n_docs:] = 0
+    dl = rng.integers(1, 400, nd_pad).astype(np.int32)
+    cd, cf, starts, lengths = _csr(rng, rows, 1, n_docs)
+    starts, lengths = starts[:, 0], lengths[:, 0]
+    idfs = rng.uniform(0.5, 8.0, rows).astype(np.float32)
+    alphas = rng.uniform(0.0, 1.0, rows).astype(np.float32)
+    for strict_rows in (0, vk.strict_norm_rows(n_docs), nd_pad):
+        for strict_q in (False, True):
+            kw = dict(strict_rows=strict_rows, strict_q=strict_q)
+            for cosine in (False, True):
+                args = (dev(vmat), dev(live), dev(qvecs))
+                _equal(vk.vector_topk_tiles(*args, 10, cosine, dim, **kw),
+                       vk.vector_topk_tiles_plain(*args, 10, cosine, dim, **kw))
+                _equal(vk.vector_score_rows(*args, cosine, dim, **kw),
+                       vk.vector_score_rows_plain(*args, cosine, dim, **kw))
+                args = (dev(cd), dev(cf), dev((dl << 1) | live), dev(starts),
+                        dev(lengths), dev(idfs), AVGDL, K1, B, dev(vmat), dev(qvecs),
+                        dev(alphas))
+                _equal(vk.hybrid_topk_tiles(*args, 10, cosine, dim, **kw),
+                       vk.hybrid_topk_tiles_plain(*args, 10, cosine, dim, **kw))
+                _equal(vk.hybrid_score_rows(*args, cosine, dim, **kw),
+                       vk.hybrid_score_rows_plain(*args, cosine, dim, **kw))

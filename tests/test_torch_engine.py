@@ -15,13 +15,14 @@ import pytest
 
 from repro.core import SearchEngine as RefEngine
 from repro.core.search import Searcher as RefSearcher
+from repro.core.search import BooleanQuery as RefBooleanQuery
 from repro.core.search import TermQuery as RefTermQuery
 from repro.data.corpus import CorpusConfig, synthetic_corpus, _word
 from repro_torch.core.engine import SearchEngine
 from repro_torch.core.interop import segment_from_arrays
 from repro_torch.core.query import profile
 from repro_torch.core.query.plan import pad_width
-from repro_torch.core.query.types import HybridQuery, TermQuery, VectorQuery
+from repro_torch.core.query.types import BooleanQuery, HybridQuery, TermQuery, VectorQuery
 from repro_torch.core.search import Searcher
 
 N_DOCS = 360
@@ -189,3 +190,102 @@ def test_other_families_raise():
         np.testing.assert_array_equal(got.doc_ids, [0, 1])
         np.testing.assert_array_equal(got.doc_ids, single.doc_ids)
         np.testing.assert_array_equal(got.scores, single.scores)
+
+
+# ---------------------------------------------------------------------------
+# F1: BM25 over one-document segments
+# ---------------------------------------------------------------------------
+
+
+def _f1_index(eng):
+    """ROADMAP's F1 reproduction: a one-document segment, then five docs."""
+    eng.add({"body": "w0 w0 w0 common"}, {"month": 2})
+    eng.flush()
+    for text in ("w0 w2 w2 w3 common", "w3 w6 common", "w4 w5 w7 common",
+                 "w6 common", "w3 w6 common"):
+        eng.add({"body": text}, {"month": 1})
+    eng.flush()
+    eng.reopen()
+    return eng
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_one_document_segment_routes_match_reference(monkeypatch, fused):
+    """Doc 0's score bits for ``w0``: strict float32 on the eager route (the
+    reference's ``use_pallas=False``), one FMA on the kernel route (its
+    Pallas kernels), through ``search_batch`` and ``search_single``."""
+    if fused:
+        monkeypatch.setenv("REPRO_FUSED_KERNEL", "1")
+    ref = _f1_index(RefEngine("ram", use_pallas=fused))
+    port = _f1_index(SearchEngine("ram", device="cpu", fused=fused))
+    want_bits = 1069423727 if fused else 1069423728
+    for g, w in ((port.search_batch([TermQuery("body", "w0")], k=3)[0],
+                  ref.search_batch([RefTermQuery("body", "w0")], k=3)[0]),
+                 (port.searcher.search_single(TermQuery("body", "w0"), k=3),
+                  ref.searcher.search_single(RefTermQuery("body", "w0"), k=3))):
+        _same(g, w, "w0")
+        assert g.doc_ids[0] == 0 and int(g.scores[:1].view(np.int32)[0]) == want_bits
+    # bool (w0, common): the kernel route's batch keeps the FMA, every jnp
+    # core (the eager route, and search_single on both) runs strict
+    for mode in ("or", "and"):
+        q = BooleanQuery((TermQuery("body", "w0"), TermQuery("body", "common")), mode)
+        rq = RefBooleanQuery((RefTermQuery("body", "w0"), RefTermQuery("body", "common")),
+                             mode)
+        for g, w, bits in ((port.search_batch([q], k=3)[0], ref.search_batch([rq], k=3)[0],
+                            1070029006 if fused else 1070029007),
+                           (port.searcher.search_single(q, k=3),
+                            ref.searcher.search_single(rq, k=3), 1070029007)):
+            _same(g, w, f"bool {mode}")
+            assert int(g.scores[:1].view(np.int32)[0]) == bits
+
+
+SWEEP_SIZES = [1, 3, 1, 8, 2, 1, 40, 1]  # flushed in turn: eight segments
+
+
+def sweep_docs(seed, vocab=6, vectors=0):
+    """Seeded docs over a small vocabulary, so one-document segments hold
+    the queried terms; ``vectors``: a ``_vec`` of that many components on
+    most docs."""
+    rng = np.random.default_rng(seed)
+    docs = []
+    for i in range(sum(SWEEP_SIZES)):
+        body = " ".join(f"w{int(x)}" for x in rng.integers(0, vocab, rng.integers(1, 7)))
+        dv = {"month": int(rng.integers(0, 12)), "timestamp": int(rng.integers(0, 1 << 20))}
+        if vectors and i % 5 != 2:
+            dv["_vec"] = rng.standard_normal(vectors).astype(np.float32)
+        docs.append(({"body": body}, dv))
+    return docs
+
+
+def sweep_engine(eng, docs):
+    """Flush after each of ``SWEEP_SIZES``, then reopen."""
+    it = iter(docs)
+    for n in SWEEP_SIZES:
+        for _ in range(n):
+            eng.add(*next(it))
+        eng.flush()
+    eng.reopen()
+    return eng
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("fused", [True, False])
+def test_term_sweep_with_one_document_segments(monkeypatch, fused, seed):
+    """Segments of 1-40 docs: every term's TopDocs equal the reference's on
+    the matching route, k = 3 and 200, batch and single."""
+    if fused:
+        monkeypatch.setenv("REPRO_FUSED_KERNEL", "1")
+    docs = sweep_docs(seed)
+    ref = sweep_engine(RefEngine("ram", use_pallas=fused), docs)
+    port = sweep_engine(SearchEngine("ram", device="cpu", fused=fused), docs)
+    toks = [f"w{i}" for i in range(6)]
+    for k in (3, 200):
+        want = ref.search_batch([RefTermQuery("body", t) for t in toks], k=k)
+        got = port.search_batch([TermQuery("body", t) for t in toks], k=k)
+        # the reference's single-query kernel raises for k > 128: its jnp path
+        r_single = ref if (k <= 128 or not fused) else sweep_engine(RefEngine("ram"), docs)
+        for t, g, w in zip(toks, got, want):
+            _same(g, w, f"batch {t} k={k}")
+            _same(port.searcher.search_single(TermQuery("body", t), k=k),
+                  r_single.searcher.search_single(RefTermQuery("body", t), k=k),
+                  f"single {t} k={k}")

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_engine import sweep_docs, sweep_engine
 
 import repro.core.search as rs
 from repro.core import SearchEngine as RefEngine
@@ -405,3 +406,40 @@ def test_facet_out_of_range_bins_match_reference(monkeypatch):
         for eng in engs[1:]:
             _same(eng.search_batch([mk(pt)], k=12)[0], want, repr(mk(pt)))
             _same(eng.searcher.search_single(mk(pt), k=12), want, repr(mk(pt)))
+
+
+# ---------------------------------------------------------------------------
+# F1: bool over one-document segments
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("fused", [True, False])
+def test_bool_sweep_with_one_document_segments(monkeypatch, fused, seed):
+    """Segments of 1-40 docs (``test_torch_engine.SWEEP_SIZES``): AND and
+    OR over two and three terms, sort and facet rows on the same index,
+    equal to the reference on the matching route (its kernels use the
+    tiled doc lengths and keep the FMA; its jnp cores, k = 200 on the
+    kernel route and every ``search_single``, run strict on a one-document
+    segment), batch and single, k = 3 and 200."""
+    if fused:
+        monkeypatch.setenv("REPRO_FUSED_KERNEL", "1")
+    docs = sweep_docs(seed)
+    ref = sweep_engine(RefEngine("ram", use_pallas=fused), docs)
+    port = sweep_engine(SearchEngine("ram", device="cpu", fused=fused), docs)
+
+    def batch(m):
+        tq = lambda i: m.TermQuery("body", f"w{i}")  # noqa: E731
+        return ([m.BooleanQuery((tq(a), tq(b)), mode) for mode in ("and", "or")
+                 for a, b in ((0, 1), (2, 3), (4, 5))]
+                + [m.BooleanQuery((tq(0), tq(2), tq(4)), "or"),
+                   m.BooleanQuery((tq(1), tq(3), tq(5)), "and"),
+                   m.SortQuery(tq(1), "timestamp"), m.FacetQuery(tq(2), "month", 12)])
+
+    for k in (3, 200):
+        want = ref.search_batch(batch(rs), k=k)
+        got = port.search_batch(batch(pt), k=k)
+        for q, rq_, g, w in zip(batch(pt), batch(rs), got, want):
+            _same(g, w, f"batch {q} k={k}")
+            _same(port.searcher.search_single(q, k=k), ref.searcher.search_single(rq_, k=k),
+                  f"single {q} k={k}")

@@ -36,10 +36,12 @@ def test_no_jax_or_reference_imports(path):
 
 
 def test_persistence_modules_are_checked():
-    """The persistence modules are among the files checked above, and the
-    packages export what the reference's do (bar the WAL and sharding)."""
+    """The persistence modules (the WAL and the live tail's too) are among
+    the files checked above, and the packages export what the reference's
+    do (bar sharding)."""
     checked = {p.relative_to(PORT).as_posix() for p in _port_files() if PORT in p.parents}
-    assert {"storage/heap.py", "core/directory.py", "serve/kv_segments.py"} <= checked
+    assert {"storage/heap.py", "storage/wal.py", "storage/live_index.py",
+            "core/directory.py", "core/query/live.py", "serve/kv_segments.py"} <= checked
     import repro_torch.core as core
     import repro_torch.storage as storage
 

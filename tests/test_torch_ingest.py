@@ -158,8 +158,11 @@ def test_segment_from_arrays_round_trip_and_checks():
 
 
 def test_unported_kinds_and_wal_raise(tmp_path):
-    """Every directory kind opens; only the write-ahead log raises, naming
-    its item (the writer's ``use_wal`` and each directory's WAL methods)."""
+    """Every directory kind opens, and its write-ahead-log surface answers
+    as the reference's does: only the byte path supports the WAL; elsewhere
+    ``wal_append`` raises, the rest reports an empty log, and the writer's
+    ``use_wal`` is a no-op.  An unknown kind raises."""
+    from repro.core.directory import make_directory as ref_make_directory
     from repro_torch.core.directory import (
         ByteAddressableDirectory,
         FSDirectory,
@@ -170,16 +173,21 @@ def test_unported_kinds_and_wal_raise(tmp_path):
              "byte-pmem": ByteAddressableDirectory, "byte-dram": ByteAddressableDirectory}
     for kind, cls in kinds.items():
         d = make_directory(kind, str(tmp_path / kind))
+        r = ref_make_directory(kind, str(tmp_path / f"ref-{kind}"))
         assert type(d) is cls
-        for call in (d.supports_wal, lambda: d.wal_append({}, {}), d.wal_replay,
-                     d.wal_retired,
-                     d.wal_last_seq, d.wal_acked_bytes, lambda: d.wal_set_retire(1),
-                     lambda: d.set_wal_on_ack(None)):
-            with pytest.raises(NotImplementedError, match="item 11"):
-                call()
+        assert d.supports_wal() == r.supports_wal() == kind.startswith("byte")
+        for x in (d, r):
+            x.set_wal_on_ack(None)
+            x.wal_set_retire(0)
+        assert ((d.wal_replay(), d.wal_retired(), d.wal_last_seq(), d.wal_acked_bytes())
+                == (r.wal_replay(), r.wal_retired(), r.wal_last_seq(),
+                    r.wal_acked_bytes()) == ([], 0, 0, 0))
+        if not d.supports_wal():
+            with pytest.raises(NotImplementedError, match="has no WAL"):
+                d.wal_append({}, {})
+            assert not IndexWriter(d, use_wal=True).wal_enabled
         d.close()
-    with pytest.raises(NotImplementedError, match="use_wal"):
-        IndexWriter(make_directory("ram"), use_wal=True)
+        r.close()
     with pytest.raises(ValueError, match="unknown"):
         make_directory("tape")
 

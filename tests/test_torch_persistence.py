@@ -7,9 +7,11 @@ test_search_batch_parity_all_families`` on the same three kinds and
 ``test_crash_recover_preserves_pallas_flag`` (as ``fused``), and the KV
 store's byte tier of ``tests/test_serving.py::test_kv_store_seal_share_flush``.
 
-Each scenario runs on the reference (a reopen flushes the buffered tail,
-``maybe_reopen(force_flush=True)``, as the port's reopen does) and on the
-port (``device="cpu"``) in directories of their own under ``tmp_path``.  It
+Each scenario runs on the reference and on the port (``device="cpu"``) in
+directories of their own under ``tmp_path``, both reopening with
+``maybe_reopen(force_flush=True)`` (the buffered tail flushed; the WAL and
+the live tail are ``tests/test_torch_wal.py``'s and
+``tests/test_torch_live.py``'s).  It
 returns what the reference test looks at -- ``TopDocs`` (doc ids, float32
 score bits, ``total_hits``, facets), segment names, files on disk, heap
 barriers and stores, gc and compaction counts, the modeled clock -- and the
@@ -81,7 +83,7 @@ def _side(name, root, fused=True, use_pallas=False):
         engine=lambda kind, sub=None: SearchEngine(
             kind, None if kind == "ram" else os.path.join(root, sub or kind),
             device="cpu", fused=fused),
-        reopen=lambda eng: eng.reopen(),
+        reopen=lambda eng: eng.manager.maybe_reopen(force_flush=True),
         q=pq, FSDir=FSDirectory, ByteDir=ByteAddressableDirectory, root=root,
         corpus=lambda **c: synthetic_corpus(CorpusConfig(**c)),
     )
@@ -905,15 +907,22 @@ def test_interchange(kind, direction, tmp_path):
 
 
 def test_unretired_reference_wal_is_refused(tmp_path):
-    """A reference heap with acked log records that no commit retired
-    would lose them if opened without replay (item 11): refused.  Once a
-    flush and a commit retire them, it opens."""
+    """A reference heap with acked log records that no commit retired is
+    no longer refused: the port's WAL replays them (a port engine without
+    ``use_wal`` opens the committed segments only, as the reference's
+    does).  Once a flush and a commit retire them, every engine sees
+    them."""
     path = str(tmp_path / "wal")
     ref = RefEngine("byte-pmem", path, use_wal=True)
     assert ref.wal_enabled
     ref.add_documents([({"body": "alpha beta"}, {"month": 1})] * 3)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ByteAddressableDirectory(path)
+    d = ByteAddressableDirectory(path)
+    assert [m["seq"] for m, _ in d.wal_replay()] == [1]
+    d.close()
+    eng = SearchEngine("byte-pmem", path, device="cpu", use_wal=True)
+    assert eng.writer.buffered_docs == 3
+    assert eng.search(pq.TermQuery("body", "alpha")).total_hits == 3
+    eng.directory.close()
     ref.flush()
     ref.commit()
     eng = SearchEngine("byte-pmem", path, device="cpu")

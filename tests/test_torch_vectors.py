@@ -48,6 +48,7 @@ import pytest
 import torch
 
 from test_hybrid import hybrid_queries
+from test_torch_engine import sweep_docs, sweep_engine
 from test_vector_search import queries as vector_queries
 from test_vector_search import vec_corpus
 
@@ -213,7 +214,7 @@ def _hybrid_inputs(rng, dim):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("dim", [16, 24, 32])
+@pytest.mark.parametrize("dim", [5, 6, 7, 8, 16, 24, 32])
 @pytest.mark.parametrize("cosine", [False, True])
 @pytest.mark.parametrize("k", [1, 10, 128])
 def test_vector_topk_plain_matches_reference(dim, cosine, k):
@@ -231,20 +232,26 @@ def test_vector_topk_plain_matches_reference(dim, cosine, k):
     assert vk.launches == before  # CPU tensors: plain version, no launch
     assert got[0].shape == (ROWS, ND_PAD // TILE, k)
     _same_winners(got, *ref, k)
-    # after the merge: the Pallas path's top-k and the jnp core
+    # after the merge: the Pallas path's top-k and the jnp core (whose
+    # cosine norms at 5-8 components are strict sums: the plain version
+    # with vk.strict_norm_rows of its 3,000 rows and a batch of 8)
     vals, ids, hits = _merged(got, k)
     hv, hi = _hier_topk(ref[0], ref[1], k)
     cv, ci, ch = ref_exec._vector_topk_batch(
         jnp.asarray(vmat[:N_DOCS]), jnp.asarray(live[:N_DOCS] > 0), jnp.asarray(qvecs),
         k, cosine)
-    for want_v, want_i in ((hv, hi), (cv, ci)):
-        n = np.isfinite(vals)
-        np.testing.assert_array_equal(vals.view(np.int32), np.asarray(want_v)[:, : vals.shape[1]].view(np.int32))
-        np.testing.assert_array_equal(ids[n], np.asarray(want_i)[:, : vals.shape[1]][n])
+    unfused = _merged(vk.vector_topk_tiles(
+        t(np.pad(vmat, ((0, 0), (0, dp - dim)))), t(live),
+        t(np.pad(qvecs, ((0, 0), (0, dp - dim)))), k, cosine, dim,
+        strict_rows=vk.strict_norm_rows(N_DOCS), strict_q=True), k)
+    for (gv, gi, _), want_v, want_i in (((vals, ids, hits), hv, hi), (unfused, cv, ci)):
+        n = np.isfinite(gv)
+        np.testing.assert_array_equal(gv.view(np.int32), np.asarray(want_v)[:, : gv.shape[1]].view(np.int32))
+        np.testing.assert_array_equal(gi[n], np.asarray(want_i)[:, : gv.shape[1]][n])
     np.testing.assert_array_equal(hits, np.asarray(ch))
 
 
-@pytest.mark.parametrize("dim", [16, 24, 32])
+@pytest.mark.parametrize("dim", [5, 6, 7, 8, 16, 24, 32])
 @pytest.mark.parametrize("cosine", [False, True])
 @pytest.mark.parametrize("k", [1, 10, 128])
 def test_hybrid_topk_plain_matches_reference(dim, cosine, k):
@@ -267,6 +274,10 @@ def test_hybrid_topk_plain_matches_reference(dim, cosine, k):
         t(np.pad(vmat, ((0, 0), (0, dp - dim)))), t(np.pad(qvecs, ((0, 0), (0, dp - dim)))),
         t(alphas), k, cosine, dim)
     _same_winners(got, *ref, k)
+    got = vk.hybrid_topk_tiles(
+        t(cd), t(cf), t((dl << 1) | live), t(starts), t(lens), t(idfs), AVGDL, K1, B,
+        t(np.pad(vmat, ((0, 0), (0, dp - dim)))), t(np.pad(qvecs, ((0, 0), (0, dp - dim)))),
+        t(alphas), k, cosine, dim, strict_rows=vk.strict_norm_rows(N_DOCS), strict_q=True)
     vals, ids, hits = _merged(got, k)
     cv, ci, ch = ref_exec._hybrid_topk_batch(
         jnp.asarray(docs), jnp.asarray(freqs), jnp.asarray(dl[:N_DOCS]),
@@ -636,3 +647,112 @@ def test_segments_carried_across_answer_alike():
     with pytest.raises(ValueError, match="one value per doc"):
         segment_from_arrays("bad", 0, dict(arrays, **{f"dv.{VECTOR_FIELD}":
                                                       np.zeros((n + 1, 24), np.float32)}))
+
+
+# ---------------------------------------------------------------------------
+# F2: cosine at 5-8 components; F1: hybrid over one-document segments
+# ---------------------------------------------------------------------------
+
+
+def _f2_pair(dim, fused, sizes, seed=1):
+    """The reference (``use_pallas`` = ``fused``) and the port on one index
+    of ``sizes`` flushed segments with seeded ``dim``-component vectors."""
+    rng = np.random.default_rng(seed)
+    docs = [({"body": " ".join(f"w{int(x)}" for x in rng.integers(0, 6, 4))},
+             {"_vec": rng.standard_normal(dim).astype(np.float32)})
+            for _ in range(sum(sizes))]
+    engs = []
+    for eng in (RefEngine("ram", use_pallas=fused),
+                SearchEngine("ram", device="cpu", fused=fused)):
+        it = iter(docs)
+        for n in sizes:
+            for _ in range(n):
+                eng.add(*next(it))
+            eng.flush()
+        eng.reopen()
+        engs.append(eng)
+    return engs
+
+
+def _f2_queries(dim, seed=99):
+    rng = np.random.default_rng(seed)
+    qs = [rs.VectorQuery(tuple(rng.standard_normal(dim).astype(np.float32).tolist()),
+                         "cosine") for _ in range(4)]
+    return qs, [rs.HybridQuery(rs.TermQuery("body", "w1"), q, a)
+                for q, a in zip(qs[:2], (0.5, 0.3))]
+
+
+@pytest.mark.parametrize("dim", [5, 6, 7, 8])
+@pytest.mark.parametrize("fused", [True, False])
+def test_cosine_at_5_to_8_matches_reference(monkeypatch, fused, dim):
+    """ROADMAP's F2 reproduction: one segment of 300 docs, 4 cosine queries
+    at k = 300 (and two hybrid-cosine ones), batch and single, on the
+    matching routes: the kernels' FMA norm chains against the reference's
+    Pallas kernels, strict sums where the reference runs its jnp cores (the
+    eager route, k = 300 on the kernel route, ``search_single``)."""
+    _kernels(monkeypatch, fused)
+    ref, port = _f2_pair(dim, fused, [300])
+    vq, hq = _f2_queries(dim)
+    for k in (300, 10):
+        for group in (vq, hq):
+            want = ref.search_batch(group, k=k)
+            got = port.search_batch([_port_query(q) for q in group], k=k)
+            for q, g, w in zip(group, got, want):
+                _same(g, w, f"batch d={dim} k={k} {q}")
+                _same(port.searcher.search_single(_port_query(q), k=k),
+                      ref.searcher.search_single(q, k=k), f"single d={dim} k={k} {q}")
+
+
+@pytest.mark.parametrize("dim", [5, 7])
+@pytest.mark.parametrize("fused", [True, False])
+def test_cosine_at_5_to_8_small_segments_within_bound(monkeypatch, fused, dim):
+    """Segments of 11 and 37 docs, where XLA:CPU's rounding of the
+    reference's jnp norms on its last ``n % 8`` rows follows no rule the
+    port writes (``vector_topk.strict_norm_rows``): every score within the
+    stated bound of the reference's, and bit-equal on the kernel route."""
+    _kernels(monkeypatch, fused)
+    ref, port = _f2_pair(dim, fused, [11, 37, 64])
+    vq, _ = _f2_queries(dim)
+    for k in (128, 200):
+        want = ref.search_batch(vq, k=k)
+        got = port.search_batch([_port_query(q) for q in vq], k=k)
+        for q, g, w in zip(vq, got, want):
+            assert g.total_hits == w.total_hits
+            if fused and k <= 128:
+                _same(g, w, f"kernel route d={dim} {q}")
+                continue
+            gs = dict(zip(g.doc_ids.tolist(), g.scores.astype(np.float64)))
+            ws = dict(zip(np.asarray(w.doc_ids).tolist(), np.asarray(w.scores, np.float64)))
+            assert gs.keys() == ws.keys()
+            qv = np.asarray(q.vector, np.float32)[None]
+            vm = np.concatenate([s.doc_values["_vec"] for s in port.writer.segments])
+            tol = sim_bound(vm, qv, True, np.asarray([[ws[d] for d in range(len(vm))]]))[0]
+            assert all(abs(gs[d] - ws[d]) <= tol[d] for d in gs), (dim, k, q)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("fused", [True, False])
+def test_hybrid_sweep_with_one_document_segments(monkeypatch, fused, seed):
+    """Segments of 1-40 docs (``test_torch_engine.SWEEP_SIZES``) with
+    16-component vectors: dot and cosine hybrid rows (alpha 1, 0.5, 0.3) on
+    the matching routes, batch and single, k = 3 and 200.  The reference's
+    jnp hybrid core runs BM25 strict over a one-document segment."""
+    _kernels(monkeypatch, fused)
+    docs = sweep_docs(seed, vectors=16)
+    ref = sweep_engine(RefEngine("ram", use_pallas=fused), docs)
+    port = sweep_engine(SearchEngine("ram", device="cpu", fused=fused), docs)
+    rng = np.random.default_rng(seed + 50)
+    qs = [rs.HybridQuery(rs.TermQuery("body", f"w{i % 6}"),
+                         rs.VectorQuery(tuple(rng.standard_normal(16).astype(np.float32)
+                                              .tolist()), metric), alpha)
+          for i, (metric, alpha) in enumerate([(m, a) for m in ("dot", "cosine")
+                                               for a in (1.0, 0.5, 0.3)])]
+    for k in (3, 200):
+        for metric in ("dot", "cosine"):
+            group = [q for q in qs if q.vector.metric == metric]
+            want = ref.search_batch(group, k=k)
+            got = port.search_batch([_port_query(q) for q in group], k=k)
+            for q, g, w in zip(group, got, want):
+                _same(g, w, f"batch k={k} {q}")
+                _same(port.searcher.search_single(_port_query(q), k=k),
+                      ref.searcher.search_single(q, k=k), f"single k={k} {q}")

@@ -3,10 +3,10 @@
 Mirrors the ``ram`` cases of ``tests/test_lifecycle.py``,
 ``tests/test_ingest_parity.py`` and ``tests/test_durability.py`` and
 ``tests/test_query_batch.py::test_standalone_cache_api``.  Each scenario
-runs once on the reference (``use_pallas`` off, its default; a reopen
-flushes the buffered tail, ``maybe_reopen(force_flush=True)``, as the
-port's reopen does) and on the port (``device="cpu"``, ``fused`` on and
-off), and returns what the
+runs once on the reference (``use_pallas`` off, its default) and on the
+port (``device="cpu"``, ``fused`` on and off), each reopening with
+``maybe_reopen(force_flush=True)`` (the buffered tail flushed; the live
+tail is ``tests/test_torch_live.py``'s), and returns what the
 reference test looks at -- ``TopDocs`` (doc ids, float32 score bits,
 ``total_hits``, facets), segment names and counts, merge and gc statistics.
 The port's record must equal the reference's, and the reference test's own
@@ -59,8 +59,6 @@ def _side(name, fused=True):
     if name == "ref":
         return types.SimpleNamespace(
             engine=lambda kind="ram", path=None: RefEngine(kind, path),
-            # the port's reopen flushes the buffered tail: the reference's
-            # force_flush path (its default serves the tail live)
             reopen=lambda eng: eng.manager.maybe_reopen(force_flush=True),
             q=rq, make_directory=ref_make_directory, build_segment=ref_build_segment,
             Infos=RefInfos, Policy=RefPolicy,
@@ -69,7 +67,7 @@ def _side(name, fused=True):
     return types.SimpleNamespace(
         engine=lambda kind="ram", path=None: SearchEngine(kind, path, device="cpu",
                                                           fused=fused),
-        reopen=lambda eng: eng.reopen(),
+        reopen=lambda eng: eng.manager.maybe_reopen(force_flush=True),
         q=pq, make_directory=make_directory, build_segment=build_segment,
         Infos=SegmentInfos, Policy=TieredMergePolicy,
         corpus=lambda **c: synthetic_corpus(CorpusConfig(**c)),
