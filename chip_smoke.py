@@ -152,6 +152,36 @@ Phases (any failure raises and the script exits non-zero):
               modes launched on the tail and held to their plain versions at
               its mini segment.
 
+  9. sharded  sharded indexing and fan-out search: ``ShardedEngine("byte-pmem",
+              n_shards=4, backend="processes", use_wal=True)`` (four writer
+              processes, the card the coordinator's alone) takes the main
+              path's corpus without ``_vec`` in acked batches of ACK_BATCH
+              docs, flushing every ``flush_every`` docs but the last
+              ``flush_every`` (a live tail on every shard), with a cross-shard
+              commit halfway through the tail, then the main path's delete.
+              It runs the term batches and every family task (one batch of
+              each held, the rest timed), then a commit wave whose shard-1
+              worker SIGKILLs itself after committing, ``crash_and_recover()``
+              and the term and family batches again, then a flush and the
+              term batches without a tail.  Prints ingest docs/s and the
+              per-shard busy ledger, ack p50/p99, the commit's real and
+              modeled s per shard, the slowest shard's reopen s, term QPS and
+              p50/p99 with the tail, after recovery and flushed, each task's
+              QPS, the cross-shard merge's ms per group, launches per shard
+              around one batch of each task, recover s and replayed records,
+              storage bytes, and K1 and K3-K6 at one shard's largest segment
+              (bit-equal to their plain versions, timed, bounded).  Checks:
+              every batch equals the ``ram`` engine's in external-id space
+              (its positional ids mapped through the doc values) before the
+              crash and after recovery; each ack one barrier on each shard
+              that received docs, a commit 4 barriers and 1 manifest write;
+              the torn wave raised before its manifest and recovery reopened
+              at the previous one with every acked doc; the workers were
+              spawned with ``CUDA_VISIBLE_DEVICES=""`` and ``nvidia-smi``
+              lists one compute app while they live (this process); the
+              fan-out's launches are the shards' own, K1 once per shard
+              segment and tail with postings.
+
 The line before the last is the ``{"kernels": [...]}`` record of all ten
 kernels; the last is ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the repository beside it, the script fails before printing a
@@ -163,6 +193,7 @@ from __future__ import annotations
 import argparse
 import itertools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -257,6 +288,10 @@ DECODE_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # the reference's K10 toleranc
 PERSIST_KINDS = ("fs-ssd", "byte-pmem")
 ACK_BATCH = 100  # docs per acked batch (the reference's benchmarks/commit_bench.py:40)
 ACK_VISIBLE_SAMPLES = 10  # acks of the live tail timed to visibility
+# sharded phase: four DWPT writers (the reference's benchmarks/ingest_bench.py:197
+# default), one worker process each; the cross-shard merge timed over MERGE_REPS
+SHARDS = 4
+MERGE_REPS = 20
 
 
 def log(tag: str, obj) -> None:
@@ -1451,15 +1486,39 @@ def persist_phase(ram_eng, cfg, words, flush_every: int, queries, n_warm: int,
     return out
 
 
+def k1_record(args, meta, launches: int, ctx: str, shape: dict) -> dict:
+    """K1 on ``args`` (``term_topk_tiles``'s arguments over the CSR ``meta``
+    describes): held bit-equal to its plain version, both timed, with its
+    bound (12 B a posting, 12 B a row, 4 B a tile that holds postings, 8 B
+    a winner; OPS_PER_SCORE a posting) and the library half
+    (``torch.topk`` of the scored rows)."""
+    import torch
+
+    from repro_torch.kernels import term_topk as kt
+
+    kv_, ki, kc = (x.cpu().numpy() for x in kt.term_topk_tiles(*args))
+    pv, pi, pc = (x.cpu().numpy() for x in kt.term_topk_tiles_plain(*args))
+    if not (bits_equal(kv_, pv) and bits_equal(ki, pi) and bits_equal(kc, pc)):
+        raise AssertionError(f"term_topk {ctx} differs from its plain version")
+    scored = kt.csr_rows_scored(*args[:10])[0]
+    postings = int(meta.lengths.sum())
+    tiles = int((-(-meta.lengths // kt.TILE)).sum())
+    b = bound(postings * 12 + len(meta.lengths) * 12 + tiles * 4
+              + int(np.minimum(kc, K).sum()) * 8, postings * OPS_PER_SCORE)
+    return {"name": "term_topk", "launches": launches, "max_abs_err": max_abs_err(kv_, pv),
+            "ms": cuda_ms(lambda: kt.term_topk_tiles(*args), 50)[0],
+            "plain_ms": cuda_ms(lambda: kt.term_topk_tiles_plain(*args), 5)[0],
+            "library_ms": cuda_ms(lambda: torch.topk(scored, K, dim=-1), 50)[0],
+            "bound_ms": b[0], "bound_by": b[1], "bit_equal": True,
+            "shape": dict(shape, rows=len(meta.lengths), p=meta.p, postings=postings)}
+
+
 def term_tail_record(eng, qs, launches: int) -> dict:
     """K1 over the live tail's mini segment for the TermQuerys ``qs`` (one
-    batch, padded as ``search_batch`` pads it): held bit-equal to its plain
-    version, both timed, with its bound (12 B a posting, 12 B a row, 4 B a
-    tile that holds postings, 8 B a winner; OPS_PER_SCORE a posting)."""
+    batch, padded as ``search_batch`` pads it): ``k1_record``."""
     import torch
 
     from repro_torch.core.query.plan import bucket_batch, stage_term_meta
-    from repro_torch.kernels import term_topk as kt
 
     s = eng.searcher
     mini = s._live_segment_for(qs, False)
@@ -1472,20 +1531,8 @@ def term_tail_record(eng, qs, launches: int) -> dict:
             torch.from_numpy(meta.starts).to(eng.device),
             torch.from_numpy(meta.lengths).to(eng.device), idfs, s.avgdl, s.k1, s.b,
             meta.p, K)
-    kv_, ki, kc = (x.cpu().numpy() for x in kt.term_topk_tiles(*args))
-    pv, pi, pc = (x.cpu().numpy() for x in kt.term_topk_tiles_plain(*args))
-    if not (bits_equal(kv_, pv) and bits_equal(ki, pi) and bits_equal(kc, pc)):
-        raise AssertionError("term_topk on the live tail differs from its plain version")
-    postings = int(meta.lengths.sum())
-    tiles = int((-(-meta.lengths // kt.TILE)).sum())
-    b = bound(postings * 12 + len(meta.lengths) * 12 + tiles * 4
-              + int(np.minimum(kc, K).sum()) * 8, postings * OPS_PER_SCORE)
-    return {"name": "term_topk", "launches": launches, "max_abs_err": max_abs_err(kv_, pv),
-            "ms": cuda_ms(lambda: kt.term_topk_tiles(*args), 50)[0],
-            "plain_ms": cuda_ms(lambda: kt.term_topk_tiles_plain(*args), 5)[0],
-            "bound_ms": b[0], "bound_by": b[1],
-            "shape": {"rows": len(meta.lengths), "p": meta.p, "postings": postings,
-                      "tail_docs": eng.manager.live.n_docs, "mini_segment_docs": mini.n_docs}}
+    return k1_record(args, meta, launches, "on the live tail",
+                     {"tail_docs": eng.manager.live.n_docs, "mini_segment_docs": mini.n_docs})
 
 
 def tail_launches(eng, batches) -> dict:
@@ -1725,6 +1772,357 @@ def vector_tail_phase(eng, vec_tasks: dict, n_docs: int) -> dict:
             "k7_k8_on_tail": vector_pair_records(eng, vec_tasks, on_tail, tail=True,
                                                  batch=0),
             "fused_eq_eager_card": True}
+
+
+def compute_apps() -> list:
+    """(pid, used MiB) of each process holding a CUDA context on the card,
+    as ``nvidia-smi --query-compute-apps`` lists them (its pids are the
+    host's: in a container they need not match ``os.getpid()``)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout
+    return [[int(x) for x in ln.split(",")] for ln in out.splitlines() if ln.strip()]
+
+
+def card_is_coordinators(eng, ctx: str) -> dict:
+    """Check that the shard workers of a ``processes`` engine cannot reach
+    the card: each was spawned with ``CUDA_VISIBLE_DEVICES=""``, and the
+    card holds one context while they live (this process's: its used MiB
+    is reported beside this process's reserved bytes)."""
+    import torch
+
+    workers = []
+    for p in eng.writer._backend._procs:
+        with open(f"/proc/{p.pid}/environ", "rb") as f:
+            env = dict(e.split(b"=", 1) for e in f.read().split(b"\0") if b"=" in e)
+        workers.append({"pid": p.pid,
+                        "cuda_visible_devices": env.get(b"CUDA_VISIBLE_DEVICES",
+                                                        b"<unset>").decode()})
+    apps = compute_apps()
+    if any(w["cuda_visible_devices"] != "" for w in workers):
+        raise AssertionError(f"{ctx}: a shard worker sees the card: {workers}")
+    if len(apps) != 1 or apps[0][0] in {w["pid"] for w in workers}:
+        raise AssertionError(f"{ctx}: compute apps (pid, MiB) {apps} with "
+                             f"{len(workers)} workers alive")
+    return {"compute_apps_pid_mib": apps, "coordinator_pid": os.getpid(),
+            "coordinator_reserved_mib": torch.cuda.memory_reserved() / 2**20,
+            "workers": workers}
+
+
+def doc_key(dv: dict) -> int:
+    """A document's identity from its doc values (unique in the seeded
+    corpus; checked): timestamp, month, day of year."""
+    return (int(dv["timestamp"]) * 12 + int(dv["month"])) * 365 + int(dv["dayOfYear"])
+
+
+def ram_ext_ids(ram_eng, keys: np.ndarray):
+    """External id (ingest position) of every positional doc id of the
+    ``ram`` engine, matched by ``doc_key``, which holds no ``_extid``; and
+    whether its segments hold the docs in ingest order."""
+    if len(np.unique(keys)) != len(keys):
+        raise AssertionError("doc keys are not unique: cannot map ram's ids")
+    segs = ram_eng.manager.infos.segments
+    ram_keys = np.concatenate([
+        (sg.doc_values["timestamp"].astype(np.int64) * 12
+         + sg.doc_values["month"]) * 365 + sg.doc_values["dayOfYear"] for sg in segs])
+    order = np.argsort(keys)
+    ext = order[np.clip(np.searchsorted(keys[order], ram_keys), 0, len(keys) - 1)]
+    if not np.array_equal(keys[ext], ram_keys):
+        raise AssertionError("a ram doc matches no ingested doc")
+    return ext, bool(np.array_equal(ext, np.arange(len(ext))))
+
+
+def sharded_phase(ram_eng, cfg, flush_every: int, queries, n_warm: int, want,
+                  fam_want: dict, rare: str, deleted: int, tasks: dict) -> dict:
+    """Phase 9 (see the module docstring): ``ShardedEngine("byte-pmem",
+    n_shards=SHARDS, backend="processes", use_wal=True)`` over the main
+    path's corpus (no ``_vec``), held to the ``ram`` engine's results
+    ``want`` (term batches) and ``fam_want`` (batch 0 of each family task)
+    in external-id space.  Returns its record."""
+    import shutil
+    import tempfile
+    import types
+
+    import torch
+
+    from repro_torch.core import ShardedEngine
+    from repro_torch.core.query import fused as fz
+    from repro_torch.core.query import live as lv
+    from repro_torch.core.query.plan import bucket_batch, plan_batch
+    from repro_torch.core.query.types import TopDocs
+    from repro_torch.data.corpus import synthetic_corpus
+
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-sharded-")
+    eng = None
+    try:
+        t = time.perf_counter()
+        eng = ShardedEngine("byte-pmem", tmp, n_shards=SHARDS, backend="processes",
+                            use_wal=True)  # the card, fused=True
+        start_s = time.perf_counter() - t
+        manifests = [0]
+        write_manifest = eng.shards.write_manifest
+
+        def counted_manifest(rec):
+            manifests[0] += 1
+            write_manifest(rec)
+
+        eng.shards.write_manifest = counted_manifest  # the ShardSet outlives a crash
+        contexts = {"start": card_is_coordinators(eng, "sharded start")}
+
+        def per_shard():
+            return eng.writer.stats()["per_shard"]
+
+        def heap(stats):
+            return [s_["directory"]["barriers"] - s_["directory"]["compactions"]
+                    for s_ in stats]
+
+        def clock_delta(after, before, side, op):
+            return [a["directory"]["clock"][side].get(op, 0.0)
+                    - b["directory"]["clock"][side].get(op, 0.0)
+                    for a, b in zip(after, before)]
+
+        def cross_commit(ctx):
+            before, m0 = per_shard(), manifests[0]
+            t = time.perf_counter()
+            epoch = eng.commit()
+            wall = time.perf_counter() - t
+            after = per_shard()
+            barriers = [a - b for a, b in zip(heap(after), heap(before))]
+            if barriers != [1] * SHARDS or manifests[0] - m0 != 1:
+                raise AssertionError(f"{ctx}: a commit issued barriers {barriers} and "
+                                     f"{manifests[0] - m0} manifest writes")
+            real = clock_delta(after, before, "real", "commit")
+            modeled = clock_delta(after, before, "modeled", "commit")
+            return {"epoch": epoch, "wall_s": wall, "barriers": barriers,
+                    "manifest_writes": 1, "real_s_by_shard": real,
+                    "modeled_s_by_shard": modeled,
+                    "buffered_docs": [s_["buffered"] for s_ in after]}
+
+        # ingest: acks of ACK_BATCH docs, a flush every flush_every docs but
+        # the last flush_every (a live tail), a commit halfway through it
+        gen = synthetic_corpus(cfg)
+        keys = np.empty(cfg.n_docs, np.int64)
+        tail_from = cfg.n_docs - flush_every
+        commit_at = tail_from + flush_every // 2
+        router = eng.writer.router
+        ack_ms, bad_acks, flush_s, reopen_s = [], [], [], []
+        added, ingest_s, commit = 0, 0.0, None
+        prev = heap(per_shard())
+        while added < cfg.n_docs:
+            batch = list(itertools.islice(gen, min(ACK_BATCH, cfg.n_docs - added)))
+            for j, (_, dv) in enumerate(batch, start=added):
+                keys[j] = doc_key(dv)
+            t = time.perf_counter()
+            eng.add_documents(batch)
+            dt = time.perf_counter() - t
+            ack_ms.append(dt * 1e3)
+            ingest_s += dt
+            hit = {router.route(f, dv, added + j) for j, (f, dv) in enumerate(batch)}
+            now = heap(per_shard())
+            delta = [a - b for a, b in zip(now, prev)]
+            if delta != [int(i in hit) for i in range(SHARDS)]:
+                bad_acks.append((added, delta))
+            added += len(batch)
+            if added <= tail_from and added % flush_every == 0:
+                t = time.perf_counter()
+                eng.flush()
+                dt = time.perf_counter() - t
+                ingest_s += dt
+                flush_s.append(dt)
+                reopen_s.append(eng.reopen())  # the slowest shard's
+            elif added == commit_at:
+                commit = cross_commit("commit with a live tail")
+            prev = heap(per_shard())
+        if bad_acks:
+            raise AssertionError(f"acks whose barriers were not one a receiving shard: "
+                                 f"{bad_acks[:5]} ({len(bad_acks)} in all)")
+        busy = eng.writer.shard_busy_s
+        n_deleted = eng.delete("body", rare)
+        if n_deleted != deleted:
+            raise AssertionError(f"the sharded delete of {rare!r} took {n_deleted} docs, "
+                                 f"ram's {deleted}")
+        reopen_s.append(eng.reopen())
+        torch.cuda.synchronize()
+        contexts["ingested"] = card_is_coordinators(eng, "sharded ingested")
+        ram_ext, in_order = ram_ext_ids(ram_eng, keys)
+
+        def check(got, wanted, ctx):
+            for g, w in zip(got, wanted):
+                ids = w.doc_ids if w.facets is not None else ram_ext[w.doc_ids]
+                same_topdocs(g, TopDocs(w.total_hits, ids, w.scores, facets=w.facets), ctx)
+
+        def term_loop(ctx):
+            lat = []
+            for i, (qs, w) in enumerate(zip(queries, want)):
+                t = time.perf_counter()
+                got = eng.search_batch(qs, k=K)
+                if i >= n_warm:
+                    lat.append(time.perf_counter() - t)
+                check(got, w, f"{ctx} term batch {i}")
+            lat = np.asarray(lat) * 1e3
+            return {"term_qps": BATCH * len(lat) / (lat.sum() / 1e3),
+                    "batch_p50_ms": float(np.percentile(lat, 50)),
+                    "batch_p99_ms": float(np.percentile(lat, 99))}
+
+        def family_loop(ctx, timed: bool):
+            out = {}
+            for name, batches in tasks.items():
+                check(eng.search_batch(batches[0], k=K), fam_want[name], f"{ctx} {name}")
+                if not timed:
+                    continue
+                lat = []
+                for qs in batches[FAMILY_WARM:]:
+                    t = time.perf_counter()
+                    eng.search_batch(qs, k=K)
+                    lat.append(time.perf_counter() - t)
+                lat = np.asarray(lat) * 1e3
+                out[name] = {"qps": BATCH * len(lat) / (lat.sum() / 1e3),
+                             "batch_p50_ms": float(np.percentile(lat, 50))}
+            return out
+
+        with_tail = term_loop("sharded live-tail")
+        families = family_loop("sharded live-tail", timed=True)
+
+        # launches around one batch (counts zeroed just before): the
+        # fan-out's equal the sum of each shard's own pass; each shard ran
+        # its family's kernel once a segment and once on its tail at most,
+        # K1 exactly once per segment and tail holding postings
+        views = eng.searcher.searchers
+        kernel_of = {"term": "term_topk", "bool": "bool_topk", "sort": "sort_topk",
+                     "range": "range_topk"}
+
+        def launches_of(fn):
+            reset_launch_counts()
+            fn()
+            torch.cuda.synchronize()
+            return {n: c for n, c in launch_counts().items() if c}
+
+        probe = [("Term", queries[n_warm])] + [(n, b[0]) for n, b in tasks.items()]
+        fan_total, launch_rec = {}, {}
+        for name, qs in probe:
+            fan = launches_of(lambda: eng.search_batch(qs, k=K))
+            per = [launches_of(lambda v=v: [v.execute_group(g, K)
+                                            for g in plan_batch(qs).groups])
+                   for v in views]
+            summed = {}
+            for p_ in per:
+                for n_, c in p_.items():
+                    summed[n_] = summed.get(n_, 0) + c
+            if summed != fan:
+                raise AssertionError(f"{name}: fan-out launches {fan} != shards' {summed}")
+            kind = plan_batch(qs).groups[0].kind
+            kname = kernel_of.get(kind) or (
+                "facet_hist" if kind == "facet" and qs[0].term is not None
+                else "facet_hist_match_all" if kind == "facet" else None)
+            if kname is not None:
+                for sid, (v, p_) in enumerate(zip(views, per)):
+                    if not 1 <= p_.get(kname, 0) <= len(v.segments) + 1:
+                        raise AssertionError(f"{name}: shard {sid} launched {kname} "
+                                             f"{p_.get(kname, 0)} times over "
+                                             f"{len(v.segments)} segments and a tail")
+            for n_, c in fan.items():
+                fan_total[n_] = fan_total.get(n_, 0) + c
+            launch_rec[name] = {"fan_out": fan, "per_shard": per}
+        qs = queries[n_warm]
+        pad = bucket_batch(len(qs)) - len(qs)
+        k1_expected = [len(fz._term_metas(v, qs, pad, True)) + len(fz._term_metas(
+            lv._CombinedView(v, [v._live_segment_for(qs, False)], fused=True), qs, pad, True))
+            for v in views]
+        if [p_.get("term_topk", 0) for p_ in launch_rec["Term"]["per_shard"]] != k1_expected:
+            raise AssertionError(f"K1 per shard {launch_rec['Term']['per_shard']} != "
+                                 f"segments and tails with postings {k1_expected}")
+
+        # the cross-shard merge alone, per group (two stable sorts on the card)
+        merge_ms = {}
+        for name, qs_ in probe:
+            for g in plan_batch(qs_).groups:
+                tds = [v.execute_group(g, K) for v in views]
+                eng.searcher._merge_shards(g, tds, K)
+                t = time.perf_counter()
+                for _ in range(MERGE_REPS):
+                    eng.searcher._merge_shards(g, tds, K)
+                torch.cuda.synchronize()
+                merge_ms[name] = (time.perf_counter() - t) / MERGE_REPS * 1e3
+
+        # K1 and K3-K6 bit-equal to their plain versions on one shard's
+        # largest segment, with cross-shard statistics
+        sid = max(range(SHARDS), key=lambda i: max(sg.n_docs for sg in views[i].segments))
+        shim = types.SimpleNamespace(searcher=views[sid], device=eng.device,
+                                     device_cache=eng.device_caches[sid])
+        seg, meta, args = term_kernel_args(shim, qs)
+        k1_shard = k1_record(args, meta, fan_total.get("term_topk", 0), "on a shard",
+                             {"segment_docs": seg.n_docs})
+        k3_k6_shard = doc_kernel_records(shim, tasks, fan_total, batch=0)
+        for r in k3_k6_shard:
+            r["bit_equal"] = True
+        storage = sum(f.stat().st_size for f in Path(tmp).rglob("*") if f.is_file())
+        device_bytes = resident_bytes(
+            x for c in eng.device_caches for st in c._store.values() for x in st.values()
+            if isinstance(x, torch.Tensor))
+        stats_before = per_shard()
+
+        # crash: one worker SIGKILLs itself after its commit; the torn wave
+        # raises before the manifest, and recovery rolls every shard back
+        manifest = eng.shards.read_manifest()
+        eng.writer.inject_fault(1, "kill_after_commit")
+        m0 = manifests[0]
+        try:
+            eng.commit()
+        except RuntimeError as e:
+            if "worker died" not in str(e):
+                raise
+        else:
+            raise AssertionError("a commit wave with a killed worker did not raise")
+        if manifests[0] != m0:
+            raise AssertionError("the torn commit wave wrote a manifest")
+        t = time.perf_counter()
+        eng = eng.crash_and_recover()
+        recover_reopen_s = eng.reopen()
+        torch.cuda.synchronize()
+        recover_s = time.perf_counter() - t
+        if eng.shards.read_manifest() != manifest or eng.writer.epoch != manifest["epoch"]:
+            raise AssertionError("recovery did not reopen at the previous manifest")
+        stats_after = per_shard()
+        replayed = [s_["wal"]["replayed"] for s_ in stats_after]
+        if eng.writer.next_ext != cfg.n_docs or eng.searcher.total_docs != cfg.n_docs:
+            raise AssertionError("acked docs lost in the sharded crash")
+        contexts["recovered"] = card_is_coordinators(eng, "sharded recovered")
+        after_recovery = term_loop("sharded recovered")
+        family_loop("sharded recovered", timed=False)
+        eng.flush()
+        flushed_reopen_s = eng.reopen()
+        flushed = term_loop("sharded flushed")
+        acks = np.asarray(ack_ms)
+        return {
+            "docs": cfg.n_docs, "shards": SHARDS, "backend": "processes",
+            "directory": "byte-pmem", "use_wal": True,
+            "ack_batch": ACK_BATCH, "acks": len(acks), "tail_docs": flush_every,
+            "engine_start_s": start_s,
+            "ingest_docs_per_s": cfg.n_docs / ingest_s,
+            "busy_s_by_shard": busy, "busy_balance_max_over_mean": max(busy) / np.mean(busy),
+            "ack_p50_ms": float(np.percentile(acks, 50)),
+            "ack_p99_ms": float(np.percentile(acks, 99)),
+            "barriers_per_ack": "one a shard that received docs (every ack checked)",
+            "flush_s": flush_s, "reopen_s_slowest_shard": reopen_s,
+            "commit": commit, "deleted": n_deleted,
+            "ram_ids_in_ingest_order": in_order,
+            "with_tail": with_tail, "families": families,
+            "launches": launch_rec, "merge_ms_per_group": merge_ms,
+            "k1_on_shard": k1_shard, "k3_k6_on_shard": k3_k6_shard, "shard": sid,
+            "storage_bytes": storage, "device_bytes": device_bytes,
+            "wal_appends_by_shard": [s_["wal"]["appends"] for s_ in stats_before],
+            "torn_commit": {"killed_shard": 1, "raised": True, "manifest_written": False},
+            "recover_s": recover_s, "recover_reopen_s_slowest_shard": recover_reopen_s,
+            "replayed_records_by_shard": replayed, "after_recovery": after_recovery,
+            "flushed_reopen_s_slowest_shard": flushed_reopen_s, "flushed": flushed,
+            "cuda_contexts": contexts, "topdocs_eq_ram": True, "families_eq_ram": True,
+            "topdocs_eq_ram_after_recovery": True,
+        }
+    finally:
+        if eng is not None:
+            eng.close()
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def forced_logits(params, cfg, prompt, tokens):
@@ -2225,9 +2623,19 @@ def main(argv=None) -> int:
     log("wal", dict(wal_phase(eng, cfg, table, args.flush_every, queries, n_warm,
                               fused_res, rare, tasks, smi),
                     seconds=time.perf_counter() - t_wal))
+    # the ram engine's results that phase 9 is held to, before the vector
+    # tail changes its statistics
+    fam_want = {name: eng.search_batch(b[0], k=K) for name, b in tasks.items()}
     log("vector_tail", vector_tail_phase(eng, vec_tasks, args.flush_every))
     log("persist_phase", {"seconds": time.perf_counter() - t,
                           "run_s": time.perf_counter() - t_start})
+
+    # 9. sharded indexing and fan-out search over four writer processes --
+    t = time.perf_counter()
+    log("sharded", dict(sharded_phase(eng, cfg, args.flush_every, queries, n_warm,
+                                      fused_res, fam_want, rare, deleted, tasks),
+                        card=smi, seconds=time.perf_counter() - t,
+                        run_s=time.perf_counter() - t_start))
     for r in records:
         log("kernel", r)
     print(json.dumps({"kernels": [public(r) for r in records]}), flush=True)

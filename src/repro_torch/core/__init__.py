@@ -1,6 +1,6 @@
 """Core of the port: ingest, segments, lifecycle, directories, writer, query
-execution, searcher, NRT manager and engine (mirrors ``repro/core``), with
-the reference's exports apart from sharding (ROADMAP queue 1, item 12)."""
+execution, searcher, NRT manager, engine and sharding (mirrors
+``repro/core``), with the reference's exports."""
 
 from repro_torch.core.analyzer import Analyzer, term_hash
 from repro_torch.core.columnar import ColumnarBuffer
@@ -25,6 +25,20 @@ from repro_torch.core.search import Searcher
 from repro_torch.core.query.types import TopDocs
 from repro_torch.core.nrt import SearcherManager
 from repro_torch.core.engine import SearchEngine
+from repro_torch.core.shard import (
+    HashFieldRouter,
+    HashIdRouter,
+    Router,
+    ShardSet,
+)
+from repro_torch.core.sharded import (
+    EXT_ID_FIELD,
+    ShardedEngine,
+    ShardedSearcher,
+    ShardedSearcherManager,
+    ShardedWriter,
+    ShardSearcher,
+)
 
 __all__ = [
     "CacheStats",
@@ -48,4 +62,14 @@ __all__ = [
     "TopDocs",
     "SearcherManager",
     "SearchEngine",
+    "Router",
+    "HashIdRouter",
+    "HashFieldRouter",
+    "ShardSet",
+    "EXT_ID_FIELD",
+    "ShardedWriter",
+    "ShardSearcher",
+    "ShardedSearcher",
+    "ShardedSearcherManager",
+    "ShardedEngine",
 ]

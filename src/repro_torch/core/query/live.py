@@ -126,6 +126,9 @@ class LiveSnapshot:
             self._bitmap = live
         return self._bitmap
 
+    def has_dv(self, key: str) -> bool:
+        return key in self._dv
+
     def dv_col(self, key: str) -> np.ndarray:
         """Doc-values column zero-padded to the snapshot's doc count, as
         ``flush`` would bake it (an unknown key is all zeros)."""

@@ -139,6 +139,7 @@ class Searcher:
         if self._live is not None:
             self.total_docs += self._live.n_docs
             tokens += self._live.total_tokens
+        self._local_tokens = tokens  # what CrossShardStats sums per shard
         self.avgdl = float(tokens) / max(self.total_docs, 1)
         # the tail's mini segments (per term set) and their device staging,
         # private to this point-in-time view

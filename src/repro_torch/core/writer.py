@@ -69,6 +69,11 @@ from repro_torch.core.segment import (
 )
 from repro_torch.storage.live_index import HeapArena, LiveIndex
 
+#: reserved doc-values column of a document's external id, written when the
+#: sharded layer routes it (``core/sharded.py``); WAL replay watches it so a
+#: recovered ``ShardedWriter`` re-derives its external-id watermark
+EXT_ID_FIELD = "_extid"
+
 #: reserved doc-values key of a dense vector (the reference's VECTOR_FIELD):
 #: the buffer keeps flat vector spans, the WAL logs them as column slices and
 #: flush makes them an (n_docs, dim) float32 doc-values column
@@ -118,6 +123,9 @@ class IndexWriter:
         self._wal_last_seq = 0     # newest record appended or replayed
         self._wal_flushed_seq = 0  # newest record fully baked into segments
         self.wal_stats: Dict[str, int] = {"appends": 0, "replayed": 0}
+        # highest external id in replayed batches (-1 = none): a recovered
+        # ShardedWriter advances its id watermark past it
+        self.replay_max_ext = -1
 
         # DRAM indexing buffer: columnar flat arrays (production path) or
         # the reference term -> [(doc, freq, positions)] dict (oracle path)
@@ -144,6 +152,7 @@ class IndexWriter:
         self._live_expected = None  # buffer counters the live index owes
         self._live_loans: List[weakref.ref] = []  # snapshots over _live
         self._live_gen = 0
+        self._live_epoch = 0  # buffer resets (flushes): mirrors resync on it
 
         self._infos = SegmentInfos.empty()
         self._seg_counter = 0
@@ -257,6 +266,7 @@ class IndexWriter:
         self._live_expected = None
         self._buf_dead = set()
         self._live_gen += 1
+        self._live_epoch += 1
 
     def live_snapshot(self):
         """Point-in-time handle over the acked-but-unflushed tail for the
@@ -283,6 +293,18 @@ class IndexWriter:
         self._live_loans = [r for r in self._live_loans if r() is not None]
         self._live_loans.append(weakref.ref(snap))
         return snap
+
+    @property
+    def live_generation(self) -> int:
+        """Bumped on every live-tail visibility change (append, delete,
+        flush reset): what the NRT manager watches on the no-flush path."""
+        return self._live_gen
+
+    @property
+    def live_epoch(self) -> int:
+        """Buffer lifetime counter (bumped per flush reset): how a
+        processes-backend mirror knows to resync from scratch."""
+        return self._live_epoch
 
     # ------------------------------------------------------------------
     def _recover(self) -> None:
@@ -341,7 +363,10 @@ class IndexWriter:
                 for ki, dloc, val in zip(
                     arrays["dv_key"], arrays["dv_doc"], arrays["dv_val"]
                 ):
-                    self._append_dv(int(dloc), keys[int(ki)], float(val))
+                    key = keys[int(ki)]
+                    self._append_dv(int(dloc), key, float(val))
+                    if key == EXT_ID_FIELD:
+                        self.replay_max_ext = max(self.replay_max_ext, int(val))
                 vdim = int(meta.get("vec_dim", 0))
                 if vdim:
                     self._ram_bytes += self._buf.extend_raw_vectors(

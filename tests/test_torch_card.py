@@ -10,6 +10,8 @@ where only PyTorch is installed.  Tolerance: 0 ULP (score bits, ids,
 counts), the contract ``chip_smoke.py`` also checks at full size.
 """
 
+from collections import Counter
+
 import numpy as np
 import pytest
 import torch
@@ -1024,3 +1026,108 @@ def test_vector_strict_norms_on_card(card, dim):
                        vk.hybrid_topk_tiles_plain(*args, 10, cosine, dim, **kw))
                 _equal(vk.hybrid_score_rows(*args, cosine, dim, **kw),
                        vk.hybrid_score_rows_plain(*args, cosine, dim, **kw))
+
+
+# ---------------------------------------------------------------------------
+# sharded fan-out on the card
+# ---------------------------------------------------------------------------
+
+
+def _sharded_docs(n=600, dim=24, seed=5):
+    """The port's synthetic corpus with a 24-dim vector on all but every
+    7th doc."""
+    from repro_torch.core.writer import VECTOR_FIELD
+    from repro_torch.data.corpus import CorpusConfig, synthetic_corpus
+
+    rng = np.random.default_rng(seed)
+    docs = []
+    for i, (fields, dv) in enumerate(synthetic_corpus(CorpusConfig(n_docs=n, vocab=300,
+                                                                   seed=seed))):
+        dv = dict(dv)
+        if i % 7 != 3:
+            dv[VECTOR_FIELD] = rng.standard_normal(dim).astype(np.float32)
+        docs.append((fields, dv))
+    return docs
+
+
+def _sharded_queries(docs, dim=24):
+    from repro_torch.core.analyzer import Analyzer
+    from repro_torch.core.query import types as q
+
+    an = Analyzer()
+    c = Counter()
+    for fields, _ in docs:
+        c.update(set(an.tokenize(fields["body"])))
+    toks = [t for t, _ in c.most_common(6)]
+    bigram = tuple(an.tokenize(docs[0][0]["body"])[:2])
+    rng = np.random.default_rng(9)
+    v = [tuple(float(x) for x in rng.standard_normal(dim)) for _ in range(2)]
+    T = q.TermQuery
+    return [
+        T("body", toks[0]), T("body", toks[5]),
+        q.BooleanQuery((T("body", toks[0]), T("body", toks[1])), "and"),
+        q.BooleanQuery((T("body", toks[2]), T("body", toks[3])), "or"),
+        q.PhraseQuery("body", bigram),
+        q.RangeQuery("month", 3, 7),
+        q.SortQuery(T("body", toks[0]), "timestamp"),
+        q.FacetQuery(None, "month", 12),
+        q.FacetQuery(T("body", toks[1]), "month", 12),
+        q.VectorQuery(v[0], "dot"), q.VectorQuery(v[1], "cosine"),
+        q.HybridQuery(T("body", toks[2]), q.VectorQuery(v[0], "dot"), 0.3),
+        q.HybridQuery(T("body", toks[2]), q.VectorQuery(v[1], "cosine"), 0.7),
+    ]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["serial", "processes"])
+def test_sharded_matches_unsharded_on_card(card, backend):
+    """Three shards against one index on the card, every family, vectors and
+    hybrid included: bit-equal in external-id space, committed segments and
+    live tails alike, with K1 and K3-K8 launched on every shard."""
+    from repro_torch.core import EXT_ID_FIELD, SearchEngine, ShardedEngine
+    from repro_torch.kernels import doc_topk as kd_
+    from repro_torch.kernels import vector_topk as kv_
+
+    docs = _sharded_docs()
+    un = SearchEngine("ram")
+    sh = ShardedEngine("ram", n_shards=3, backend=backend)
+    try:
+        for j in range(0, 450, 150):
+            for i, (fields, dv) in enumerate(docs[j: j + 150], start=j):
+                un.add(fields, {**dv, EXT_ID_FIELD: i})
+            un.flush()
+            sh.add_documents(docs[j: j + 150])
+            sh.flush()
+        for i, (fields, dv) in enumerate(docs[450:], start=450):
+            un.add(fields, {**dv, EXT_ID_FIELD: i})
+        sh.add_documents(docs[450:])  # a live tail on every shard
+        un.reopen()
+        sh.reopen()
+        cols = [np.asarray(s.doc_values[EXT_ID_FIELD]) for s in un.manager.infos.segments]
+        cols.append(un.manager.live.dv_col(EXT_ID_FIELD))
+        ext = np.concatenate(cols)
+        qs = _sharded_queries(docs)
+        for mod in (kt, kd_, kv_):
+            mod.reset_launches()
+        got = sh.search_batch(qs, k=10)
+        torch.cuda.synchronize()
+        launched = {**kt.launches, **kd_.launches, **kv_.launches}
+        for q, a, b in zip(qs, un.search_batch(qs, k=10), got):
+            ids = a.doc_ids if type(q).__name__ == "FacetQuery" else ext[a.doc_ids]
+            assert a.total_hits == b.total_hits, q
+            np.testing.assert_array_equal(ids, b.doc_ids, err_msg=repr(q))
+            np.testing.assert_array_equal(np.asarray(a.scores).view(np.int32),
+                                          np.asarray(b.scores).view(np.int32), err_msg=repr(q))
+            if a.facets is not None:
+                np.testing.assert_array_equal(a.facets, b.facets, err_msg=repr(q))
+        # one launch per shard segment and one per shard tail, per group
+        from repro_torch.core.query.plan import plan_batch
+
+        groups = Counter(g.kind for g in plan_batch(qs).groups)
+        per_group = sum(len(w.infos.segments) + 1 for w in sh.writer.writers)
+        for kind in ("term", "bool", "sort", "range", "vector", "hybrid"):
+            name = f"{kind}_topk"
+            assert launched[name] == groups[kind] * per_group, (name, launched)
+        assert launched["facet_hist"] >= groups["facet"] * per_group, launched
+    finally:
+        sh.close()

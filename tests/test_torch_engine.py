@@ -289,3 +289,86 @@ def test_term_sweep_with_one_document_segments(monkeypatch, fused, seed):
             _same(port.searcher.search_single(TermQuery("body", t), k=k),
                   r_single.searcher.search_single(RefTermQuery("body", t), k=k),
                   f"single {t} k={k}")
+
+
+# ---------------------------------------------------------------------------
+# test_fused_exec.py::test_fused_sharded_parity
+# ---------------------------------------------------------------------------
+
+
+def _sharded_build(make, docs):
+    """test_fused_exec.py::_build with ``n_shards=2``: doc by doc, a flush
+    every 80 docs, one term deleted, the last 60 docs a live tail."""
+    eng = make()
+    for i, (fields, dv) in enumerate(docs):
+        eng.add(fields, dv)
+        if (i + 1) % 80 == 0:
+            eng.flush()
+    eng.delete("body", _word(110))
+    eng.reopen()
+    return eng
+
+
+def _mixed_batch(m):
+    """test_fused_exec.py::_mixed_batch from package ``m``'s query types."""
+    highs = [_word(i) for i in (1, 2, 3)]
+    meds = [_word(i) for i in (20, 40, 60)]
+    T = m.TermQuery
+    return (
+        [T("body", t) for t in highs + meds[:2]]
+        + [m.BooleanQuery((T("body", a), T("body", b)), mode)
+           for mode in ("and", "or")
+           for a, b in [(highs[0], highs[1]), (highs[2], meds[0])]]
+        + [m.PhraseQuery("body", (highs[0], highs[1])),
+           m.PhraseQuery("body", (highs[0], highs[1], highs[2])),
+           m.PhraseQuery("body", (highs[0], "zzznope"))]
+        + [m.SortQuery(T("body", t), "timestamp") for t in highs]
+        + [m.RangeQuery("month", 2, 9), m.RangeQuery("month", 0, 5),
+           m.RangeQuery("month", 11, 3)]
+        + [m.FacetQuery(None, "month", 12),
+           m.FacetQuery(T("body", highs[0]), "month", 12),
+           m.FacetQuery(T("body", "zzznope"), "month", 12)]
+    )
+
+
+def _td_key(td):
+    return (int(td.total_hits), np.asarray(td.doc_ids).tolist(),
+            np.asarray(td.scores, np.float32).view(np.int32).tolist(),
+            None if td.facets is None else np.asarray(td.facets).tolist())
+
+
+@pytest.mark.parametrize("kind", ["ram", "fs-ssd", "byte-pmem"])
+def test_fused_sharded_parity(kind, tmp_path, monkeypatch):
+    """Two shards, every family: the reference's vmapped path and its Pallas
+    kernels (interpret mode) and the port's kernels' plain versions and eager
+    executors all give the same TopDocs bits."""
+    import repro.core.search as rq
+    from repro.core import ShardedEngine as RefSharded
+    from repro_torch.core import ShardedEngine
+    from repro_torch.core.query import types as pq
+
+    monkeypatch.setenv("REPRO_FUSED_KERNEL", "1")
+    docs = _docs()[:300]
+
+    def path(name):
+        return None if kind == "ram" else str(tmp_path / name)
+
+    want = None
+    for name, make, m in [
+        ("ref0", lambda: RefSharded(kind, path("ref0"), n_shards=2, use_pallas=False,
+                                    parallel=False), rq),
+        ("ref1", lambda: RefSharded(kind, path("ref1"), n_shards=2, use_pallas=True,
+                                    parallel=False), rq),
+        ("port1", lambda: ShardedEngine(kind, path("port1"), n_shards=2, device="cpu",
+                                        fused=True, parallel=False), pq),
+        ("port0", lambda: ShardedEngine(kind, path("port0"), n_shards=2, device="cpu",
+                                        fused=False, parallel=False), pq),
+    ]:
+        eng = _sharded_build(make, docs)
+        try:
+            got = [_td_key(td) for td in eng.search_batch(_mixed_batch(m), k=10)]
+        finally:
+            eng.close()
+        if want is None:
+            want = got
+        assert got == want, name

@@ -36,19 +36,22 @@ def test_no_jax_or_reference_imports(path):
 
 
 def test_persistence_modules_are_checked():
-    """The persistence modules (the WAL and the live tail's too) are among
-    the files checked above, and the packages export what the reference's
-    do (bar sharding)."""
+    """The persistence and sharding modules (the WAL's and the live tail's
+    too) are among the files checked above, and the packages export what
+    the reference's do."""
     checked = {p.relative_to(PORT).as_posix() for p in _port_files() if PORT in p.parents}
     assert {"storage/heap.py", "storage/wal.py", "storage/live_index.py",
-            "core/directory.py", "core/query/live.py", "serve/kv_segments.py"} <= checked
+            "core/directory.py", "core/query/live.py", "serve/kv_segments.py",
+            "core/shard.py", "core/ingest_backend.py", "core/sharded.py"} <= checked
     import repro_torch.core as core
     import repro_torch.storage as storage
 
     assert {"PersistentHeap", "DEVICE_MODELS", "SSD", "PMEM", "DRAM"} <= set(storage.__all__)
     assert {"FSDirectory", "ByteAddressableDirectory", "RAMDirectory", "SimClock",
             "SearchEngine", "SegmentDeviceCache", "build_segment_reference",
-            "merge_segments_reference"} <= set(core.__all__)
+            "merge_segments_reference", "Router", "HashIdRouter", "HashFieldRouter",
+            "ShardSet", "EXT_ID_FIELD", "ShardedWriter", "ShardSearcher",
+            "ShardedSearcher", "ShardedSearcherManager", "ShardedEngine"} <= set(core.__all__)
     assert all(hasattr(core, n) for n in core.__all__)
 
 
@@ -93,6 +96,27 @@ def test_default_device_is_the_card():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             resolve_device("cuda")
     assert SearchEngine(device="cpu").device.type == "cpu"
+
+
+def test_sharded_engine_default_device_is_the_card():
+    """``ShardedEngine()`` resolves its device as ``SearchEngine`` does, before
+    any shard or worker starts."""
+    from repro_torch.core import ShardedEngine
+
+    hopper = (torch.cuda.is_available()
+              and torch.cuda.get_device_capability() == (9, 0))
+    if hopper:
+        eng = ShardedEngine(backend="serial")
+        assert eng.device.type == "cuda"
+        assert all(c.device.type == "cuda" for c in eng.device_caches)
+        eng.close()
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            ShardedEngine(backend="processes")
+    eng = ShardedEngine(device="cpu", backend="serial")
+    assert eng.device.type == "cpu"
+    assert [c.device.type for c in eng.device_caches] == ["cpu", "cpu"]
+    eng.close()
 
 
 def test_cpu_tensors_take_the_plain_version():

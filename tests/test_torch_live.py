@@ -1,7 +1,7 @@
 """The port's search-at-ack (the live buffer tail) against the JAX package.
 
-Mirrors the unsharded cases of ``tests/test_live_search.py`` and
-``tests/test_live_properties.py`` and the live case of
+Mirrors ``tests/test_live_search.py`` (its sharded cases on every ingest
+backend), ``tests/test_live_properties.py`` and the live case of
 ``tests/test_vector_search.py``.  The default reopen serves the acked tail
 through a mini segment (``repro_torch/core/query/live.py``) without a flush.
 Each scenario runs on the reference (``use_pallas`` off, and on with its
@@ -615,3 +615,121 @@ def test_live_index_load_from_heap_matches_reference(tmp_path):
         out[n] = (got, None if torn is None else (torn.n_docs, torn.n_entries))
         heap.close()
     assert out["port"] == out["ref"]
+
+
+# ---------------------------------------------------------------------------
+# sharded: test_live_search.py::test_sharded_live_parity and
+# ::test_sharded_crash_keeps_tail_live
+# ---------------------------------------------------------------------------
+
+BACKENDS = ["serial", "threads", "processes"]
+
+
+def _sharded(name, kind, root, backend, fused=True, use_wal=False):
+    path = None if kind == "ram" else str(root)
+    if name == "ref":
+        from repro.core import ShardedEngine as RefSharded
+
+        return RefSharded(kind, path, n_shards=2, backend=backend, use_wal=use_wal)
+    from repro_torch.core import ShardedEngine
+
+    return ShardedEngine(kind, path, n_shards=2, device="cpu", fused=fused,
+                         backend=backend, use_wal=use_wal)
+
+
+def _port_modes(backend):
+    """The port's ``fused`` modes a sharded case runs: both in-process, the
+    kernels' path alone under processes (its workers import the package)."""
+    return (True,) if backend == "processes" else (True, False)
+
+
+def _sharded_live_parity(name, kind, root, docs, backend, fused):
+    """test_sharded_live_parity's record: the unsharded live engine (external
+    ids injected), the 2-shard fan-out over live tails, a delete before any
+    flush, then the flush-then-search oracle on the sharded side."""
+    m = rq if name == "ref" else pq
+    ext_field = "_extid"
+    queries = family_batch(m, docs)
+    use_wal = kind.startswith("byte")
+    un = _engine(name, kind, root / "un", fused, use_wal)
+    for i, (fields, dv) in enumerate(docs[:SPLIT]):
+        un.add(fields, {**dv, ext_field: i})
+    un.flush()
+    un.commit()
+    for i, (fields, dv) in enumerate(docs[SPLIT:], start=SPLIT):
+        un.add(fields, {**dv, ext_field: i})
+    un.reopen()
+    sh = _sharded(name, kind, root / "sh", backend, fused, use_wal)
+    try:
+        sh.add_documents(docs[:SPLIT])
+        sh.flush()
+        sh.commit()
+        sh.add_documents(docs[SPLIT:])
+        sh.reopen()
+        cols = [np.asarray(s.doc_values[ext_field]) for s in un.manager.infos.segments]
+        cols.append(un.manager.live.dv_col(ext_field))
+        rext = np.concatenate(cols)
+        facet = [type(q).__name__ == "FacetQuery" for q in queries]
+        rec = {"unsharded": [
+            key(td) if f else key(td)[:1] + (rext[td.doc_ids].tolist(),) + key(td)[2:]
+            for td, f in zip(un.search_batch(queries, k=25), facet)],
+            "sharded": keys(sh, queries)}
+        tok = queries[0].token
+        rec["deleted"] = (un.delete("body", tok), sh.delete("body", tok))
+        un.reopen()
+        sh.reopen()
+        rec["gone"] = (un.search(queries[0], k=25).total_hits,
+                       sh.search(queries[0], k=25).total_hits)
+        rec["before_flush"] = keys(sh, queries)
+        sh.flush()
+        sh.reopen()
+        rec["flushed"] = keys(sh, queries)
+        return rec
+    finally:
+        sh.close()
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("kind", KINDS)
+def test_sharded_live_parity(tmp_path, monkeypatch, kind, backend):
+    _kernels(monkeypatch, False)
+    docs = _corpus()
+    want = _sharded_live_parity("ref", kind, tmp_path / "ref", docs, backend, False)
+    assert want["sharded"] == want["unsharded"]
+    assert want["deleted"][0] == want["deleted"][1] and want["gone"] == (0, 0)
+    assert want["flushed"] == want["before_flush"]
+    for fused in _port_modes(backend):
+        got = _sharded_live_parity("port", kind, tmp_path / f"port{int(fused)}", docs,
+                                   backend, fused)
+        assert got == want, fused
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_sharded_crash_keeps_tail_live(tmp_path, monkeypatch, backend):
+    """Each shard's WAL replay rebuilds its live tail, and the recovered
+    fan-out serves it with no flush."""
+    _kernels(monkeypatch, False)
+    docs = _corpus()
+
+    def sc(name, root, fused):
+        m = rq if name == "ref" else pq
+        queries = family_batch(m, docs)
+        sh = _sharded(name, "byte-pmem", root, backend, fused, use_wal=True)
+        sh.add_documents(docs[:SPLIT])
+        sh.flush()
+        sh.commit()
+        sh.add_documents(docs[SPLIT:])
+        sh.reopen()
+        before = keys(sh, queries)
+        rec = sh.crash_and_recover()
+        try:
+            rec.reopen()
+            buffered = [mg.writer.buffered_docs for mg in rec.manager.managers]
+            return {"before": before, "after": keys(rec, queries), "buffered": buffered}
+        finally:
+            rec.close()
+
+    want = sc("ref", tmp_path / "ref", False)
+    assert all(b > 0 for b in want["buffered"]) and want["after"] == want["before"]
+    for fused in _port_modes(backend):
+        assert sc("port", tmp_path / f"port{int(fused)}", fused) == want, fused

@@ -756,3 +756,77 @@ def test_hybrid_sweep_with_one_document_segments(monkeypatch, fused, seed):
                 _same(g, w, f"batch k={k} {q}")
                 _same(port.searcher.search_single(_port_query(q), k=k),
                       ref.searcher.search_single(q, k=k), f"single k={k} {q}")
+
+
+# ---------------------------------------------------------------------------
+# sharded: test_hybrid.py and test_vector_search.py::test_sharded_*
+# ---------------------------------------------------------------------------
+
+
+def _port_build(kind, path, fused=True, n_shards=0, backend=None):
+    """test_vector_search.py::build on the port (``device="cpu"``)."""
+    from repro_torch.core import ShardedEngine
+
+    p = str(path) if path else None
+    if n_shards:
+        kw = dict(n_shards=n_shards, device="cpu", fused=fused)
+        if backend is None:
+            kw["parallel"] = False
+        else:
+            kw["backend"] = backend
+        eng = ShardedEngine(kind, p, **kw)
+    else:
+        eng = SearchEngine(kind, p, device="cpu", fused=fused)
+    for i, (fields, dv) in enumerate(vec_corpus()):
+        eng.add(fields, dv)
+        if (i + 1) % 90 == 0:
+            eng.flush()
+    eng.delete("body", "w5")
+    eng.reopen()
+    return eng
+
+
+def _sharded_case(kind, tmp_path, use_pallas, ref_build, qs, backend=None):
+    """The reference's sharded engine against its unsharded one (its test's
+    assertion), and the port's sharded engine against both, bit for bit."""
+    def path(name):
+        return None if kind == "ram" else tmp_path / name
+
+    ref = ref_build(kind, path("ref"), use_pallas)
+    kw = {} if backend is None else {"backend": backend}
+    ref_sh = ref_build(kind, path("ref_sh"), use_pallas, n_shards=2, **kw)
+    port_sh = _port_build(kind, path("port_sh"), use_pallas, n_shards=2, backend=backend)
+    try:
+        want = ref.search_batch(qs, k=10)
+        for q, a, b, c in zip(qs, want, ref_sh.search_batch(qs, k=10),
+                              port_sh.search_batch([_port_query(q) for q in qs], k=10)):
+            _same(b, a, f"reference sharded {q}")
+            _same(c, a, f"port sharded {q}")
+    finally:
+        ref_sh.close()
+        port_sh.close()
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_hybrid_sharded_matches_unsharded(use_pallas, tmp_path, monkeypatch):
+    from test_hybrid import build as hybrid_build
+
+    _kernels(monkeypatch, False)
+    _sharded_case("ram", tmp_path, use_pallas, hybrid_build, hybrid_queries())
+
+
+@pytest.mark.parametrize("kind", ["ram", "fs-ssd", "byte-pmem"])
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_vector_sharded_matches_unsharded(kind, use_pallas, tmp_path, monkeypatch):
+    from test_vector_search import build as vector_build
+
+    _kernels(monkeypatch, False)
+    _sharded_case(kind, tmp_path, use_pallas, vector_build, vector_queries())
+
+
+@pytest.mark.parametrize("backend", ["threads", "processes"])
+def test_vector_sharded_backends_match_unsharded(backend, tmp_path, monkeypatch):
+    from test_vector_search import build as vector_build
+
+    _kernels(monkeypatch, False)
+    _sharded_case("ram", tmp_path, False, vector_build, vector_queries(), backend)

@@ -1,8 +1,8 @@
 """The port's write-ahead ingest log (``use_wal``) against the JAX package.
 
-Mirrors the unsharded cases of ``tests/test_wal.py`` and
-``tests/test_wal_torn.py`` and the WAL cases of ``tests/test_vector_search.py``
-and ``tests/test_vector_properties.py``.  Each scenario runs on the reference
+Mirrors ``tests/test_wal.py`` and ``tests/test_wal_torn.py`` (their sharded
+cases on two shards of the serial backend) and the WAL cases of
+``tests/test_vector_search.py`` and ``tests/test_vector_properties.py``.  Each scenario runs on the reference
 (``use_pallas`` off) and on the port (``device="cpu"``, ``fused`` on and off)
 in directories of their own, and returns what the reference test looks at:
 ``TopDocs`` (doc ids, float32 score bits, ``total_hits``, facets) after the
@@ -61,11 +61,11 @@ def _side(name, root, fused=True):
         return types.SimpleNamespace(
             engine=lambda sub, kind="byte-pmem", use_wal=True: RefEngine(
                 kind, path(kind, sub), use_wal=use_wal),
-            q=rq, name=name)
+            q=rq, name=name, root=root)
     return types.SimpleNamespace(
         engine=lambda sub, kind="byte-pmem", use_wal=True: SearchEngine(
             kind, path(kind, sub), device="cpu", fused=fused, use_wal=use_wal),
-        q=pq, name=name)
+        q=pq, name=name, root=root)
 
 
 def key(td):
@@ -621,3 +621,109 @@ def test_directory_without_wal_flag_ignores_log(tmp_path):
     got = [(m, sorted(a)) for m, a in d.wal_replay()]
     assert got == want and [m["seq"] for m, _ in got] == [1, 2]
     d.close()
+
+
+# ---------------------------------------------------------------------------
+# sharded: test_wal.py::test_sharded_crash_after_acked_batches and
+# test_wal_torn.py::test_torn_write_recovers_acked_prefix_sharded
+# ---------------------------------------------------------------------------
+
+
+def _sharded_side(s, fused=True):
+    """``s`` with a factory of 2-shard WAL engines on the serial backend."""
+    if s.name == "ref":
+        from repro.core import EXT_ID_FIELD, ShardSet, ShardedEngine
+        kw = {}
+    else:
+        from repro_torch.core import EXT_ID_FIELD, ShardSet, ShardedEngine
+        kw = {"device": "cpu", "fused": fused}
+    return types.SimpleNamespace(
+        ext=EXT_ID_FIELD, ShardSet=ShardSet,
+        sharded=lambda path, **more: ShardedEngine(
+            "byte-pmem", path, n_shards=2, use_wal=True, parallel=False, **kw, **more))
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_sharded_crash_after_acked_batches(tmp_path, fused):
+    """Per-shard WALs recover every batch acked past the manifest; the
+    fan-out equals a never-crashed sharded engine and the unsharded one."""
+    docs = _corpus()
+
+    def drive(eng):
+        bs = batches(docs)
+        eng.add_documents(bs[0])
+        eng.add_documents(bs[1])
+        eng.commit()  # manifest at 60 docs
+        eng.add_documents(bs[2])
+        eng.add_documents(bs[3])  # acked past the manifest
+        return eng
+
+    def sc(s):
+        sd = _sharded_side(s, fused)
+        eng = drive(sd.sharded(os.path.join(s.root, "s")))
+        ref = drive(sd.sharded(os.path.join(s.root, "r")))
+        rec = eng.crash_and_recover()
+        try:
+            rec.reopen()
+            ref.reopen()
+            uns = s.engine("u")
+            for i, (fields, dv) in enumerate(docs):
+                uns.add({**fields}, {**dv, sd.ext: i})
+            uns.flush()
+            uns.reopen()
+            ext = np.concatenate([np.asarray(g.doc_values[sd.ext])
+                                  for g in uns.manager.infos.segments])
+            qs = family_queries(s.q, docs)
+            mapped = []
+            for q, td in zip(qs, [uns.search(q, k=40) for q in qs]):
+                kk = key(td)
+                if type(q).__name__ != "FacetQuery":
+                    kk = (kk[0], ext[td.doc_ids].tolist()) + kk[2:]
+                mapped.append(kk)
+            return {"next_ext": rec.writer.next_ext, "epoch": rec.writer.epoch,
+                    "rec": results(s, rec, docs), "ref": results(s, ref, docs),
+                    "unsharded": mapped,
+                    "manifest": rec.shards.read_manifest()}
+        finally:
+            rec.close()
+            ref.close()
+
+    rec = check_pair(sc, tmp_path, fused)
+    assert rec["next_ext"] == N_DOCS
+    assert rec["rec"] == rec["ref"] == rec["unsharded"]
+
+
+@settings(max_examples=8, **DERANDOMIZED)
+@given(sizes=st.lists(st.integers(2, 8), min_size=1, max_size=3),
+       inflight=st.integers(1, 5), frac=st.floats(0.0, 1.0),
+       torn_shard=st.integers(0, 1))
+def test_torn_write_recovers_acked_prefix_sharded(tmp_path_factory, sizes, inflight,
+                                                  frac, torn_shard):
+    """One shard's in-flight slice tears; a fresh ShardSet re-reads every
+    shard: the acked prefix is buffered, the id watermark is past it."""
+    tmp = tmp_path_factory.mktemp("torn-sh")
+
+    def sc(s):
+        sd = _sharded_side(s)
+        path = os.path.join(s.root, "s")
+        eng = sd.sharded(path)
+        for b in torn_docs(sizes):
+            eng.add_documents(b)
+        inflight_batch(eng.writer.writers[torn_shard], torn_docs([inflight], 100)[0])
+        tear(eng.shards.dirs[torn_shard], frac)
+        eng.writer.close()
+        rec = sd.sharded(None, shards=sd.ShardSet("byte-pmem", path, 2))
+        try:
+            out = {"buffered": [w.buffered_docs for w in rec.writer.writers],
+                   "next_ext": rec.writer.next_ext}
+            rec.reopen()
+            out["results"] = [key(rec.search(q, k=max(sum(sizes), 1)))
+                              for q in torn_queries(s.q)]
+            return out
+        finally:
+            rec.close()
+
+    want, got = [sc(s) for s in _pair(tmp, True)]
+    assert got == want
+    assert sum(got["buffered"]) == got["next_ext"] == sum(sizes)
+    assert got["results"][-1][0] == sum(sizes)
