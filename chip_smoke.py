@@ -180,7 +180,39 @@ Phases (any failure raises and the script exits non-zero):
               spawned with ``CUDA_VISIBLE_DEVICES=""`` and ``nvidia-smi``
               lists one compute app while they live (this process); the
               fan-out's launches are the shards' own, K1 once per shard
-              segment and tail with postings.
+              segment and tail with postings.  Phase 9 hands its recovered,
+              flushed engine to phase 10, which closes it.
+ 10. serve    the serving front end over phase 9's engine, with the
+              reference's ``benchmarks/serve_bench.py`` traffic: the
+              sequential service time of one query (capacity), then
+              SERVE_CLIENTS clients x SERVE_REQUESTS paced requests of the
+              mixed term / bool / range / facet stream (k=10) offered at
+              SERVE_OFFERED_FACTOR x capacity, latency from each request's
+              scheduled start, beside one ingest stream of SERVE_INGEST_BATCH
+              docs every SERVE_INGEST_GAP_S s (the corpus's next docs):
+              coalesced through ``SearchFrontend(max_wave=16,
+              reopen_lag_docs=50, reopen_lag_s=0.02)``, then uncoalesced (one
+              ``search_batch([q])`` at a time under a lock, a per-shard reopen
+              after each ack); a forced reopen; staged waves of 16 term, bool
+              and facet queries against one query each; windowed overload
+              clients with ``shed_watermark=16``, then with the watermark off;
+              last, shard 0's worker SIGKILLed at the next add.  Prints the
+              offered QPS, the sequential service ms, achieved QPS, p50/p99,
+              mean wave, waves, reopens, docs acked and stalls per run, the
+              workers' barriers, launches per run, served / shed and the
+              served p50/p99 per overload run, launches and device busy ms
+              per staged wave.  Checks: every response equals ``search_batch(
+              [q], k)`` on its own bound searcher bit for bit (run after the
+              frontend closed); every acked doc is live after the forced
+              reopen; waves <= queries, no wave above its cap; no pending-ack
+              bytes after the drain; K1, K3, K5 and K6 launched by the
+              coalesced run; a staged wave launches its kernel (K1, K3, K6)
+              as often as one query does, K1 once a shard segment and tail
+              with postings; the frontend's shed count equals the clients'
+              ``OverloadError``s and every accepted ticket resolves; the
+              killed worker surfaces as ``ShardFailedError`` (shard 0, op
+              ``add``) and search serves on with the same hits; the card
+              stays the coordinator's while the frontend serves.
 
 The line before the last is the ``{"kernels": [...]}`` record of all ten
 kernels; the last is ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -191,6 +223,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import itertools
 import json
 import os
@@ -292,6 +325,23 @@ ACK_VISIBLE_SAMPLES = 10  # acks of the live tail timed to visibility
 # default), one worker process each; the cross-shard merge timed over MERGE_REPS
 SHARDS = 4
 MERGE_REPS = 20
+# serve phase: the reference's benchmarks/serve_bench.py traffic (:59-82) over
+# phase 9's engine; the live stream is the corpus's next SERVE_STREAM_DOCS docs
+SERVE_CLIENTS = 6
+SERVE_REQUESTS = 80  # per client, paced runs
+SERVE_OFFERED_FACTOR = 3.0  # offered QPS over the calibrated sequential capacity
+SERVE_MAX_WAVE = 16
+SERVE_INGEST_BATCH = 50
+SERVE_INGEST_GAP_S = 0.02
+SERVE_STREAM_DOCS = 30_000
+SERVE_CALIBRATE = 30  # sequential queries timed for the capacity
+OVERLOAD_CLIENTS = 6
+OVERLOAD_WINDOW = 8  # outstanding requests a client
+OVERLOAD_REQUESTS = 60  # per client
+OVERLOAD_WATERMARK = 16
+OVERLOAD_MAX_WAVE = 8
+STAGED_WAVE = 16  # queries of one family staged into one wave
+SERVE_WAIT_S = 120.0  # every blocking wait of the phase is bounded by this
 
 
 def log(tag: str, obj) -> None:
@@ -1833,13 +1883,34 @@ def ram_ext_ids(ram_eng, keys: np.ndarray):
     return ext, bool(np.array_equal(ext, np.arange(len(ext))))
 
 
+def k1_expected(views, qs) -> list:
+    """K1 launches a term group of ``qs`` makes on each shard view: one a
+    segment and one on the live tail where a row holds postings."""
+    from repro_torch.core.query import fused as fz
+    from repro_torch.core.query import live as lv
+    from repro_torch.core.query.plan import bucket_batch
+
+    pad = bucket_batch(len(qs)) - len(qs)
+    out = []
+    for v in views:
+        n = len(fz._term_metas(v, qs, pad, True))
+        if v._live is not None:
+            tail = lv._CombinedView(v, [v._live_segment_for(qs, False)], fused=True)
+            n += len(fz._term_metas(tail, qs, pad, True))
+        out.append(n)
+    return out
+
+
 def sharded_phase(ram_eng, cfg, flush_every: int, queries, n_warm: int, want,
-                  fam_want: dict, rare: str, deleted: int, tasks: dict) -> dict:
+                  fam_want: dict, rare: str, deleted: int, tasks: dict):
     """Phase 9 (see the module docstring): ``ShardedEngine("byte-pmem",
     n_shards=SHARDS, backend="processes", use_wal=True)`` over the main
     path's corpus (no ``_vec``), held to the ``ram`` engine's results
     ``want`` (term batches) and ``fam_want`` (batch 0 of each family task)
-    in external-id space.  Returns its record."""
+    in external-id space.  Returns its record and, for phase 10, the
+    recovered and flushed engine, its directory and the corpus stream past
+    its last doc; on a failure it closes the engine and removes the
+    directory itself."""
     import shutil
     import tempfile
     import types
@@ -1847,14 +1918,13 @@ def sharded_phase(ram_eng, cfg, flush_every: int, queries, n_warm: int, want,
     import torch
 
     from repro_torch.core import ShardedEngine
-    from repro_torch.core.query import fused as fz
-    from repro_torch.core.query import live as lv
-    from repro_torch.core.query.plan import bucket_batch, plan_batch
+    from repro_torch.core.query.plan import plan_batch
     from repro_torch.core.query.types import TopDocs
     from repro_torch.data.corpus import synthetic_corpus
 
     tmp = tempfile.mkdtemp(prefix="chip-smoke-sharded-")
     eng = None
+    handed = False
     try:
         t = time.perf_counter()
         eng = ShardedEngine("byte-pmem", tmp, n_shards=SHARDS, backend="processes",
@@ -1900,8 +1970,9 @@ def sharded_phase(ram_eng, cfg, flush_every: int, queries, n_warm: int, want,
                     "buffered_docs": [s_["buffered"] for s_ in after]}
 
         # ingest: acks of ACK_BATCH docs, a flush every flush_every docs but
-        # the last flush_every (a live tail), a commit halfway through it
-        gen = synthetic_corpus(cfg)
+        # the last flush_every (a live tail), a commit halfway through it; the
+        # stream runs SERVE_STREAM_DOCS past the corpus for phase 10
+        gen = synthetic_corpus(dataclasses.replace(cfg, n_docs=cfg.n_docs + SERVE_STREAM_DOCS))
         keys = np.empty(cfg.n_docs, np.int64)
         tail_from = cfg.n_docs - flush_every
         commit_at = tail_from + flush_every // 2
@@ -2025,13 +2096,10 @@ def sharded_phase(ram_eng, cfg, flush_every: int, queries, n_warm: int, want,
                 fan_total[n_] = fan_total.get(n_, 0) + c
             launch_rec[name] = {"fan_out": fan, "per_shard": per}
         qs = queries[n_warm]
-        pad = bucket_batch(len(qs)) - len(qs)
-        k1_expected = [len(fz._term_metas(v, qs, pad, True)) + len(fz._term_metas(
-            lv._CombinedView(v, [v._live_segment_for(qs, False)], fused=True), qs, pad, True))
-            for v in views]
-        if [p_.get("term_topk", 0) for p_ in launch_rec["Term"]["per_shard"]] != k1_expected:
+        k1_want = k1_expected(views, qs)
+        if [p_.get("term_topk", 0) for p_ in launch_rec["Term"]["per_shard"]] != k1_want:
             raise AssertionError(f"K1 per shard {launch_rec['Term']['per_shard']} != "
-                                 f"segments and tails with postings {k1_expected}")
+                                 f"segments and tails with postings {k1_want}")
 
         # the cross-shard merge alone, per group (two stable sorts on the card)
         merge_ms = {}
@@ -2094,6 +2162,7 @@ def sharded_phase(ram_eng, cfg, flush_every: int, queries, n_warm: int, want,
         flushed_reopen_s = eng.reopen()
         flushed = term_loop("sharded flushed")
         acks = np.asarray(ack_ms)
+        handed = True
         return {
             "docs": cfg.n_docs, "shards": SHARDS, "backend": "processes",
             "directory": "byte-pmem", "use_wal": True,
@@ -2118,11 +2187,385 @@ def sharded_phase(ram_eng, cfg, flush_every: int, queries, n_warm: int, want,
             "flushed_reopen_s_slowest_shard": flushed_reopen_s, "flushed": flushed,
             "cuda_contexts": contexts, "topdocs_eq_ram": True, "families_eq_ram": True,
             "topdocs_eq_ram_after_recovery": True,
+        }, {"engine": eng, "dir": tmp, "stream": gen}
+    finally:
+        if not handed:
+            if eng is not None:
+                eng.close()
+            shutil.rmtree(tmp, ignore_errors=True)
+
+
+def client_queries(n: int, seed: int) -> list:
+    """The reference's serving client stream (``benchmarks/serve_bench.py``
+    ``_client_queries``, :113-130): term, boolean (and / or in turn), month
+    range and term-filtered month facet in turn, over vocabulary ids 1-59."""
+    from repro_torch.core.query.types import BooleanQuery, FacetQuery, RangeQuery, TermQuery
+    from repro_torch.data.corpus import _word
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        a, b = _word(int(rng.integers(1, 60))), _word(int(rng.integers(1, 60)))
+        fam = i % 4
+        if fam == 0:
+            out.append(TermQuery("body", a))
+        elif fam == 1:
+            out.append(BooleanQuery((TermQuery("body", a), TermQuery("body", b)),
+                                    "or" if i % 2 else "and"))
+        elif fam == 2:
+            out.append(RangeQuery("month", int(rng.integers(0, 6)), 11))
+        else:
+            out.append(FacetQuery(TermQuery("body", a), "month", 12))
+    return out
+
+
+def latency_stats(lat_s) -> dict:
+    ms = np.asarray(lat_s) * 1e3
+    return {"p50_ms": float(np.percentile(ms, 50)), "p99_ms": float(np.percentile(ms, 99))}
+
+
+def serve_phase(served: dict, n_live: int) -> dict:
+    """Phase 10 (see the module docstring): ``SearchFrontend`` over phase 9's
+    engine ``served["engine"]``, which holds ``n_live`` live docs, with the
+    corpus stream ``served["stream"]`` as its live ingest.  Closes the engine
+    and removes its directory, also on a failure.  Returns its record."""
+    import shutil
+    import threading
+
+    import torch
+
+    from repro_torch.core.query.types import BooleanQuery, FacetQuery, RangeQuery, TermQuery
+    from repro_torch.data.corpus import _word
+    from repro_torch.serve import OverloadError, SearchFrontend, ShardFailedError
+
+    eng = served["engine"]
+    try:
+        t = time.perf_counter()
+        stream = list(served["stream"])  # the corpus's next docs
+        stream_s = time.perf_counter() - t
+        fault_batch = stream[-SERVE_INGEST_BATCH:]  # the last ack, into a killed worker
+        stream = stream[:-SERVE_INGEST_BATCH]
+        pos = [0]
+        match_all = RangeQuery("month", 0, 11)
+
+        def live_hits() -> int:
+            return eng.searcher.search_batch([match_all], k=1)[0].total_hits
+
+        if live_hits() != n_live:
+            raise AssertionError(f"serve: phase 9's engine holds {live_hits()} live docs, "
+                                 f"not {n_live}")
+
+        def stats_by_shard():
+            # the workers' own stats (their directories' barriers): read only
+            # while no frontend runs, the pipes carry one request at a time
+            return [(s_["directory"]["barriers"], s_["wal"]["appends"])
+                    for s_ in eng.writer.stats()["per_shard"]]
+
+        def oracle(answered, ctx):
+            # each response against search_batch([q], k) on its own bound
+            # searcher, run after the frontend closed
+            for i, (q, k, td, searcher) in enumerate(answered):
+                same_topdocs(td, searcher.search_batch([q], k=k)[0], f"{ctx} {i} {q!r}")
+
+        # warm every (family, bucket) shape both dispatchers hit, then the
+        # sequential capacity (benchmarks/serve_bench.py _warm, _calibrate)
+        warm = client_queries(SERVE_MAX_WAVE * 4, 999)
+        for size in (1, 2, 4, 8, SERVE_MAX_WAVE):
+            eng.searcher.search_batch(warm[:size], k=K)
+        cal = client_queries(SERVE_CALIBRATE, 999)
+        t = time.perf_counter()
+        for q in cal:
+            eng.searcher.search_batch([q], k=K)
+        service_s = (time.perf_counter() - t) / len(cal)
+        offered = SERVE_OFFERED_FACTOR / service_s
+
+        def paced(coalesced: bool) -> dict:
+            """SERVE_CLIENTS paced clients and one ingest stream, through a
+            frontend or one ``search_batch([q])`` at a time under a lock with
+            a per-shard reopen after each ack; latency from each request's
+            scheduled start."""
+            fe = SearchFrontend(eng, max_wave=SERVE_MAX_WAVE, shed_watermark=1 << 30,
+                                reopen_lag_docs=SERVE_INGEST_BATCH,
+                                reopen_lag_s=0.02) if coalesced else None
+            lock = threading.Lock()
+            interval = SERVE_CLIENTS / offered
+            lat = [[] for _ in range(SERVE_CLIENTS)]
+            answered, errors = [], []
+            acked = {"docs": 0, "acks": 0, "ack_ms": []}
+            stop = threading.Event()
+
+            def client(cid):
+                mine = []
+                try:
+                    for i, q in enumerate(client_queries(SERVE_REQUESTS, seed=cid)):
+                        sched = t_start + (i * SERVE_CLIENTS + cid) * interval / SERVE_CLIENTS
+                        now = time.perf_counter()
+                        if sched > now:
+                            time.sleep(sched - now)
+                        if coalesced:
+                            req = fe.submit(q, k=K)
+                            td, bound_to = req.result(SERVE_WAIT_S), req.searcher
+                        else:
+                            with lock:
+                                bound_to = eng.manager.searcher
+                                td = bound_to.search_batch([q], k=K)[0]
+                        lat[cid].append(time.perf_counter() - sched)
+                        mine.append((q, K, td, bound_to))
+                except Exception as exc:  # re-raised by the phase below
+                    errors.append(exc)
+                answered.extend(mine)
+
+            def ingester():
+                try:
+                    while not stop.is_set() and pos[0] < len(stream):
+                        batch = stream[pos[0]: pos[0] + SERVE_INGEST_BATCH]
+                        pos[0] += len(batch)
+                        t_ = time.perf_counter()
+                        if coalesced:
+                            ids = fe.ingest(batch, timeout=SERVE_WAIT_S)
+                        else:
+                            with lock:
+                                ids = eng.writer.add_documents(batch)
+                                for sid in range(eng.n_shards):
+                                    eng.manager.maybe_reopen(shard=sid)
+                        acked["ack_ms"].append((time.perf_counter() - t_) * 1e3)
+                        if len(ids) != len(batch):
+                            raise AssertionError(f"an ack of {len(batch)} docs returned "
+                                                 f"{len(ids)} ids")
+                        acked["docs"] += len(batch)
+                        acked["acks"] += 1
+                        stop.wait(SERVE_INGEST_GAP_S)
+                except Exception as exc:
+                    errors.append(exc)
+
+            before = stats_by_shard()
+            threads = [threading.Thread(target=client, args=(c,))
+                       for c in range(SERVE_CLIENTS)]
+            ing = threading.Thread(target=ingester)
+            reset_launch_counts()
+            t_start = time.perf_counter() + 0.02
+            wall0 = time.perf_counter()
+            for th in threads:
+                th.start()
+            ing.start()
+            coordinators = card_is_coordinators(eng, "serving") if coalesced else None
+            for th in threads:
+                th.join()
+            stop.set()
+            ing.join()
+            wall = time.perf_counter() - wall0
+            st = None
+            if coalesced:
+                fe.drain(SERVE_WAIT_S)
+                pending = fe.pending_ack_bytes
+                st = fe.stats()
+                fe.close()
+            torch.cuda.synchronize()
+            launches = {n: c for n, c in launch_counts().items() if c}
+            if errors:
+                raise errors[0]
+            after = stats_by_shard()
+            n_req = sum(len(c) for c in lat)
+            if n_req != SERVE_CLIENTS * SERVE_REQUESTS or len(answered) != n_req:
+                raise AssertionError(f"paced run answered {n_req} of "
+                                     f"{SERVE_CLIENTS * SERVE_REQUESTS} requests")
+            rec = {"offered_qps": offered, "achieved_qps": n_req / wall, "wall_s": wall,
+                   "requests": n_req, **latency_stats([x for c in lat for x in c]),
+                   "docs_ingested": acked["docs"], "acks": acked["acks"],
+                   **({f"ack_{k_}": v for k_, v in latency_stats(
+                       np.asarray(acked["ack_ms"]) / 1e3).items()} if acked["acks"] else {}),
+                   "barriers_by_shard": [a[0] - b[0] for a, b in zip(after, before)],
+                   "wal_appends_by_shard": [a[1] - b[1] for a, b in zip(after, before)],
+                   "launches": launches}
+            if coalesced:
+                if st["waves"] > st["queries"] or st["max_wave_seen"] > SERVE_MAX_WAVE:
+                    raise AssertionError(f"serve: {st['waves']} waves for {st['queries']} "
+                                         f"queries, largest {st['max_wave_seen']}")
+                if pending != 0 or st["ingest_docs"] != acked["docs"]:
+                    raise AssertionError(f"serve: {pending} pending-ack bytes after the "
+                                         f"drain, {st['ingest_docs']} docs acked of "
+                                         f"{acked['docs']}")
+                if st["wal_acked_records"] != 0:
+                    raise AssertionError("serve: the WAL ack ledger moved under the "
+                                         "processes backend (its barrier is the worker's)")
+                missing = [n for n in ("term_topk", "bool_topk", "range_topk", "facet_hist")
+                           if not launches.get(n)]
+                if missing:
+                    raise AssertionError(f"serve: kernels of the waves never launched: "
+                                         f"{missing} ({launches})")
+                rec.update(mean_wave=st["mean_wave"], waves=int(st["waves"]),
+                           max_wave_seen=int(st["max_wave_seen"]),
+                           reopens=int(st["reopens"]), ingest_stalls=int(st["ingest_stalls"]),
+                           wal_acked_records=int(st["wal_acked_records"]),
+                           cuda_contexts=coordinators)
+            else:
+                rec.update(mean_wave=1.0, waves=n_req, reopens=acked["acks"],
+                           ingest_stalls=None)
+            t_ = time.perf_counter()
+            oracle(answered, "coalesced" if coalesced else "uncoalesced")
+            rec["oracle_s"] = time.perf_counter() - t_
+            return rec
+
+        coalesced = paced(True)
+        uncoalesced = paced(False)
+        acked_docs = coalesced["docs_ingested"] + uncoalesced["docs_ingested"]
+        eng.reopen()  # forced: every shard
+        visible = live_hits()
+        if visible != n_live + acked_docs:
+            raise AssertionError(f"serve: {visible} live docs after the forced reopen, "
+                                 f"{n_live} + {acked_docs} acked")
+
+        # staged waves: one family's STAGED_WAVE queries queued before the
+        # dispatcher starts, against one query of the family alone
+        def staged(qs) -> dict:
+            fe = SearchFrontend(eng, max_wave=STAGED_WAVE, reopen_lag_docs=1 << 30,
+                                reopen_lag_s=1e9, start=False)
+            reqs = [fe.submit(q, k=K) for q in qs]
+
+            def run():
+                fe.start()
+                fe.drain(SERVE_WAIT_S)
+
+            reset_launch_counts()
+            prof = device_profile(run)
+            launches = {n: c for n, c in launch_counts().items() if c}
+            st = fe.stats()
+            fe.close()
+            if st["waves"] != 1 or st["max_wave_seen"] != len(qs):
+                raise AssertionError(f"serve: {len(qs)} staged queries ran in "
+                                     f"{st['waves']} waves")
+            oracle([(r.query, r.k, r.result(0), r.searcher) for r in reqs], "staged")
+            return {"launches": launches, "device_busy_ms": prof["device_busy_ms"],
+                    "wall_ms": prof["wall_ms"]}
+
+        T = TermQuery
+        words16 = [_word(i) for i in range(1, STAGED_WAVE + 2)]
+        families = {
+            "term": ("term_topk", [T("body", w) for w in words16[:-1]]),
+            "bool": ("bool_topk", [BooleanQuery((T("body", a), T("body", b)), "and")
+                                   for a, b in zip(words16, words16[1:])]),
+            "facet": ("facet_hist", [FacetQuery(T("body", w), "month", 12)
+                                     for w in words16[:-1]]),
+        }
+        waves = {}
+        views = eng.searcher.searchers
+        for fam, (kname, qs) in families.items():
+            wave, one = staged(qs), staged(qs[:1])
+            if not wave["launches"].get(kname) or \
+                    wave["launches"].get(kname) != one["launches"].get(kname):
+                raise AssertionError(f"serve: a staged {fam} wave launched {kname} "
+                                     f"{wave['launches'].get(kname)} times, one query "
+                                     f"{one['launches'].get(kname)}")
+            waves[fam] = {"queries": len(qs), "wave": wave, "single": one}
+        k1_want = sum(k1_expected(views, families["term"][1]))
+        if waves["term"]["wave"]["launches"]["term_topk"] != k1_want:
+            raise AssertionError(f"serve: the term wave launched K1 "
+                                 f"{waves['term']['wave']['launches']['term_topk']} times, "
+                                 f"not once a shard segment and tail with postings "
+                                 f"({k1_want})")
+
+        def overload(watermark: int) -> dict:
+            """OVERLOAD_CLIENTS windowed clients (OVERLOAD_WINDOW outstanding
+            each, no pacing) against ``shed_watermark=watermark``."""
+            fe = SearchFrontend(eng, max_wave=OVERLOAD_MAX_WAVE, shed_watermark=watermark,
+                                reopen_lag_docs=1 << 30, reopen_lag_s=1e9)
+            shed = [0] * OVERLOAD_CLIENTS
+            lat, answered, errors = [], [], []
+
+            def client(cid):
+                window, mine, mlat = [], [], []
+                try:
+                    for q in client_queries(OVERLOAD_REQUESTS, seed=100 + cid):
+                        try:
+                            window.append((time.perf_counter(), fe.submit(q, k=K)))
+                        except OverloadError:
+                            shed[cid] += 1
+                        if len(window) >= OVERLOAD_WINDOW:
+                            t0, tk = window.pop(0)
+                            mine.append((tk.query, tk.k, tk.result(SERVE_WAIT_S), tk.searcher))
+                            mlat.append(time.perf_counter() - t0)
+                    for t0, tk in window:
+                        mine.append((tk.query, tk.k, tk.result(SERVE_WAIT_S), tk.searcher))
+                        mlat.append(time.perf_counter() - t0)
+                except Exception as exc:
+                    errors.append(exc)
+                answered.extend(mine)
+                lat.extend(mlat)
+
+            threads = [threading.Thread(target=client, args=(c,))
+                       for c in range(OVERLOAD_CLIENTS)]
+            wall0 = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            wall = time.perf_counter() - wall0
+            fe.drain(SERVE_WAIT_S)
+            st = fe.stats()
+            fe.close()
+            if errors:
+                raise errors[0]
+            offered_n = OVERLOAD_CLIENTS * OVERLOAD_REQUESTS
+            if st["shed"] != sum(shed) or len(answered) != offered_n - sum(shed):
+                raise AssertionError(f"overload: the frontend shed {st['shed']}, clients "
+                                     f"caught {sum(shed)}, {len(answered)} of "
+                                     f"{offered_n - sum(shed)} accepted resolved")
+            if st["max_wave_seen"] > OVERLOAD_MAX_WAVE:
+                raise AssertionError(f"overload: a wave of {st['max_wave_seen']}")
+            t_ = time.perf_counter()
+            oracle(answered, f"overload {watermark}")
+            return {"watermark": watermark if watermark < (1 << 20) else 0,
+                    "offered": offered_n, "served": len(answered), "shed": sum(shed),
+                    "shed_seen_by_frontend": int(st["shed"]),
+                    "achieved_qps": len(answered) / wall,
+                    **{f"{k_}_served": v for k_, v in latency_stats(lat).items()},
+                    "waves": int(st["waves"]), "mean_wave": st["mean_wave"],
+                    "max_wave_seen": int(st["max_wave_seen"]),
+                    "oracle_s": time.perf_counter() - t_}
+
+        shedding = overload(OVERLOAD_WATERMARK)
+        control = overload(1 << 30)
+        if control["shed"] != 0:
+            raise AssertionError(f"overload control shed {control['shed']} requests")
+
+        # the fault surface: shard 0's worker SIGKILLs itself at the next add
+        fe = SearchFrontend(eng, reopen_lag_docs=1 << 30, reopen_lag_s=1e9)
+        before = fe.search(match_all, k=1, timeout=SERVE_WAIT_S)
+        eng.writer.inject_fault(0, "kill_before_add")
+        try:
+            fe.ingest(fault_batch, timeout=SERVE_WAIT_S)
+        except ShardFailedError as exc:
+            failed = exc
+        else:
+            raise AssertionError("serve: an ingest into a killed worker did not raise")
+        if failed.sids != (0,) or failed.op != "add" or fe.failed_shards != (0,):
+            raise AssertionError(f"serve: the killed worker surfaced as {failed!r} "
+                                 f"(sids {failed.sids}, op {failed.op!r}), failed "
+                                 f"shards {fe.failed_shards}")
+        after = fe.search(match_all, k=1, timeout=SERVE_WAIT_S)
+        fe.close()
+        if after.total_hits != before.total_hits:
+            raise AssertionError(f"serve: {after.total_hits} hits after the shard died, "
+                                 f"{before.total_hits} before")
+        return {
+            "docs_before": n_live, "shards": eng.n_shards, "backend": "processes",
+            "directory": "byte-pmem", "use_wal": True, "k": K,
+            "stream_docs_made": len(stream) + len(fault_batch),
+            "stream_docs_left": len(stream) - pos[0], "stream_gen_s": stream_s,
+            "sequential_service_ms": service_s * 1e3, "offered_qps": offered,
+            "coalesced": coalesced, "uncoalesced": uncoalesced,
+            "docs_acked": acked_docs, "live_docs_after_reopen": visible,
+            "staged_waves": waves, "k1_expected_term_wave": k1_want,
+            "overload_shedding": shedding, "overload_control": control,
+            "fault": {"killed_shard": 0, "error": type(failed).__name__,
+                      "sids": list(failed.sids), "op": failed.op,
+                      "hits_before": int(before.total_hits),
+                      "hits_after": int(after.total_hits)},
+            "every_response_eq_oracle": True,
         }
     finally:
-        if eng is not None:
-            eng.close()
-        shutil.rmtree(tmp, ignore_errors=True)
+        eng.close()
+        shutil.rmtree(served["dir"], ignore_errors=True)
 
 
 def forced_logits(params, cfg, prompt, tokens):
@@ -2632,10 +3075,15 @@ def main(argv=None) -> int:
 
     # 9. sharded indexing and fan-out search over four writer processes --
     t = time.perf_counter()
-    log("sharded", dict(sharded_phase(eng, cfg, args.flush_every, queries, n_warm,
-                                      fused_res, fam_want, rare, deleted, tasks),
-                        card=smi, seconds=time.perf_counter() - t,
+    sharded, served = sharded_phase(eng, cfg, args.flush_every, queries, n_warm,
+                                    fused_res, fam_want, rare, deleted, tasks)
+    log("sharded", dict(sharded, card=smi, seconds=time.perf_counter() - t,
                         run_s=time.perf_counter() - t_start))
+
+    # 10. the serving front end over phase 9's engine, which it closes ----
+    t = time.perf_counter()
+    log("serve", dict(serve_phase(served, cfg.n_docs - deleted), card=smi,
+                      seconds=time.perf_counter() - t, run_s=time.perf_counter() - t_start))
     for r in records:
         log("kernel", r)
     print(json.dumps({"kernels": [public(r) for r in records]}), flush=True)

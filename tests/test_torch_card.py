@@ -1131,3 +1131,100 @@ def test_sharded_matches_unsharded_on_card(card, backend):
         assert launched["facet_hist"] >= groups["facet"] * per_group, launched
     finally:
         sh.close()
+
+
+# ---------------------------------------------------------------------------
+# the serving front end on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_frontend_waves_match_oracles_on_card(card, tmp_path):
+    """Threads submit every lexical family with vector and hybrid queries to a
+    ``SearchFrontend`` over two ``byte-pmem`` shards with the WAL while acks
+    arrive and the lag policy reopens: each response equals its serial oracle
+    at its bound snapshot, bit for bit.  Then a staged wave of 16 term
+    queries launches K1 as often as one term query does: once per shard
+    segment and shard tail."""
+    import threading
+
+    from repro_torch.core import ShardedEngine
+    from repro_torch.core.query import types as q
+    from repro_torch.serve import SearchFrontend
+
+    docs = _sharded_docs()
+    eng = ShardedEngine("byte-pmem", str(tmp_path / "s"), n_shards=2, backend="serial",
+                        use_wal=True)
+    try:
+        for j in range(0, 300, 150):
+            eng.add_documents(docs[j: j + 150])
+            eng.flush()
+        eng.commit()
+        eng.reopen()
+        qs = _sharded_queries(docs)
+        fe = SearchFrontend(eng, max_wave=16, reopen_lag_docs=50, reopen_lag_s=0.005)
+        done, errors = [], []
+
+        def client(cid):
+            try:
+                mine = [fe.submit(qs[(cid + i) % len(qs)], k=(5, 10, 20)[i % 3])
+                        for i in range(3 * len(qs))]
+                for r in mine:
+                    r.result(120)
+                done.extend(mine)
+            except Exception as exc:  # pragma: no cover - failure path
+                errors.append(exc)
+
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(3)]
+        for t in threads:
+            t.start()
+        for j in range(300, len(docs), 50):
+            fe.ingest(docs[j: j + 50], timeout=120)
+        for t in threads:
+            t.join(120)
+        fe.reopen(timeout=120)
+        probe = fe.search(q.RangeQuery("month", 0, 11), k=1, timeout=120)
+        stats = fe.stats()
+        fe.close()
+        assert not errors, errors
+        assert probe.total_hits == len(docs)
+        assert stats["waves"] <= stats["queries"] and stats["reopens"] >= 1
+        assert stats["wal_acked_records"] >= stats["ingest_batches"]
+        for r in done:
+            got, want = r.result(0), r.searcher.search_batch([r.query], k=r.k)[0]
+            assert got.total_hits == want.total_hits, r.query
+            np.testing.assert_array_equal(got.doc_ids, want.doc_ids, err_msg=repr(r.query))
+            np.testing.assert_array_equal(np.asarray(got.scores).view(np.int32),
+                                          np.asarray(want.scores).view(np.int32),
+                                          err_msg=repr(r.query))
+            if want.facets is not None:
+                np.testing.assert_array_equal(got.facets, want.facets, err_msg=repr(r.query))
+
+        # the staged wave: 16 of the commonest terms against the commonest alone
+        from repro_torch.core.analyzer import Analyzer
+
+        c = Counter()
+        for fields, _ in docs:
+            c.update(set(Analyzer().tokenize(fields["body"])))
+        terms = [q.TermQuery("body", t) for t, _ in c.most_common(16)]
+        kt.reset_launches()
+        eng.searcher.search_batch(terms[:1], k=10)
+        torch.cuda.synchronize()
+        one = kt.launches["term_topk"]
+        fe = SearchFrontend(eng, max_wave=16, reopen_lag_docs=1 << 30, reopen_lag_s=1e9,
+                            start=False)
+        reqs = [fe.submit(t, k=10) for t in terms]
+        kt.reset_launches()
+        fe.start()
+        fe.drain(120)
+        torch.cuda.synchronize()
+        wave = kt.launches["term_topk"]
+        stats = fe.stats()
+        fe.close()
+        assert stats["waves"] == 1 and stats["max_wave_seen"] == 16
+        assert wave == one == sum(len(w.infos.segments) + 1 for w in eng.writer.writers)
+        for r in reqs:
+            want = r.searcher.search_batch([r.query], k=10)[0]
+            np.testing.assert_array_equal(r.result(0).doc_ids, want.doc_ids)
+    finally:
+        eng.close()

@@ -42,7 +42,8 @@ def test_persistence_modules_are_checked():
     checked = {p.relative_to(PORT).as_posix() for p in _port_files() if PORT in p.parents}
     assert {"storage/heap.py", "storage/wal.py", "storage/live_index.py",
             "core/directory.py", "core/query/live.py", "serve/kv_segments.py",
-            "core/shard.py", "core/ingest_backend.py", "core/sharded.py"} <= checked
+            "core/shard.py", "core/ingest_backend.py", "core/sharded.py",
+            "serve/search_frontend.py"} <= checked
     import repro_torch.core as core
     import repro_torch.storage as storage
 
@@ -53,6 +54,17 @@ def test_persistence_modules_are_checked():
             "ShardSet", "EXT_ID_FIELD", "ShardedWriter", "ShardSearcher",
             "ShardedSearcher", "ShardedSearcherManager", "ShardedEngine"} <= set(core.__all__)
     assert all(hasattr(core, n) for n in core.__all__)
+
+
+def test_serve_exports_what_the_reference_exports():
+    """``repro_torch.serve`` exports the serving front end's six names beside
+    the LM serving ones."""
+    import repro_torch.serve as serve
+
+    assert {"FrontendClosed", "OverloadError", "PendingIngest", "PendingSearch",
+            "SearchFrontend", "ShardFailedError", "KVSegmentStore", "Request",
+            "ServeEngine"} == set(serve.__all__)
+    assert all(hasattr(serve, n) for n in serve.__all__)
 
 
 def test_import_loads_no_jax_and_builds_nothing():
