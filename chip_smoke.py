@@ -91,6 +91,31 @@ Phases (any failure raises and the script exits non-zero):
               version (2e-5 float32, 2e-2 bf16) at the engine's shape and at
               a 32,768-position cache, with SDPA as the library call, and
               one launch a call in the trace.
+              Then the MLA and MoE models at their published widths, one
+              at a time (each built after the previous one is freed):
+              minicpm3-4b (MLA, 62 layers), moonshot-v1-16b-a3b (64 experts,
+              top 6, 48 layers) and phi3.5-moe-42b-a6.6b (16 experts, top 2)
+              at 24 of its 32 layers, bf16 weights seeded on the card.  For
+              each: the decode path against ``lm_forward`` at 2 layers in
+              float32 with TF32 off (its own weights, 64 tokens, MoE capacity
+              raised so no pair drops; within LM_FWD_BOUND); ``lm_prefill``
+              at B 1, S 2,048 (median ms of 3, tokens/s) and ``lm_loss`` on
+              the same tokens (finite, beside ln(vocab)); ``ServeEngine(8,
+              512)`` serving 8 requests of a shared 64-token prefix plus 16
+              own tokens, 16 new each: tok/s, the batched and full-batch
+              step medians beside the step's byte bound, the device idle
+              share and device operations a step over 5 batched steps, KV
+              stats (zero for MLA, whose latent cache the store does not
+              hold), peak device bytes.  Checks: 16 tokens per request; K10
+              launched n_layers times per decode step (0 for MLA); no
+              (token, choice) pair dropped in any decode step (counted from
+              the ranks); one batched step at ragged lengths on the card
+              against the CPU at the first 2 layers (LM_LOGIT_BOUND, argmax
+              on decided rows; a MoE row that the two devices route to other
+              experts is counted and left out); a request outside slot 0
+              alone gives its batched tokens.  K10's record adds, under
+              ``other_shapes``, layer 0 of moonshot's (G 1) and phi3.5's (G
+              4) serving caches.
 
   8. persist the paper's loop on the file path and the byte path: for each of
               ``fs-ssd`` and ``byte-pmem``, ``SearchEngine(kind, path=<a fresh
@@ -122,8 +147,9 @@ Phases (any failure raises and the script exits non-zero):
               apart); K1 was launched.
               Then the write-ahead log and search-at-ack: ``byte-pmem`` with
               ``use_wal=True`` takes the same corpus (no ``_vec``) in acked
-              batches of ACK_BATCH docs (one WAL record and one barrier
-              each), flushing every ``flush_every`` docs but the last
+              batches (one WAL record and one barrier each) of ACK_BULK
+              docs, and of ACK_BATCH in the live tail, flushing every
+              ``flush_every`` docs but the last
               ``flush_every``, which stay a live tail; it commits (a
               publish: no flush) halfway through the tail, times
               ACK_VISIBLE_SAMPLES acks to visibility (the default reopen
@@ -155,8 +181,9 @@ Phases (any failure raises and the script exits non-zero):
   9. sharded  sharded indexing and fan-out search: ``ShardedEngine("byte-pmem",
               n_shards=4, backend="processes", use_wal=True)`` (four writer
               processes, the card the coordinator's alone) takes the main
-              path's corpus without ``_vec`` in acked batches of ACK_BATCH
-              docs, flushing every ``flush_every`` docs but the last
+              path's corpus without ``_vec`` in acked batches of ACK_BULK
+              docs, and of ACK_BATCH in the tail, flushing every
+              ``flush_every`` docs but the last
               ``flush_every`` (a live tail on every shard), with a cross-shard
               commit halfway through the tail, then the main path's delete.
               It runs the term batches and every family task (one batch of
@@ -223,9 +250,11 @@ result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import itertools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -316,10 +345,30 @@ LM_PROFILE_STEPS = 5
 # the CPU at 28 layers (d 768: 0.050); the logits' spread is ~0.8
 LM_LOGIT_BOUND = 0.125
 DECODE_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # the reference's K10 tolerances
+# lm phase, then: the MLA and MoE models at full width, one at a time (phi3.5
+# at 24 of its 32 layers: 83.7 GB of bf16 weights do not fit the card)
+LM_MODELS = (("minicpm3-4b", None), ("moonshot-v1-16b-a3b", None),
+             ("phi3.5-moe-42b-a6.6b", 24))
+LM_MODEL_PREFIX, LM_MODEL_TAIL, LM_MODEL_NEW, LM_MODEL_REQUESTS = 64, 16, 16, 8
+LM_MODEL_PROFILE_FROM = 5  # of the 16 batched steps
+LM_CHECK_LAYERS = 2  # layers of the card-vs-CPU and decode-vs-forward checks
+LM_FWD_TOKENS = 64
+# |logit| difference allowed between the float32 decode path and the float32
+# forward pass at LM_CHECK_LAYERS layers: the two sum in other orders (and
+# MLA's absorbed decode multiplies in another order); measured on the CPU at
+# full width, 2 layers, 64 tokens (moonshot and phi3.5 with 8 and 4 of their
+# experts): 1.45e-5, 1.24e-5, 1.79e-5 at a logit spread of 1.0.  A bf16
+# rounding anywhere on either path moves logits by ~1e-2.
+LM_FWD_BOUND = 1e-3
+LM_PREFILL_TOKENS, LM_PREFILL_RUNS = 2048, 3
 # persist phase: the paper's two persistence paths, the file path through
 # the page cache and fsync, the byte path through the persistent heap
 PERSIST_KINDS = ("fs-ssd", "byte-pmem")
 ACK_BATCH = 100  # docs per acked batch (the reference's benchmarks/commit_bench.py:40)
+# docs per acked batch before the live tail (phases 8 and 9): acks of
+# ACK_BATCH there cost ~140 s and ~100 s of the script's time limit; the
+# tail's acks are ACK_BATCH and give the ack latency
+ACK_BULK = 1_000
 ACK_VISIBLE_SAMPLES = 10  # acks of the live tail timed to visibility
 # sharded phase: four DWPT writers (the reference's benchmarks/ingest_bench.py:197
 # default), one worker process each; the cross-shard merge timed over MERGE_REPS
@@ -385,7 +434,8 @@ def check_facets(td, ctx: str) -> None:
 
 
 SPIN_CYCLES = 200_000_000  # ~0.1 s of the SM clock
-TRACE_ATTEMPTS = 4  # traces kernel_phases takes before it reads an empty one
+TRACE_ATTEMPTS = 10  # traces kernel_phases takes before it reads an empty one
+TRACE_PAD_S = 0.05  # host seconds inside a trace window before and after its calls
 
 
 def bound(n_bytes: int, n_ops: int):
@@ -427,9 +477,11 @@ def kernel_phases(fn, iters: int = 20) -> dict:
     """The kernels that ``fn`` launches, by name: device ms per launch and
     launches per call, from a torch.profiler trace of ``iters`` calls after
     one warm-up (per launch, not per call: a trace that drops events still
-    reads right).  The first trace after a large one can hold no device
-    event at all; then the calls are traced again, up to TRACE_ATTEMPTS
-    traces."""
+    reads right).  A short trace (20 launches, ~1 ms) has come back with
+    no device event at all, up to ten times in a row: the profiler keeps
+    only device events whose timestamps fall inside its window, so each
+    window is padded by TRACE_PAD_S on both sides, and an empty trace is
+    taken again, up to TRACE_ATTEMPTS traces."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -440,9 +492,11 @@ def kernel_phases(fn, iters: int = 20) -> dict:
     count: dict = {}
     for _ in range(TRACE_ATTEMPTS):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(TRACE_PAD_S)
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(TRACE_PAD_S)
         for e in prof.events():
             if e.device_type == DeviceType.CUDA:
                 key = e.name[:60]
@@ -1606,11 +1660,31 @@ def tail_launches(eng, batches) -> dict:
     return {name: n for name, n in launch_counts().items() if n}
 
 
+def ack_size(added: int, tail_from: int, flush_every: int) -> int:
+    """Docs in the next acked batch: ACK_BATCH in the live tail (from doc
+    ``tail_from``), ACK_BULK before it, never past the next flush."""
+    if added >= tail_from:
+        return ACK_BATCH
+    return min(ACK_BULK, flush_every - added % flush_every)
+
+
+def ack_stats(acks) -> dict:
+    """p50/p99 ms of the ACK_BATCH-doc acks of [(docs, ms)], and the count
+    and p50 of the bulk ones."""
+    small = [ms for n, ms in acks if n == ACK_BATCH]
+    bulk = [ms for n, ms in acks if n != ACK_BATCH]
+    return {"ack_batch": ACK_BATCH, "acks": len(small),
+            "ack_p50_ms": float(np.percentile(small, 50)),
+            "ack_p99_ms": float(np.percentile(small, 99)),
+            "bulk_ack_batch": ACK_BULK, "bulk_acks": len(bulk),
+            "bulk_ack_p50_ms": float(np.percentile(bulk, 50)) if bulk else None}
+
+
 def wal_phase(ram_eng, cfg, words, flush_every: int, queries, n_warm: int, want,
               rare: str, tasks: dict, smi: str) -> dict:
     """Phase 8's write-ahead log (see the module docstring): ``byte-pmem``
     with ``use_wal=True`` ingests the main path's corpus (no ``_vec``) in
-    acked batches of ACK_BATCH docs; returns its record."""
+    acked batches (``ack_size``); returns its record."""
     import shutil
     import tempfile
 
@@ -1634,13 +1708,13 @@ def wal_phase(ram_eng, cfg, words, flush_every: int, queries, n_warm: int, want,
         ack_ms, ack_barriers, visible_ms = [], [], []
         added, ingest_s, commit = 0, 0.0, None
         while added < cfg.n_docs:
-            batch = list(itertools.islice(gen, ACK_BATCH))
+            batch = list(itertools.islice(gen, ack_size(added, tail_from, flush_every)))
             b0 = d.heap.stats["barriers"]
             t = time.perf_counter()
             eng.add_documents(batch)
             dt = time.perf_counter() - t
             ack_barriers.append(d.heap.stats["barriers"] - b0)
-            ack_ms.append(dt * 1e3)
+            ack_ms.append((len(batch), dt * 1e3))
             ingest_s += dt
             added += len(batch)
             if added <= tail_from and added % flush_every == 0:
@@ -1733,16 +1807,12 @@ def wal_phase(ram_eng, cfg, words, flush_every: int, queries, n_warm: int, want,
         if segment_list(eng) != segment_list(ram_eng):
             raise AssertionError("the flushed WAL index's segments differ from ram's")
         n_timed = len(lat)
-        acks = np.asarray(ack_ms)
         return {
             "card": smi,
             "filesystem": subprocess.run(["df", "-T", tmp], capture_output=True, text=True,
                                          check=True).stdout.strip().splitlines()[-1],
-            "docs": cfg.n_docs, "ack_batch": ACK_BATCH, "acks": len(acks),
-            "tail_docs": flush_every,
+            "docs": cfg.n_docs, **ack_stats(ack_ms), "tail_docs": flush_every,
             "ingest_docs_per_s": cfg.n_docs / ingest_s,
-            "ack_p50_ms": float(np.percentile(acks, 50)),
-            "ack_p99_ms": float(np.percentile(acks, 99)),
             "barriers_per_ack": 1,
             "wal_append_real_s": clock["real"].get("wal_append", 0.0),
             "modeled": {"wal_append_s": clock["modeled"].get("wal_append", 0.0),
@@ -1969,7 +2039,7 @@ def sharded_phase(ram_eng, cfg, flush_every: int, queries, n_warm: int, want,
                     "modeled_s_by_shard": modeled,
                     "buffered_docs": [s_["buffered"] for s_ in after]}
 
-        # ingest: acks of ACK_BATCH docs, a flush every flush_every docs but
+        # ingest: acks (ack_size), a flush every flush_every docs but
         # the last flush_every (a live tail), a commit halfway through it; the
         # stream runs SERVE_STREAM_DOCS past the corpus for phase 10
         gen = synthetic_corpus(dataclasses.replace(cfg, n_docs=cfg.n_docs + SERVE_STREAM_DOCS))
@@ -1981,13 +2051,14 @@ def sharded_phase(ram_eng, cfg, flush_every: int, queries, n_warm: int, want,
         added, ingest_s, commit = 0, 0.0, None
         prev = heap(per_shard())
         while added < cfg.n_docs:
-            batch = list(itertools.islice(gen, min(ACK_BATCH, cfg.n_docs - added)))
+            batch = list(itertools.islice(gen, min(ack_size(added, tail_from, flush_every),
+                                                   cfg.n_docs - added)))
             for j, (_, dv) in enumerate(batch, start=added):
                 keys[j] = doc_key(dv)
             t = time.perf_counter()
             eng.add_documents(batch)
             dt = time.perf_counter() - t
-            ack_ms.append(dt * 1e3)
+            ack_ms.append((len(batch), dt * 1e3))
             ingest_s += dt
             hit = {router.route(f, dv, added + j) for j, (f, dv) in enumerate(batch)}
             now = heap(per_shard())
@@ -2161,17 +2232,14 @@ def sharded_phase(ram_eng, cfg, flush_every: int, queries, n_warm: int, want,
         eng.flush()
         flushed_reopen_s = eng.reopen()
         flushed = term_loop("sharded flushed")
-        acks = np.asarray(ack_ms)
         handed = True
         return {
             "docs": cfg.n_docs, "shards": SHARDS, "backend": "processes",
             "directory": "byte-pmem", "use_wal": True,
-            "ack_batch": ACK_BATCH, "acks": len(acks), "tail_docs": flush_every,
+            **ack_stats(ack_ms), "tail_docs": flush_every,
             "engine_start_s": start_s,
             "ingest_docs_per_s": cfg.n_docs / ingest_s,
             "busy_s_by_shard": busy, "busy_balance_max_over_mean": max(busy) / np.mean(busy),
-            "ack_p50_ms": float(np.percentile(acks, 50)),
-            "ack_p99_ms": float(np.percentile(acks, 99)),
             "barriers_per_ack": "one a shard that received docs (every ack checked)",
             "flush_s": flush_s, "reopen_s_slowest_shard": reopen_s,
             "commit": commit, "deleted": n_deleted,
@@ -2585,12 +2653,179 @@ def forced_logits(params, cfg, prompt, tokens):
     return logits[0, : cfg.vocab].float().cpu()
 
 
+def serve_requests(eng, reqs, profile_from: int):
+    """Serve ``reqs`` through ``eng``, recorded around its own admit and
+    step: each request's slot, the host ms of every batched step outside
+    the profiled window, and a torch.profiler trace of LM_PROFILE_STEPS
+    batched steps from batched step ``profile_from`` (its device operations
+    counted).  Returns (run dict, {rid: slot}, [(active, ms)], profile)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    slots, steps, window = {}, [], {}
+    admit, step = eng.admit, eng.step
+    # device activity only: a step of the MLA/MoE models is ~4,000 operations,
+    # and the host's ops would multiply the trace that later traces follow
+    prof = profile(activities=[ProfilerActivity.CUDA])
+
+    def tracked_admit(req):
+        slots[req.rid] = eng._free_slot()
+        return admit(req)
+
+    def timed_step():
+        n = len(steps) + window.get("n", 0)
+        in_window = profile_from <= n < profile_from + LM_PROFILE_STEPS
+        if n == profile_from:
+            torch.cuda.synchronize()
+            prof.start()
+            window["t"] = time.perf_counter()
+        t0 = time.perf_counter()
+        active = step()
+        torch.cuda.synchronize()
+        if active and in_window:
+            window["n"] = window.get("n", 0) + 1
+            if window["n"] == LM_PROFILE_STEPS:
+                prof.stop()
+                window["profile"] = busy_share(prof, (time.perf_counter() - window["t"]) * 1e3)
+                ops = sum(e.device_type == DeviceType.CUDA for e in prof.events())
+                window["profile"]["device_ops_per_step"] = ops / LM_PROFILE_STEPS
+        elif active:
+            steps.append((active, (time.perf_counter() - t0) * 1e3))
+        return active
+
+    eng.admit, eng.step = tracked_admit, timed_step
+    try:
+        out = eng.run(reqs)
+    finally:
+        eng.admit, eng.step = admit, step
+    torch.cuda.synchronize()
+    if "profile" not in window:
+        raise AssertionError(f"{eng.cfg.name}: the profiled window of batched steps never closed")
+    return out, slots, steps, window["profile"]
+
+
+@contextlib.contextmanager
+def recorded_moe(routes=None, drops=None):
+    """While open, every MoE layer of the port's model also appends its
+    tokens' experts (T, k), on the host, to ``routes`` (from its routing,
+    ``_route``) and adds the (token, choice) pairs its dispatch drops --
+    ranked at or past the capacity (``_combine``'s ranks) -- to the 0-d
+    device tensor ``drops``, with no sync."""
+    from repro_torch.models import transformer as tf
+
+    route, combine = tf._route, tf._combine
+
+    def recorded_route(x, router, k):
+        out = route(x, router, k)
+        if routes is not None:
+            routes.append(out[2].reshape(-1, k).cpu())
+        return out
+
+    def counted_combine(x2d, lp, gate_vals, eids, rank, cap):
+        if drops is not None:
+            drops.add_((rank >= cap).sum())
+        return combine(x2d, lp, gate_vals, eids, rank, cap)
+
+    tf._route, tf._combine = recorded_route, counted_combine
+    try:
+        yield
+    finally:
+        tf._route, tf._combine = route, combine
+
+
+def card_vs_cpu_step(params, cfg, cache, rng, lo: int, hi: int, layers=None) -> dict:
+    """One batched step at ragged lengths in [lo, hi) over ``cache``: the
+    card against the same step of the port on the CPU, same weights (with
+    ``layers``, the first layers and their cache).  Logits within
+    LM_LOGIT_BOUND and the argmax equal wherever the CPU's top-2 margin
+    exceeds it.  A MoE model's rows are held where both devices route the
+    token to the same experts in every layer: bf16 rounding can tip a
+    near-tie of router probabilities, which moves the row by a whole
+    expert's output.  Such rows are counted; at most half may differ."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+        params = dict(params, layers={n: w[:layers] for n, w in params["layers"].items()})
+        cache = {n: c[:layers] for n, c in cache.items()}
+    kvl = rng.integers(lo, hi, LM_SLOTS).astype(np.int32)
+    toks = rng.integers(1, cfg.vocab, LM_SLOTS)
+    routes = {"card": [], "cpu": []}
+    with recorded_moe(routes["card"]):
+        got, _ = tf.lm_decode_step(params, {n: c.clone() for n, c in cache.items()},
+                                   torch.from_numpy(toks).to(LM_DEVICE),
+                                   torch.from_numpy(kvl).to(LM_DEVICE), cfg)
+    got = got[:, : cfg.vocab].float().cpu()
+    t = time.perf_counter()
+    cpu_params = {n: ({k: w.cpu() for k, w in v.items()} if n == "layers" else v.cpu())
+                  for n, v in params.items()}
+    with recorded_moe(routes["cpu"]):
+        want, _ = tf.lm_decode_step(cpu_params, {n: c.cpu() for n, c in cache.items()},
+                                    torch.from_numpy(toks), torch.from_numpy(kvl), cfg)
+    cpu_step_s = time.perf_counter() - t
+    del cpu_params
+    want = want[:, : cfg.vocab].float()
+    same = torch.ones(LM_SLOTS, dtype=torch.bool)
+    for a, b in zip(routes["card"], routes["cpu"]):
+        same &= (a.sort(-1).values == b.sort(-1).values).all(-1)
+    rerouted = int((~same).sum())
+    if rerouted > LM_SLOTS // 2:
+        raise AssertionError(f"{cfg.name}: {rerouted} of {LM_SLOTS} rows routed to other "
+                             "experts on the card than on the CPU")
+    logit_err = float((got - want)[same].abs().max())
+    top2 = want.topk(2, dim=-1).values
+    decided = same & ((top2[:, 0] - top2[:, 1]) > LM_LOGIT_BOUND)
+    if not logit_err <= LM_LOGIT_BOUND:
+        raise AssertionError(f"{cfg.name}: card logits differ from the CPU's by {logit_err}")
+    if not torch.equal(got.argmax(-1)[decided], want.argmax(-1)[decided]):
+        raise AssertionError(f"{cfg.name}: the card's argmax differs from the CPU's on a "
+                             "decided row")
+    return {"layers": cfg.n_layers, "max_abs_logit_err": logit_err, "bound": LM_LOGIT_BOUND,
+            "rows_decided": int(decided.sum()), "rows_rerouted": rerouted,
+            "argmax_eq": True, "cpu_step_s": cpu_step_s}
+
+
+def alone_vs_batch(params, cfg, prompts, slots, completed, new: int) -> dict:
+    """A request outside slot 0 served alone: its batched tokens, or a first
+    difference at a margin under LM_LOGIT_BOUND."""
+    import torch
+
+    from repro_torch.serve import Request, ServeEngine
+
+    rid = next(r for r, sl in slots.items() if sl == LM_SLOTS - 1)
+    idx = int(rid[1:])
+    batched = next(r.out for r in completed if r.rid == rid)
+    alone_eng = ServeEngine(params, cfg, batch_slots=LM_SLOTS, max_len=LM_MAX_LEN)
+    alone_eng.run([Request("alone", prompts[idx], max_new=new)])
+    alone = alone_eng.completed[0].out
+    del alone_eng
+    first_diff, margin = None, None
+    if alone != batched:
+        first_diff = next(j for j, (a, b) in enumerate(zip(alone, batched)) if a != b)
+        row = forced_logits(params, cfg, prompts[idx], batched[:first_diff])
+        margin = float(row.max() - row[batched[first_diff]])
+        if margin > LM_LOGIT_BOUND:
+            raise AssertionError(f"{cfg.name}: {rid} alone differs from its batch at token "
+                                 f"{first_diff}, margin {margin}")
+    torch.cuda.synchronize()
+    return {"rid": rid, "slot": slots[rid], "equal": alone == batched,
+            "first_diff": first_diff, "margin": margin}
+
+
+def weight_bytes(params) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in [*params["layers"].values()] + [v for n, v in params.items()
+                                                        if n != "layers"])
+
+
 def lm_phase():
     """Serve Qwen2-1.5B at full width through ``ServeEngine`` on the card
     and check it (see the module docstring).  Returns (stats, K10's launch
     count in the serving run, the engine)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import decode_attn as kd
@@ -2608,41 +2843,9 @@ def lm_phase():
     prompts = [np.concatenate([prefix, rng.integers(1, cfg.vocab, LM_TAIL)])
                for _ in range(LM_REQUESTS)]
     eng = ServeEngine(params, cfg, batch_slots=LM_SLOTS, max_len=LM_MAX_LEN)
-
-    # slots taken, batched step times and one profiled window of steps,
-    # recorded around the engine's own admit and step
-    slots, steps, window = {}, [], {}
-    admit, step = eng.admit, eng.step
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-
-    def tracked_admit(req):
-        slots[req.rid] = eng._free_slot()
-        return admit(req)
-
-    def timed_step():
-        n = len(steps) + window.get("n", 0)
-        in_window = LM_PROFILE_FROM <= n < LM_PROFILE_FROM + LM_PROFILE_STEPS
-        if n == LM_PROFILE_FROM:
-            torch.cuda.synchronize()
-            prof.start()
-            window["t"] = time.perf_counter()
-        t0 = time.perf_counter()
-        active = step()
-        torch.cuda.synchronize()
-        if active and in_window:
-            window["n"] = window.get("n", 0) + 1
-            if window["n"] == LM_PROFILE_STEPS:
-                prof.stop()
-                window["profile"] = busy_share(prof, (time.perf_counter() - window["t"]) * 1e3)
-        elif active:
-            steps.append((active, (time.perf_counter() - t0) * 1e3))
-        return active
-
-    eng.admit, eng.step = tracked_admit, timed_step
     kd.reset_launches()
     reqs = [Request(f"q{i}", p, max_new=LM_NEW) for i, p in enumerate(prompts)]
-    out = eng.run(reqs)
-    torch.cuda.synchronize()
+    out, slots, steps, prof = serve_requests(eng, reqs, LM_PROFILE_FROM)
     launches, calls = kd.launches["decode_attn"], eng.decode_calls
     if out["requests"] != LM_REQUESTS or any(len(r.out) != LM_NEW for r in eng.completed):
         raise AssertionError(f"lm: {out['requests']} requests served, tokens "
@@ -2652,51 +2855,9 @@ def lm_phase():
     if launches != cfg.n_layers * calls:
         raise AssertionError(f"lm: decode_attn launched {launches} times in {calls} "
                              f"decode steps of {cfg.n_layers} layers")
-    if "profile" not in window:
-        raise AssertionError("lm: the profiled window of batched steps never closed")
-
-    # one batched step at ragged lengths over the run's cache: the card
-    # against the same step of the port on the CPU, same weights
-    kvl = rng.integers(LM_PREFIX, LM_PREFIX + LM_TAIL + LM_NEW, LM_SLOTS).astype(np.int32)
-    toks = rng.integers(1, cfg.vocab, LM_SLOTS)
-    got, _ = tf.lm_decode_step(params, {n: c.clone() for n, c in eng.cache.items()},
-                               torch.from_numpy(toks).to(LM_DEVICE),
-                               torch.from_numpy(kvl).to(LM_DEVICE), cfg)
-    got = got[:, : cfg.vocab].float().cpu()
-    t = time.perf_counter()
-    cpu_params = {n: ({k: w.cpu() for k, w in v.items()} if n == "layers" else v.cpu())
-                  for n, v in params.items()}
-    want, _ = tf.lm_decode_step(cpu_params, {n: c.cpu() for n, c in eng.cache.items()},
-                                torch.from_numpy(toks), torch.from_numpy(kvl), cfg)
-    cpu_step_s = time.perf_counter() - t
-    del cpu_params
-    want = want[:, : cfg.vocab].float()
-    logit_err = float((got - want).abs().max())
-    top2 = want.topk(2, dim=-1).values
-    decided = (top2[:, 0] - top2[:, 1]) > LM_LOGIT_BOUND
-    if not logit_err <= LM_LOGIT_BOUND:
-        raise AssertionError(f"lm: card logits differ from the CPU's by {logit_err}")
-    if not torch.equal(got.argmax(-1)[decided], want.argmax(-1)[decided]):
-        raise AssertionError("lm: the card's argmax differs from the CPU's on a decided row")
-
-    # a request outside slot 0 served alone: its batched tokens, or a first
-    # difference at a margin under the bound
-    rid = next(r for r, sl in slots.items() if sl == LM_SLOTS - 1)
-    idx = int(rid[1:])
-    batched = next(r.out for r in eng.completed if r.rid == rid)
-    alone_eng = ServeEngine(params, cfg, batch_slots=LM_SLOTS, max_len=LM_MAX_LEN)
-    alone_eng.run([Request("alone", prompts[idx], max_new=LM_NEW)])
-    alone = alone_eng.completed[0].out
-    first_diff, margin = None, None
-    if alone != batched:
-        first_diff = next(j for j, (a, b) in enumerate(zip(alone, batched)) if a != b)
-        row = forced_logits(params, cfg, prompts[idx], batched[:first_diff])
-        margin = float(row.max() - row[batched[first_diff]])
-        if margin > LM_LOGIT_BOUND:
-            raise AssertionError(f"lm: {rid} alone differs from its batch at token "
-                                 f"{first_diff}, margin {margin}")
-    del alone_eng
-    torch.cuda.synchronize()
+    card_cpu = card_vs_cpu_step(params, cfg, eng.cache, rng, LM_PREFIX,
+                                LM_PREFIX + LM_TAIL + LM_NEW)
+    alone = alone_vs_batch(params, cfg, prompts, slots, eng.completed, LM_NEW)
     full = [ms for active, ms in steps if active == LM_SLOTS]
     stats = {
         "arch": LM_ARCH, "source": spec.source, "layers": cfg.n_layers,
@@ -2707,84 +2868,276 @@ def lm_phase():
         "batched_step_median_ms": float(np.median([ms for _, ms in steps])),
         "full_batch_step_median_ms": float(np.median(full)) if full else None,
         "kv_stats": out["kv_stats"],
-        "device_bytes_weights": sum(
-            t.numel() * t.element_size()
-            for t in [*params["layers"].values()] + [v for n, v in params.items()
-                                                     if n != "layers"]),
+        "device_bytes_weights": weight_bytes(params),
         "device_bytes_cache": sum(c.numel() * c.element_size() for c in eng.cache.values()),
         "device_bytes": torch.cuda.memory_allocated(),
-        "profile_5_batched_steps": window["profile"],
+        "profile_5_batched_steps": prof,
         "decode_attn_launches": launches, "decode_step_calls": calls,
-        "card_vs_cpu_step": {"max_abs_logit_err": logit_err, "bound": LM_LOGIT_BOUND,
-                             "rows_decided": int(decided.sum()), "argmax_eq": True,
-                             "cpu_step_s": cpu_step_s},
-        "alone_vs_batch": {"rid": rid, "slot": slots[rid], "equal": alone == batched,
-                           "first_diff": first_diff, "margin": margin},
+        "card_vs_cpu_step": card_cpu,
+        "alone_vs_batch": alone,
     }
     return stats, launches, eng
 
 
-def decode_kernel_record(launches: int, eng) -> dict:
-    """K10 against its plain version on the card (2e-5 float32 K/V, 2e-2
-    bf16), timed with its plain version and SDPA: at the engine's shape
-    (layer 0 of the serving run's cache as the model passes it, q bf16,
-    ragged lengths like the run's), then at decode_32k's cache length with
-    the batch cut to the engine's 8 rows, float32 and bf16 K/V."""
+def decode_vs_forward(cfg, gen, rng) -> dict:
+    """``cfg`` cut to LM_CHECK_LAYERS layers in float32 with TF32 off, its
+    own seeded weights: ``lm_forward``'s logits over LM_FWD_TOKENS tokens at
+    every position against the decode step fed the same tokens one by one
+    (a batch of one; K10 in every GQA layer, the absorbed MLA decode against
+    MLA's training form).  A MoE model's capacity factor is its expert
+    count here, so no pair can drop and routing is per token on both
+    paths."""
+    import torch
+
+    from repro_torch.kernels import decode_attn as kd
+    from repro_torch.models import transformer as tf
+
+    c2 = dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS, dtype=torch.float32,
+                             param_dtype=torch.float32)
+    if cfg.is_moe:
+        c2 = dataclasses.replace(c2, capacity_factor=float(cfg.n_experts))
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        params = tf.init_lm_params(c2, gen)
+        toks = torch.from_numpy(rng.integers(1, cfg.vocab, (1, LM_FWD_TOKENS))).to(LM_DEVICE)
+        want, _ = tf.lm_forward(params, toks, c2)
+        cache = tf.init_kv_cache(c2, 1, LM_FWD_TOKENS, dtype=torch.float32)
+        n0 = kd.launches["decode_attn"]
+        err = torch.zeros((), device=LM_DEVICE)
+        for pos in range(LM_FWD_TOKENS):
+            got, cache = tf.lm_decode_step(
+                params, cache, toks[:, pos],
+                torch.tensor([pos], dtype=torch.int32, device=LM_DEVICE), c2)
+            err = torch.maximum(err, (got - want[:, pos]).abs().max())
+        err, k10 = float(err), kd.launches["decode_attn"] - n0
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    if not err <= LM_FWD_BOUND:
+        raise AssertionError(f"{cfg.name}: decode differs from the forward pass by {err}")
+    if k10 != (0 if cfg.attn == "mla" else LM_CHECK_LAYERS * LM_FWD_TOKENS):
+        raise AssertionError(f"{cfg.name}: decode_attn launched {k10} times in the check")
+    return {"layers": LM_CHECK_LAYERS, "dtype": "float32", "tf32": False,
+            "tokens": LM_FWD_TOKENS, "capacity_factor": c2.capacity_factor,
+            "max_abs_logit_err": err, "bound": LM_FWD_BOUND, "decode_attn_launches": k10}
+
+
+def prefill_and_loss(params, cfg, rng) -> dict:
+    """``lm_prefill`` at B = 1, S = LM_PREFILL_TOKENS (host ms to a
+    synchronize, the median of LM_PREFILL_RUNS after a warm-up) and
+    ``lm_loss`` on the same tokens (next-token labels), which must be
+    finite; random weights predict near-uniformly, so the loss sits near
+    ln(vocab)."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab, (1, LM_PREFILL_TOKENS))).to(LM_DEVICE)
+    logits = tf.lm_prefill(params, toks, cfg)
+    finite = bool(torch.isfinite(logits[..., : cfg.vocab]).all())
+    del logits
+    ms = []
+    for _ in range(LM_PREFILL_RUNS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits = tf.lm_prefill(params, toks, cfg)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        del logits
+    total, parts = tf.lm_loss(params, {"tokens": toks, "labels": torch.roll(toks, -1, 1)}, cfg)
+    loss, aux = float(parts["loss"]), float(parts["aux"])
+    if not (finite and np.isfinite(loss) and np.isfinite(float(total))):
+        raise AssertionError(f"{cfg.name}: prefill logits finite {finite}, loss {loss}")
+    median = float(np.median(ms))
+    return {"batch": 1, "tokens": LM_PREFILL_TOKENS,
+            "query_chunks": LM_PREFILL_TOKENS // min(cfg.q_chunk, LM_PREFILL_TOKENS),
+            "median_ms": median, "ms": ms, "tok_per_s": LM_PREFILL_TOKENS / median * 1e3,
+            "loss": loss, "aux": aux, "total": float(total), "ln_vocab": math.log(cfg.vocab)}
+
+
+def decode_step_bytes(params, cfg, positions: int) -> int:
+    """Bytes a full-batch decode step must read: every layer weight (the
+    static-capacity expert products read every expert), the unembedding,
+    LM_SLOTS embedding rows, and the cache: K and V up to ``positions`` a
+    row (GQA, K10), the whole latent cache (MLA: the reference scores every
+    position and masks)."""
+    unembed = params.get("unembed", params["embed"])
+    n = sum(w.numel() * w.element_size() for w in params["layers"].values())
+    n += unembed.numel() * unembed.element_size() + params["final_norm"].numel() * 2
+    n += LM_SLOTS * cfg.d_model * params["embed"].element_size()
+    if cfg.attn == "mla":
+        return n + cfg.n_layers * LM_SLOTS * LM_MAX_LEN * (cfg.kv_lora_rank + cfg.qk_rope_dim) * 4
+    return n + cfg.n_layers * LM_SLOTS * positions * cfg.n_kv_heads * cfg.head_dim * 4 * 2
+
+
+def lm_model_phase(arch: str, n_layers):
+    """One of the MLA and MoE models at full width, ``n_layers`` deep (None:
+    as published), on the card (see the module docstring).  Returns (stats,
+    K10's record at layer 0 of its serving cache, None for MLA)."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attn as kd
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import Request, ServeEngine
+
+    spec = get_config(arch)
+    cfg = spec.config
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=LM_DEVICE).manual_seed(LM_SEED)
+    rng = np.random.default_rng(LM_SEED)
+    fwd = decode_vs_forward(cfg, gen, rng)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    params = tf.init_lm_params(cfg, gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    prefill = prefill_and_loss(params, cfg, rng)
+    torch.cuda.empty_cache()
+
+    prefix = rng.integers(1, cfg.vocab, LM_MODEL_PREFIX)
+    prompts = [np.concatenate([prefix, rng.integers(1, cfg.vocab, LM_MODEL_TAIL)])
+               for _ in range(LM_MODEL_REQUESTS)]
+    eng = ServeEngine(params, cfg, batch_slots=LM_SLOTS, max_len=LM_MAX_LEN)
+    reqs = [Request(f"m{i}", p, max_new=LM_MODEL_NEW) for i, p in enumerate(prompts)]
+    kd.reset_launches()
+    drops = torch.zeros((), dtype=torch.long, device=LM_DEVICE)
+    with recorded_moe(drops=drops):
+        out, slots, steps, prof = serve_requests(eng, reqs, LM_MODEL_PROFILE_FROM)
+    launches, calls, drops = kd.launches["decode_attn"], eng.decode_calls, int(drops)
+    mla = cfg.attn == "mla"
+    if out["requests"] != LM_MODEL_REQUESTS or any(len(r.out) != LM_MODEL_NEW
+                                                   for r in eng.completed):
+        raise AssertionError(f"{arch}: {out['requests']} requests served, tokens "
+                             f"{[len(r.out) for r in eng.completed]}")
+    if launches != (0 if mla else cfg.n_layers * calls):
+        raise AssertionError(f"{arch}: decode_attn launched {launches} times in {calls} "
+                             f"decode steps of {cfg.n_layers} layers")
+    if drops:
+        raise AssertionError(f"{arch}: {drops} (token, choice) pairs dropped in decode steps")
+    stored = out["kv_stats"]["sealed"] > 0 and out["kv_stats"]["shared"] > 0
+    if stored == mla or (mla and any(out["kv_stats"].values())):
+        raise AssertionError(f"{arch}: KV store stats {out['kv_stats']}")
+    lo, hi = LM_MODEL_PREFIX, LM_MODEL_PREFIX + LM_MODEL_TAIL + LM_MODEL_NEW
+    k10 = None
+    if not mla:
+        k10 = engine_decode_row(eng, launches, rng, lo, hi, f"{arch} engine")
+    card_cpu = card_vs_cpu_step(params, cfg, eng.cache, rng, lo, hi, layers=LM_CHECK_LAYERS)
+    cache_bytes = sum(c.numel() * c.element_size() for c in eng.cache.values())
+    completed = eng.completed
+    del eng
+    alone = alone_vs_batch(params, cfg, prompts, slots, completed, LM_MODEL_NEW)
+    step_bytes = decode_step_bytes(params, cfg, LM_MODEL_PREFIX + LM_MODEL_TAIL
+                                   + LM_MODEL_NEW // 2)
+    full = [ms for active, ms in steps if active == LM_SLOTS]
+    stats = {
+        "arch": arch, "source": spec.source, "layers": cfg.n_layers,
+        "published_layers": spec.config.n_layers, "d_model": cfg.d_model,
+        "attn": cfg.attn, "experts": cfg.n_experts, "top_k": cfg.moe_top_k,
+        "params": cfg.n_params(), "active_params": cfg.n_active_params(), "init_s": init_s,
+        "decode_vs_forward": fwd, "prefill_and_loss": prefill,
+        "requests": out["requests"], "tokens": out["tokens"],
+        "decode_steps": out["decode_steps"], "prefill_steps": calls - out["decode_steps"],
+        "wall_s": out["wall_s"], "tok_per_s": out["tok_per_s"],
+        "batched_step_median_ms": float(np.median([ms for _, ms in steps])),
+        "full_batch_step_median_ms": float(np.median(full)) if full else None,
+        "step_bytes": step_bytes, "step_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
+        "kv_stats": out["kv_stats"], "dropped_pairs": drops,
+        "device_bytes_weights": weight_bytes(params), "device_bytes_cache": cache_bytes,
+        "device_bytes_resident_before": resident,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "profile_5_batched_steps": prof,
+        "decode_attn_launches": launches, "decode_step_calls": calls,
+        "card_vs_cpu_step": card_cpu, "alone_vs_batch": alone,
+    }
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats, k10
+
+
+def decode_attn_row(q, k, v, kvl, launches: int, iters: int, plain_iters: int,
+                    shape: dict) -> dict:
+    """K10 against its plain version on the card (DECODE_TOL by the K/V
+    dtype), timed with its plain version and SDPA, one launch a call in the
+    trace.  q (B, Hkv, G, D); k, v (B, Hkv, S, D) views."""
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.configs.lm_shapes import LM_SHAPES
     from repro_torch.kernels import decode_attn as kd
+
+    b, h, g, d = q.shape
+    s = k.shape[2]
+    tol = DECODE_TOL[str(k.dtype).split(".")[-1]]
+    got = kd.decode_attn(q, k, v, kvl)
+    want = kd.decode_attn_plain(q, k, v, kvl, 1.0 / np.sqrt(d))
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    err = float((got - want).abs().max())
+    ms, mq = cuda_ms(lambda: kd.decode_attn(q, k, v, kvl), iters)
+    phases = kernel_phases(lambda: kd.decode_attn(q, k, v, kvl))
+    if len(phases) != 1:  # one launch a call: the combine is folded in
+        raise AssertionError(f"decode_attn ran {sorted(phases)} on the card")
+    plain_ms, pq = cuda_ms(lambda: kd.decode_attn_plain(q, k, v, kvl, 1.0 / np.sqrt(d)),
+                           plain_iters, 1)
+    qs = q.reshape(b, h * g, 1, d).to(k.dtype)
+    mask = (torch.arange(s, device=LM_DEVICE)[None, :] < kvl[:, None])[:, None, None, :]
+    lib_ms, lq = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qs, k, v, attn_mask=mask, enable_gqa=True), iters)
+    n_pos = int(kvl.clamp(max=s).sum())
+    kv_bytes = n_pos * h * 2 * d * k.element_size()
+    n_bytes = kv_bytes + q.numel() * q.element_size() + b * h * g * d * 4 + b * 4
+    n_ops = 4 * h * g * d * n_pos
+    rate = FP32_OPS_PER_S if k.dtype == torch.float32 else BF16_OPS_PER_S
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / rate * 1e3
+    return {
+        "name": "decode_attn", "route": "cuda", "source": DECODE_SOURCE,
+        "replaces": REPLACES["decode_attn"], "launches": launches,
+        "max_abs_err": err, "tolerance": tol, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": lib_ms, "queued_ahead": [mq, pq, lq], "phases_ms": phases,
+        "shape": dict(shape, B=b, Hkv=h, G=g, D=d, S=s, positions=n_pos,
+                      q=str(q.dtype), kv=str(k.dtype), bytes=n_bytes, ops=n_ops,
+                      library="scaled_dot_product_attention(enable_gqa, bool mask)"),
+    }
+
+
+def engine_decode_row(eng, launches: int, rng, lo: int, hi: int, case: str) -> dict:
+    """K10 at an engine's shape: layer 0 of its serving cache, (B, S, Hkv,
+    D) as the model passes it, a bf16 q, ragged lengths in [lo, hi)."""
+    import torch
+
+    cfg = eng.cfg
+    q = torch.from_numpy(rng.standard_normal(
+        (LM_SLOTS, cfg.n_kv_heads, cfg.group_size, cfg.head_dim), dtype=np.float32)).to(
+        LM_DEVICE, torch.bfloat16)
+    kvl = torch.from_numpy(rng.integers(lo, hi, LM_SLOTS).astype(np.int32)).to(LM_DEVICE)
+    return decode_attn_row(q, eng.cache["k"][0].transpose(1, 2),
+                           eng.cache["v"][0].transpose(1, 2), kvl, launches, 100, 20,
+                           {"case": case})
+
+
+def decode_kernel_record(launches: int, eng) -> dict:
+    """K10 at the Qwen2-1.5B engine's shape, then at decode_32k's cache
+    length with the batch cut to the engine's 8 rows, float32 and bf16 K/V
+    (``decode_attn_row``).  The MoE models' engine shapes join
+    ``other_shapes`` later in phase 7."""
+    import torch
+
+    from repro_torch.configs.lm_shapes import LM_SHAPES
 
     cfg = eng.cfg
     b, h, g, d = LM_SLOTS, cfg.n_kv_heads, cfg.group_size, cfg.head_dim
     rng = np.random.default_rng(LM_SEED + 1)
-
-    def q_of(dtype):
-        return torch.from_numpy(rng.standard_normal((b, h, g, d), dtype=np.float32)).to(
-            LM_DEVICE, dtype)
-
-    def one(q, k, v, kvl, iters, plain_iters, shape):
-        s = k.shape[2]
-        tol = DECODE_TOL[str(k.dtype).split(".")[-1]]
-        got = kd.decode_attn(q, k, v, kvl)
-        want = kd.decode_attn_plain(q, k, v, kvl, 1.0 / np.sqrt(d))
-        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
-        err = float((got - want).abs().max())
-        ms, mq = cuda_ms(lambda: kd.decode_attn(q, k, v, kvl), iters)
-        phases = kernel_phases(lambda: kd.decode_attn(q, k, v, kvl))
-        if len(phases) != 1:  # one launch a call: the combine is folded in
-            raise AssertionError(f"decode_attn ran {sorted(phases)} on the card")
-        plain_ms, pq = cuda_ms(lambda: kd.decode_attn_plain(q, k, v, kvl, 1.0 / np.sqrt(d)),
-                               plain_iters, 1)
-        qs = q.reshape(b, h * g, 1, d).to(k.dtype)
-        mask = (torch.arange(s, device=LM_DEVICE)[None, :] < kvl[:, None])[:, None, None, :]
-        lib_ms, lq = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qs, k, v, attn_mask=mask, enable_gqa=True), iters)
-        n_pos = int(kvl.clamp(max=s).sum())
-        kv_bytes = n_pos * h * 2 * d * k.element_size()
-        n_bytes = kv_bytes + q.numel() * q.element_size() + b * h * g * d * 4 + b * 4
-        n_ops = 4 * h * g * d * n_pos
-        rate = FP32_OPS_PER_S if k.dtype == torch.float32 else BF16_OPS_PER_S
-        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / rate * 1e3
-        return {
-            "name": "decode_attn", "route": "cuda", "source": DECODE_SOURCE,
-            "replaces": REPLACES["decode_attn"], "launches": launches,
-            "max_abs_err": err, "tolerance": tol, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib_ms, "queued_ahead": [mq, pq, lq], "phases_ms": phases,
-            "shape": dict(shape, B=b, Hkv=h, G=g, D=d, S=s, positions=n_pos,
-                          q=str(q.dtype), kv=str(k.dtype), bytes=n_bytes, ops=n_ops,
-                          library="scaled_dot_product_attention(enable_gqa, bool mask)"),
-        }
-
-    # the engine's shape: layer 0 of the serving run's cache, (B, S, Hkv, D)
-    # as the model passes it
-    kvl = torch.from_numpy(rng.integers(LM_PREFIX, LM_PREFIX + LM_TAIL + LM_NEW, b)
-                           .astype(np.int32)).to(LM_DEVICE)
-    rec = one(q_of(torch.bfloat16), eng.cache["k"][0].transpose(1, 2),
-              eng.cache["v"][0].transpose(1, 2), kvl, 100, 20, {"case": "engine"})
+    rec = engine_decode_row(eng, launches, rng, LM_PREFIX, LM_PREFIX + LM_TAIL + LM_NEW,
+                            "engine")
     long_s = LM_SHAPES["decode_32k"]["seq_len"]
     kvl = torch.from_numpy(rng.integers(long_s // 2, long_s + 1, b).astype(np.int32))
     kvl = kvl.to(LM_DEVICE)
@@ -2794,8 +3147,10 @@ def decode_kernel_record(launches: int, eng) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         k, v = (torch.randn((b, long_s, h, d), generator=gen, device=LM_DEVICE).to(dtype)
                 for _ in range(2))
-        rec["other_shapes"].append(one(
-            q_of(dtype), k.transpose(1, 2), v.transpose(1, 2), kvl, 20, 3,
+        q = torch.from_numpy(rng.standard_normal((b, h, g, d), dtype=np.float32)).to(
+            LM_DEVICE, dtype)
+        rec["other_shapes"].append(decode_attn_row(
+            q, k.transpose(1, 2), v.transpose(1, 2), kvl, launches, 20, 3,
             {"case": "decode_32k", "reduced": "global_batch 128 -> 8"}))
         del k, v
     return rec
@@ -3055,6 +3410,13 @@ def main(argv=None) -> int:
     log("lm", dict(lm_stats, seconds=time.perf_counter() - t))
     records.append(decode_kernel_record(lm_launches, lm_eng))
     del lm_eng
+    for arch, n_layers in LM_MODELS:
+        t = time.perf_counter()
+        stats, k10_row = lm_model_phase(arch, n_layers)
+        log("lm_model", dict(stats, card=smi, seconds=time.perf_counter() - t,
+                             run_s=time.perf_counter() - t_start))
+        if k10_row is not None:
+            records[-1]["other_shapes"].append(k10_row)
 
     # 8. the paper's loop on the file path and the byte path -------------
     t = time.perf_counter()

@@ -104,28 +104,31 @@ def _tensor(a) -> torch.Tensor:
 def lm_params_from_arrays(tree: Dict[str, Any], cfg, device=None) -> Dict[str, Any]:
     """The port's parameters from the reference's parameter pytree as
     numpy arrays: ``embed`` (vocab_pad, d), the stacked ``layers`` dict
-    (every weight with a leading L), ``final_norm`` (d,) and, without tied
-    embeddings, ``unembed`` (d, vocab_pad).  Each array must have the shape
-    the config gives it; it is cast to ``cfg.param_dtype`` and placed on
-    ``device`` (None: the card)."""
+    (every weight with a leading L: GQA or MLA attention, a dense or MoE
+    FFN), ``final_norm`` (d,) and, without tied embeddings, ``unembed`` (d,
+    vocab_pad).  Each array must have the shape the config gives it; it is
+    cast to the dtype ``layer_shapes`` gives it (``cfg.param_dtype``, a MoE
+    router float32) and placed on ``device`` (None: the card)."""
     from repro_torch.models.transformer import layer_shapes
 
     dev = resolve_device(device)
-    want = {"embed": (cfg.vocab_pad, cfg.d_model), "final_norm": (cfg.d_model,)}
+    pd = cfg.param_dtype
+    want = {"embed": ((cfg.vocab_pad, cfg.d_model), pd), "final_norm": ((cfg.d_model,), pd)}
     if not cfg.tie_embeddings:
-        want["unembed"] = (cfg.d_model, cfg.vocab_pad)
-    layers = {f"layers.{n}": (cfg.n_layers, *s) for n, s in layer_shapes(cfg).items()}
+        want["unembed"] = ((cfg.d_model, cfg.vocab_pad), pd)
+    layers = {f"layers.{n}": ((cfg.n_layers, *s), dt)
+              for n, (s, dt) in layer_shapes(cfg).items()}
     got = {k: v for k, v in tree.items() if k != "layers"}
     got.update({f"layers.{k}": v for k, v in tree.get("layers", {}).items()})
     if set(got) != set(want) | set(layers):
         raise ValueError(f"parameter tree has {sorted(got)}, want "
                          f"{sorted(set(want) | set(layers))}")
     out: Dict[str, Any] = {"layers": {}}
-    for key, shape in {**want, **layers}.items():
+    for key, (shape, dt) in {**want, **layers}.items():
         t = _tensor(got[key])
         if tuple(t.shape) != shape:
             raise ValueError(f"{key} is {tuple(t.shape)}, want {shape}")
-        t = t.to(device=dev, dtype=cfg.param_dtype)
+        t = t.to(device=dev, dtype=dt)
         if key.startswith("layers."):
             out["layers"][key[len("layers."):]] = t
         else:

@@ -8,9 +8,12 @@ for every active slot, and each new token's K/V is mirrored into the
 shares identical prefix blocks.  Finished requests release their blocks
 and free their slot for the next pending one.
 
-The decode step runs on ``device`` (None: the card), where every layer's
-attention is kernel ``decode_attn``; the cache is float32, as in the
-reference.  The step writes each row's K/V at that row's own length (see
+The decode step runs on ``device`` (None: the card), where every GQA
+layer's attention is kernel ``decode_attn``; the cache is float32, as in
+the reference.  An MLA model's cache is its latent pair (``c_kv``,
+``k_rope``), which the store does not hold: as in the reference, its
+requests take no blocks and its ``kv_stats`` stay zero.  The step writes
+each row's cache entries at that row's own length (see
 ``models/transformer.py``), so a request outside slot 0 decodes as it
 would alone -- the reference writes every row at slot 0's length and gets
 such requests wrong.
@@ -72,6 +75,8 @@ class ServeEngine:
             block_size=64,
             heap_path=heap_path,
         )
+        #: whether the store mirrors the cache (not an MLA model's latent pair)
+        self.mirrors = cfg.attn != "mla"
         self.completed: List[Request] = []
         #: lm_decode_step calls so far (prefill and decode)
         self.decode_calls = 0
@@ -115,7 +120,7 @@ class ServeEngine:
         """Copy the newest token's K/V into the segment store (seals blocks,
         dedupes shared prefixes)."""
         req = self.slots[slot]
-        if req is None:
+        if req is None or not self.mirrors:
             return
         k_tok, v_tok = self._newest_kv([slot])
         self.store.append(req.rid, k_tok[:, 0], v_tok[:, 0])
@@ -140,10 +145,12 @@ class ServeEngine:
         logits = self._decode(toks)
         nxt = torch.argmax(logits[:, : self.cfg.vocab], dim=-1).cpu().numpy()
         self.kv_len[active] += 1
-        k_new, v_new = self._newest_kv(active)
+        if self.mirrors:
+            k_new, v_new = self._newest_kv(active)
         for j, i in enumerate(active):
             req = self.slots[i]
-            self.store.append(req.rid, k_new[:, j], v_new[:, j])
+            if self.mirrors:
+                self.store.append(req.rid, k_new[:, j], v_new[:, j])
             req.out.append(int(nxt[i]))
             if len(req.out) >= req.max_new or self.kv_len[i] >= self.max_len - 1:
                 req.done = True

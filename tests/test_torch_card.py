@@ -691,6 +691,8 @@ DECODE_SHAPES = [  # the reference's (tests/test_kernels.py:55-62) + the engine'
     (1, 1, 16, 320, 1024, 128),
     (4, 8, 4, 128, 512, 128),
     (8, 2, 6, 128, 512, 128),
+    (8, 16, 1, 128, 512, 128),  # moonshot-v1-16b-a3b's engine: G = 1
+    (8, 8, 4, 128, 512, 128),  # phi3.5-moe-42b-a6.6b's engine: G = 4
 ]
 
 
@@ -809,6 +811,41 @@ def test_decode_step_on_card_matches_cpu(card):
         torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
         kvl += 1
     assert kd.launches["decode_attn"] == n0 + 6 * cfg.n_layers
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["mla", "moe"])
+def test_mla_moe_decode_step_on_card_matches_cpu(card, kind):
+    """A tiny float32 MLA and MoE model's decode steps at ragged lengths:
+    the card against the CPU within 1e-4 on the logits and the caches.  The
+    MoE model's attention is K10 in every layer, the MLA model's is not."""
+    from repro_torch.models import transformer as tf
+
+    extra = (dict(attn="mla", q_lora_rank=32, kv_lora_rank=32, qk_nope_dim=16,
+                  qk_rope_dim=8, v_head_dim=16) if kind == "mla"
+             else dict(n_experts=8, moe_top_k=2, n_shared_experts=1))
+    cfg = tf.LMConfig("tiny", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+                      head_dim=32, d_ff=96, vocab=300, dtype=torch.float32,
+                      param_dtype=torch.float32, **extra)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params = tf.init_lm_params(cfg, torch.Generator().manual_seed(1), device="cpu")
+    on_card = {n: ({k: t.to(card) for k, t in v.items()} if n == "layers" else v.to(card))
+               for n, v in params.items()}
+    caches = [tf.init_kv_cache(cfg, 3, 32, dtype=torch.float32, device=d)
+              for d in ("cpu", card)]
+    rng = np.random.default_rng(1)
+    kvl = np.asarray([0, 4, 9], np.int32)
+    n0 = kd.launches["decode_attn"]
+    for _ in range(6):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, 3))
+        want, _ = tf.lm_decode_step(params, caches[0], toks, torch.from_numpy(kvl), cfg)
+        got, _ = tf.lm_decode_step(on_card, caches[1], toks.to(card),
+                                   torch.from_numpy(kvl).to(card), cfg)
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+        kvl += 1
+    for name in caches[0]:
+        torch.testing.assert_close(caches[1][name].cpu(), caches[0][name], rtol=0, atol=1e-4)
+    assert kd.launches["decode_attn"] == n0 + (0 if kind == "mla" else 6 * cfg.n_layers)
 
 
 @pytest.mark.gpu

@@ -390,15 +390,25 @@ def test_init_params_structure_and_scales():
     assert abs(float(params["layers"]["w1"].std()) - 32 ** -0.5) < 0.02
 
 
-def test_mla_and_moe_wait_for_their_slice():
+def test_mla_and_moe_init_and_cache():
+    """MLA and MoE models build: their weights, the latent cache of MLA and
+    the K/V cache of a MoE model, and one decode step each."""
     kw = dict(n_layers=1, d_model=16, n_heads=2, n_kv_heads=2, head_dim=8, d_ff=32,
               vocab=50, dtype=torch.float32, param_dtype=torch.float32)
-    for cfg in (tf.LMConfig("mla", attn="mla", **kw),
-                tf.LMConfig("moe", n_experts=4, moe_top_k=2, **kw)):
-        with pytest.raises(NotImplementedError, match="14b"):
-            tf.init_lm_params(cfg, torch.Generator(), device="cpu")
-        with pytest.raises(NotImplementedError, match="14b"):
-            tf.init_kv_cache(cfg, 1, 4, device="cpu")
+    mla = tf.LMConfig("mla", attn="mla", q_lora_rank=8, kv_lora_rank=8, qk_nope_dim=4,
+                      qk_rope_dim=4, v_head_dim=4, **kw)
+    moe = tf.LMConfig("moe", n_experts=4, moe_top_k=2, **kw)
+    for cfg, names, widths in ((mla, ("c_kv", "k_rope"), ((8,), (4,))),
+                               (moe, ("k", "v"), ((2, 8), (2, 8)))):
+        params = tf.init_lm_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        assert {n: tuple(w.shape[1:]) for n, w in params["layers"].items()} == \
+            {n: s for n, (s, _) in tf.layer_shapes(cfg).items()}
+        cache = tf.init_kv_cache(cfg, 2, 4, device="cpu")
+        assert tuple(cache) == names
+        assert [tuple(c.shape) for c in cache.values()] == [(1, 2, 4, *w) for w in widths]
+        logits, cache = tf.lm_decode_step(params, cache, torch.tensor([1, 2]),
+                                          torch.tensor([0, 3], dtype=torch.int32), cfg)
+        assert logits.shape == (2, cfg.vocab_pad) and torch.isfinite(logits).all()
 
 
 def test_entry_points_default_to_the_card():

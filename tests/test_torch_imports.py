@@ -56,6 +56,21 @@ def test_persistence_modules_are_checked():
     assert all(hasattr(core, n) for n in core.__all__)
 
 
+def test_lm_modules_are_checked():
+    """The five LM configs and the model module are among the files checked
+    above, and the model module exports the forward pass and the MoE FFNs."""
+    checked = {p.relative_to(PORT).as_posix() for p in _port_files() if PORT in p.parents}
+    assert {"configs/minicpm3_4b.py", "configs/moonshot_v1_16b_a3b.py",
+            "configs/phi3_5_moe_42b_a6_6b.py", "configs/qwen2_1_5b.py",
+            "configs/smollm_360m.py", "models/transformer.py"} <= checked
+    from repro_torch.models import transformer as tf
+
+    assert {"lm_forward", "lm_loss", "lm_prefill", "lm_decode_step", "moe_ffn",
+            "moe_ffn_hier", "moe_ffn_grouped", "init_lm_params",
+            "init_kv_cache", "layer_shapes"} <= set(tf.__all__)
+    assert all(hasattr(tf, n) for n in tf.__all__)
+
+
 def test_serve_exports_what_the_reference_exports():
     """``repro_torch.serve`` exports the serving front end's six names beside
     the LM serving ones."""

@@ -16,6 +16,8 @@ against the JAX package on the CPU.
     decode wrongly in its batch; the port's batch gets them right.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -124,10 +126,20 @@ def test_byte_tier_waits_for_persistence(tmp_path):
 # ---------------------------------------------------------------------------
 
 
-def _tiny():
-    """The reference test's model, in both packages, with its weights."""
+#: the reference test's model and, on its widths, an MLA and a MoE one
+KINDS = {
+    "gqa": {},
+    "mla": dict(attn="mla", q_lora_rank=16, kv_lora_rank=16, qk_nope_dim=8, qk_rope_dim=8,
+                v_head_dim=8),
+    "moe": dict(n_experts=4, moe_top_k=2, n_shared_experts=1),
+}
+
+
+def _tiny(kind="gqa"):
+    """The reference test's model (or its MLA / MoE variant), in both
+    packages, with its weights."""
     kw = dict(n_layers=2, d_model=32, n_heads=2, n_kv_heads=2, head_dim=16,
-              d_ff=64, vocab=101)
+              d_ff=64, vocab=101, **KINDS[kind])
     ref_cfg = ref_tf.LMConfig("tiny-serve", q_chunk=8, dtype=jnp.float32,
                               param_dtype=jnp.float32, **kw)
     cfg = tf.LMConfig("tiny-serve", dtype=torch.float32, param_dtype=torch.float32, **kw)
@@ -157,9 +169,8 @@ def _run_reference_batch(ref_cfg, ref_params):
     return out, {r.rid: list(r.out) for r in eng.completed}, slots
 
 
-@pytest.fixture(scope="module")
-def served():
-    ref_cfg, ref_params, cfg, params = _tiny()
+def _serve(kind):
+    ref_cfg, ref_params, cfg, params = _tiny(kind)
     eng = ServeEngine(params, cfg, batch_slots=SLOTS, max_len=MAX_LEN, device="cpu")
     reqs = _requests(Request, cfg.vocab)
     out = eng.run(reqs)
@@ -168,6 +179,16 @@ def served():
                 ref_step=step, prompts={r.rid: r.prompt for r in reqs},
                 port={r.rid: list(r.out) for r in eng.completed},
                 ref_batch=_run_reference_batch(ref_cfg, ref_params))
+
+
+@pytest.fixture(scope="module")
+def served():
+    return _serve("gqa")
+
+
+@pytest.fixture(scope="module", params=["mla", "moe"])
+def served_mla_moe(request):
+    return _serve(request.param)
 
 
 def _reference_alone_logits(s, prompt, tokens):
@@ -201,6 +222,10 @@ def _first_miss(logits, tokens):
 
 
 def test_engine_schedule_matches_reference(served):
+    _same_schedule(served)
+
+
+def _same_schedule(served):
     out, ref_out = served["out"], served["ref_batch"][0]
     assert out["requests"] == 6
     assert out["tokens"] == sum(len(r.out) for r in served["eng"].completed) == 36
@@ -225,6 +250,10 @@ def test_reference_batch_fault_outside_slot_0(served):
     tokens fail the teacher-forced check against the reference alone),
     which the port's batch gets right; slot 0's requests are right in
     both."""
+    _batch_fault(served)
+
+
+def _batch_fault(served):
     _, ref_tokens, slots = served["ref_batch"]
     wrong = []
     for rid, toks in ref_tokens.items():
@@ -238,6 +267,45 @@ def test_reference_batch_fault_outside_slot_0(served):
         toks = served["port"][rid]
         assert _first_miss(_reference_alone_logits(
             served, served["prompts"][rid], toks), toks) is None
+
+
+def test_mla_moe_engine_schedule_matches_reference(served_mla_moe):
+    """An MLA and a MoE model served as the reference serves them: the same
+    requests, steps, tokens and KV stats.  The MLA engine keeps no KV
+    store, as in the reference: its stats stay zero."""
+    _same_schedule(served_mla_moe)
+    mla = served_mla_moe["eng"].cfg.attn == "mla"
+    assert set(served_mla_moe["eng"].cache) == ({"c_kv", "k_rope"} if mla else {"k", "v"})
+
+
+@pytest.mark.parametrize("kind", ["mla", "moe"])
+def test_mla_engine_keeps_no_store(kind):
+    """A 67-token prompt: a MoE engine seals its first 64-token block, an
+    MLA engine's store takes nothing (its cache is the latent pair, which
+    the reference does not mirror either)."""
+    _, _, cfg, params = _tiny(kind)
+    eng = ServeEngine(params, cfg, batch_slots=2, max_len=128, device="cpu")
+    eng.admit(Request("p", np.arange(1, 68) % cfg.vocab, max_new=2))
+    assert eng.store.stats["sealed"] == (0 if kind == "mla" else 1)
+    assert (eng.store._seqs["p"] == []) == (kind == "mla")
+    out = eng.run([])
+    assert out["tokens"] == 2 and out["kv_stats"]["sealed"] == (0 if kind == "mla" else 1)
+
+
+def test_mla_moe_engine_tokens_teacher_forced_to_reference_alone(served_mla_moe):
+    """Every request's batched tokens against the reference serving it
+    alone (a MoE batch of 4 slots routes no pair past the capacity of 8, so
+    the idle rows change nothing)."""
+    for rid, tokens in served_mla_moe["port"].items():
+        logits = _reference_alone_logits(served_mla_moe, served_mla_moe["prompts"][rid], tokens)
+        assert _first_miss(logits, tokens) is None, rid
+
+
+def test_mla_moe_reference_batch_fault_outside_slot_0(served_mla_moe):
+    """The reference's MLA and GQA decode both write every row at row 0's
+    length: its batch gets requests outside slot 0 wrong, the port's does
+    not."""
+    _batch_fault(served_mla_moe)
 
 
 def test_engine_alone_equals_batched(served):
@@ -303,7 +371,8 @@ def test_bf16_engine_runs_in_its_dtypes():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ["qwen2-1.5b", "smollm-360m"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "smollm-360m", "minicpm3-4b",
+                                  "moonshot-v1-16b-a3b", "phi3.5-moe-42b-a6.6b"])
 def test_configs_match_reference(arch):
     port, ref = configs.get_config(arch), ref_configs.get_config(arch)
     assert (port.arch_id, port.family, port.source, port.shapes) == \
@@ -318,6 +387,36 @@ def test_configs_match_reference(arch):
     assert port.config.group_size == ref.config.group_size
 
 
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "moonshot-v1-16b-a3b",
+                                  "phi3.5-moe-42b-a6.6b"])
+def test_mla_moe_configs_equal_reference_field_for_field(arch):
+    """Every field of the reference's LMConfig (dtypes by name), its
+    ArchSpec's notes, and the parameter counts."""
+    port, ref = configs.get_config(arch), ref_configs.get_config(arch)
+    assert port.notes == ref.notes and port.source == ref.source
+    for f in dataclasses.fields(ref.config):
+        want, got = getattr(ref.config, f.name), getattr(port.config, f.name)
+        if f.name in ("dtype", "param_dtype"):
+            assert str(got).split(".")[-1] == jnp.dtype(want).name, f.name
+        else:
+            assert got == want, f.name
+    assert [f.name for f in dataclasses.fields(port.config)] == \
+        [f.name for f in dataclasses.fields(ref.config)]
+    assert port.config.n_params() == ref.config.n_params()
+    assert port.config.n_active_params() == ref.config.n_active_params()
+
+
+def test_mla_moe_sizes():
+    """The sizes the card's LM phase plans around."""
+    sizes = {a: configs.get_config(a).config for a in
+             ("minicpm3-4b", "moonshot-v1-16b-a3b", "phi3.5-moe-42b-a6.6b")}
+    assert sizes["minicpm3-4b"].n_params() == 4_261_902_848
+    assert sizes["moonshot-v1-16b-a3b"].n_params() == 28_057_995_264
+    assert sizes["moonshot-v1-16b-a3b"].n_active_params() == 3_974_301_696
+    assert sizes["phi3.5-moe-42b-a6.6b"].n_params() == 41_872_527_360
+    assert sizes["phi3.5-moe-42b-a6.6b"].n_active_params() == 6_640_373_760
+
+
 def test_qwen2_size():
     cfg = configs.get_config("qwen2-1.5b").config
     assert cfg.n_params() == cfg.n_active_params() == 1_543_714_304
@@ -325,10 +424,12 @@ def test_qwen2_size():
 
 
 def test_other_archs_wait_for_their_slice():
-    for arch in ref_configs.arch_ids():
-        if arch in configs.arch_ids():
-            continue
-        with pytest.raises(NotImplementedError, match="item 1[45]"):
+    """Every LM architecture is built; item 15's five raise, naming it."""
+    later = [a for a in ref_configs.arch_ids() if a not in configs.arch_ids()]
+    assert sorted(later) == ["bert4rec", "nequip", "two-tower-retrieval", "wide-deep",
+                             "xdeepfm"]
+    for arch in later:
+        with pytest.raises(NotImplementedError, match="item 15"):
             configs.get_config(arch)
     with pytest.raises(KeyError):
         configs.get_config("no-such-arch")
