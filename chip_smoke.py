@@ -101,12 +101,12 @@ Phases (any failure raises and the script exits non-zero):
               raised so no pair drops; within LM_FWD_BOUND); ``lm_prefill``
               at B 1, S 2,048 (median ms of 3, tokens/s) and ``lm_loss`` on
               the same tokens (finite, beside ln(vocab)); ``ServeEngine(8,
-              512)`` serving 8 requests of a shared 64-token prefix plus 16
-              own tokens, 16 new each: tok/s, the batched and full-batch
+              512)`` serving 8 requests of a shared 64-token prefix plus 4
+              own tokens, 8 new each: tok/s, the batched and full-batch
               step medians beside the step's byte bound, the device idle
               share and device operations a step over 5 batched steps, KV
               stats (zero for MLA, whose latent cache the store does not
-              hold), peak device bytes.  Checks: 16 tokens per request; K10
+              hold), peak device bytes.  Checks: 8 tokens per request; K10
               launched n_layers times per decode step (0 for MLA); no
               (token, choice) pair dropped in any decode step (counted from
               the ranks); one batched step at ragged lengths on the card
@@ -241,6 +241,48 @@ Phases (any failure raises and the script exits non-zero):
               ``add``) and search serves on with the same hits; the card
               stays the coordinator's while the frontend serves.
 
+ 11. train    training on the card, through ``repro_torch.train.loop.Trainer``
+              (AdamW, deterministic steps).  smollm-360m at its published
+              width and depth (32 layers, d 960, 15/5 heads, d_ff 2,560,
+              vocab 49,152, tied embeddings) in float32 with ``remat``,
+              seeded weights, ``lm_batches`` of the corpus at B 8 x S 1,024,
+              AdamW lr 3e-4 with 5 warmup steps: run B takes 16 steps with
+              no checkpoint (3 of them profiled); run A takes 12 with the
+              tiered checkpoint in a fresh temporary directory (flush every
+              4, commit every 8, one commit kept, a heap of the power of two
+              at or above 2.5x the state's bytes), then
+              ``simulate_process_crash()``; a new Trainer resumes; a node
+              loss (``simulate_node_loss()``) then strikes A's directory and
+              another new Trainer resumes from the commit; the resumed run
+              goes on to 16.  Prints ``df -T`` and the free bytes of the
+              directory first, then the median step ms and tokens/s beside
+              the step's float32 FLOP bound (matrix products counted from
+              the shapes, at 67 TFLOP/s), the device idle share of 3 steps,
+              peak device bytes, the first and last loss, every flush and
+              commit (seconds, bytes, barriers, compactions) and restore
+              (tier, seconds).  Checks: the resumed run's parameters equal
+              run B's bit for bit; the restarts resume at 12 and at 8; one
+              heap barrier a flush (a compaction's apart); the losses finite
+              and the last below the first.
+              Then xdeepfm, wide-deep, two-tower-retrieval and bert4rec
+              (``bert4rec_loss_masked``) at their published widths, one at a
+              time: 5 Trainer steps at ``train_batch``'s micro-batch of
+              4,096, a ``serve_p99`` forward at B 512, two-tower's
+              ``twotower_retrieve`` over 1,000,000 seeded candidates at k
+              100 and ``bert4rec_serve`` at k 10.  Prints step ms, peak
+              bytes, serve and retrieve ms.  Checks: losses finite; the
+              retrieve and serve ids equal a stable descending sort's of the
+              same scores on the CPU.  Last, NequIP at its published widths
+              (5 layers, 32 channels, 8 rbf, cutoff 5): 5 Trainer steps on
+              molecule batches (128 graphs of 30 nodes and 64 edges, d_feat
+              16) and 5 on subgraphs that ``NeighborSampler`` draws (1,024
+              seeds, fanout 15-10: 169,984 nodes, 168,960 edges) from a host
+              ``synthetic_graph`` with Reddit's 232,965 nodes, its mean
+              degree, d_feat 602 and 41 classes.  Prints step ms, sampler
+              ms, the host graph's edges, peak bytes.  Checks: losses finite;
+              the molecule outputs invariant under a rotation and
+              translation on the card (ROTATION_ATOL); the sampled shapes.
+
 The line before the last is the ``{"kernels": [...]}`` record of all ten
 kernels; the last is ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the repository beside it, the script fails before printing a
@@ -349,8 +391,11 @@ DECODE_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # the reference's K10 toleranc
 # at 24 of its 32 layers: 83.7 GB of bf16 weights do not fit the card)
 LM_MODELS = (("minicpm3-4b", None), ("moonshot-v1-16b-a3b", None),
              ("phi3.5-moe-42b-a6.6b", 24))
-LM_MODEL_PREFIX, LM_MODEL_TAIL, LM_MODEL_NEW, LM_MODEL_REQUESTS = 64, 16, 16, 8
-LM_MODEL_PROFILE_FROM = 5  # of the 16 batched steps
+# cut from 64 / 16 / 16 (656 decode steps a model) to 64 / 4 / 8 (552) to
+# make room for phase 11; the prefix stays one 64-token KV block, which the
+# sealed-and-shared check needs
+LM_MODEL_PREFIX, LM_MODEL_TAIL, LM_MODEL_NEW, LM_MODEL_REQUESTS = 64, 4, 8, 8
+LM_MODEL_PROFILE_FROM = 2  # of the 8 batched steps
 LM_CHECK_LAYERS = 2  # layers of the card-vs-CPU and decode-vs-forward checks
 LM_FWD_TOKENS = 64
 # |logit| difference allowed between the float32 decode path and the float32
@@ -391,6 +436,25 @@ OVERLOAD_WATERMARK = 16
 OVERLOAD_MAX_WAVE = 8
 STAGED_WAVE = 16  # queries of one family staged into one wave
 SERVE_WAIT_S = 120.0  # every blocking wait of the phase is bounded by this
+# train phase: smollm-360m at full width and depth in float32 (the reference's
+# training drivers' dtype: its checkpoint holds no bfloat16), B 8 x S 1,024,
+# AdamW lr 3e-4 with 5 warmup steps, the tiered checkpoint flushing every 4
+# steps and committing every 8; run A crashes after step 12
+TRAIN_ARCH = "smollm-360m"
+TRAIN_BATCH, TRAIN_SEQ = 8, 1024
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 5
+TRAIN_STEPS, TRAIN_CRASH_AT = 16, 12
+TRAIN_FLUSH, TRAIN_COMMIT = 4, 8
+TRAIN_PROFILE_STEPS = 3
+TRAIN_SEED = SEED + 8
+# then the recommenders at train_batch's micro-batch (65,536 / 16) and NequIP
+RECSYS_ARCHS = ("xdeepfm", "wide-deep", "two-tower-retrieval", "bert4rec")
+RECSYS_STEPS = 5
+RECSYS_SEED = SEED + 9
+RETRIEVE_K, SERVE_TOP_K = 100, 10
+NEQUIP_STEPS = 5
+NEQUIP_SEED = SEED + 10
+ROTATION_ATOL = 2e-4  # the reference's tests/test_properties.py bound
 
 
 def log(tag: str, obj) -> None:
@@ -3156,6 +3220,402 @@ def decode_kernel_record(launches: int, eng) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 11: training
+# ---------------------------------------------------------------------------
+
+
+def lm_train_flops(cfg, batch: int, seq: int) -> int:
+    """Matrix-product FLOPs of one training step of a dense GQA model with
+    ``remat``: the forward pass, the layers' recomputed forward, and a
+    backward pass of twice the forward (the elementwise work, norms and
+    softmax are left out).  Attention scores every key of its one query
+    chunk (q_chunk = S), masked, as the port computes it."""
+    t, d, hd = batch * seq, cfg.d_model, cfg.head_dim
+    proj = d * hd * (cfg.n_heads + 2 * cfg.n_kv_heads) + cfg.n_heads * hd * d
+    layer = 2 * t * (proj + 3 * d * cfg.d_ff) + 4 * batch * cfg.n_heads * seq * seq * hd
+    head = 2 * t * d * cfg.vocab_pad
+    forward = cfg.n_layers * layer + head
+    return 3 * forward + cfg.n_layers * layer
+
+
+def trainer_steps(tr, until: int) -> list:
+    """Run ``tr`` to step ``until`` one step at a time (each step logged,
+    which reads its loss back); host ms of each step to a synchronize, the
+    seconds its checkpoint tier spent taken out."""
+    import torch
+
+    ms = []
+    while tr.state.step < until:
+        before = dict(tr.ckpt.stats) if tr.ckpt else None
+        t = time.perf_counter()
+        tr.run(tr.state.step + 1, log_every=1)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        if before:
+            dt -= (tr.ckpt.stats["flush_s"] - before["flush_s"]
+                   + tr.ckpt.stats["commit_s"] - before["commit_s"])
+        ms.append(dt * 1e3)
+    return ms
+
+
+def recorded_tiers(mgr, log: list) -> None:
+    """Record each flush and commit of ``mgr``: its step, seconds, bytes and,
+    for a flush, the heap barriers it issued and whether it compacted (a
+    compaction moves the snapshot to a fresh heap with its own barrier)."""
+    flush, commit = mgr.flush, mgr.commit
+
+    def recorded_flush(step, state):
+        heap, b0, s0 = mgr.heap, mgr.heap.stats["barriers"], mgr.heap.stats["stored_bytes"]
+        dt = flush(step, state)
+        compacted = mgr.heap is not heap
+        barriers = heap.stats["barriers"] - b0 + (mgr.heap.stats["barriers"] if compacted else 0)
+        log.append({"tier": "flush", "step": step, "s": dt, "barriers": barriers,
+                    "compacted": compacted,
+                    "bytes": heap.stats["stored_bytes"] - s0})
+        return dt
+
+    def recorded_commit(step, state, extra=None):
+        dt = commit(step, state, extra)
+        path = os.path.join(mgr.cfg.directory, f"commit_{step:09d}.npz")
+        log.append({"tier": "commit", "step": step, "s": dt, "bytes": os.path.getsize(path)})
+        return dt
+
+    mgr.flush, mgr.commit = recorded_flush, recorded_commit
+
+
+@contextlib.contextmanager
+def timed_restores(log: list):
+    """While open, every ``CheckpointManager.restore`` appends its tier and
+    seconds to ``log``."""
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    restore = CheckpointManager.restore
+
+    def timed(self, like, tier=None):
+        t = time.perf_counter()
+        step, out = restore(self, like, tier)
+        log.append({"step": step, "tier": tier or self.latest()[1], "s": time.perf_counter() - t})
+        return step, out
+
+    CheckpointManager.restore = timed
+    try:
+        yield
+    finally:
+        CheckpointManager.restore = restore
+
+
+def free_card() -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def train_lm_phase(smi: str) -> dict:
+    """Phase 11's smollm-360m run (see the module docstring): run B (16
+    steps, no checkpoint), run A (12 steps, a process crash, a restart at
+    12), a node loss on A's directory (a restart at 8), then A's restart on
+    to 16; A's parameters must equal B's bit for bit."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm import lm_batches
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.checkpoint import CheckpointConfig
+    from repro_torch.train.loop import Trainer
+    from repro_torch.train.tree import tree_leaves
+
+    spec = get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(spec.config, dtype=torch.float32, param_dtype=torch.float32,
+                              remat=True)
+    state_bytes = 3 * 4 * sum(int(np.prod(s)) for s in
+                              [(cfg.vocab_pad, cfg.d_model), (cfg.d_model,)]
+                              + [(cfg.n_layers, *s) for s, _ in tf.layer_shapes(cfg).values()])
+    capacity = 1 << math.ceil(math.log2(2.5 * state_bytes))
+    work = tempfile.mkdtemp(prefix="train_")
+    df = subprocess.run(["df", "-T", work], capture_output=True, text=True).stdout
+    free = shutil.disk_usage(work).free
+    log("train_disk", {"dir": work, "df": df.strip().splitlines(), "free_bytes": free,
+                       "state_bytes": state_bytes, "heap_capacity": capacity})
+    t = time.perf_counter()
+    stream = lm_batches(TRAIN_BATCH, TRAIN_SEQ, cfg.vocab, seed=TRAIN_SEED)
+    batches = [next(stream) for _ in range(TRAIN_STEPS)]
+    data_s = time.perf_counter() - t
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS)
+    ck = CheckpointConfig(work, flush_every=TRAIN_FLUSH, commit_every=TRAIN_COMMIT,
+                          keep_commits=1, heap_capacity=capacity)
+
+    def trainer(ckpt=None):
+        return Trainer(lambda p, b: tf.lm_loss(p, b, cfg),
+                       lambda g: tf.init_lm_params(cfg, g, device=g.device),
+                       lambda step: batches[step], opt, ckpt, seed=TRAIN_SEED)
+
+    free_card()
+    resident = torch.cuda.memory_allocated()
+    # run B: uninterrupted, no checkpoint; 3 of its steps profiled
+    b = trainer()
+    b_ms = trainer_steps(b, TRAIN_STEPS - TRAIN_PROFILE_STEPS)
+    prof = device_profile(lambda: trainer_steps(b, TRAIN_STEPS))
+    peak = torch.cuda.max_memory_allocated()
+    want = [p.detach().clone() for p in tree_leaves(b.state.params)]
+    losses = [r["loss"] for r in b.metrics_log]
+    del b
+    free_card()
+    # run A: 12 steps with the tiers, a process crash, a restart
+    tiers, restores = [], []
+    a = trainer(ck)
+    recorded_tiers(a.ckpt, tiers)
+    a_ms = trainer_steps(a, TRAIN_CRASH_AT)
+    a.ckpt.simulate_process_crash()
+    del a
+    free_card()
+    with timed_restores(restores):
+        a2 = trainer(ck)
+        if a2.state.step != TRAIN_CRASH_AT:
+            raise AssertionError(f"train: restarted at {a2.state.step} after a process crash "
+                                 f"at {TRAIN_CRASH_AT}")
+        # a node loss strikes A's directory: only the commit point survives
+        a2.ckpt.simulate_node_loss()
+        a3 = trainer(ck)
+        if a3.state.step != TRAIN_COMMIT:
+            raise AssertionError(f"train: restarted at {a3.state.step} after a node loss, "
+                                 f"want the commit at {TRAIN_COMMIT}")
+        del a3
+    free_card()
+    recorded_tiers(a2.ckpt, tiers)
+    a_ms += trainer_steps(a2, TRAIN_STEPS)
+    got = tree_leaves(a2.state.params)
+    equal = all(torch.equal(x, y) for x, y in zip(got, want))
+    if not equal:
+        worst = max(float((x - y).abs().max()) for x, y in zip(got, want))
+        raise AssertionError(f"train: the restarted run's parameters differ from the "
+                             f"uninterrupted run's by up to {worst}")
+    del a2, got, want
+    free_card()
+    shutil.rmtree(work, ignore_errors=True)
+    flushes = [r for r in tiers if r["tier"] == "flush"]
+    if any(r["barriers"] != 1 + r["compacted"] for r in flushes):
+        raise AssertionError(f"train: a flush issued other than one heap barrier: {flushes}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"train: losses {losses}")
+    flops = lm_train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    step_ms = float(np.median(b_ms + a_ms))
+    return {
+        "arch": TRAIN_ARCH, "source": spec.source, "layers": cfg.n_layers,
+        "tf32": torch.backends.cuda.matmul.allow_tf32,
+        "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads], "d_ff": cfg.d_ff,
+        "vocab": cfg.vocab, "params": cfg.n_params(), "dtype": "float32", "remat": cfg.remat,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "lr": TRAIN_LR, "warmup": TRAIN_WARMUP,
+        "data_s": data_s, "state_bytes": state_bytes, "heap_capacity": capacity,
+        "step_ms_median": step_ms, "step_ms_b": b_ms, "step_ms_a": a_ms,
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3,
+        "step_flops": flops, "step_flop_bound_ms": flops / FP32_OPS_PER_S * 1e3,
+        "profile_3_steps": prof, "max_memory_allocated": peak,
+        "device_bytes_resident_before": resident,
+        "loss_first": losses[0], "loss_last": losses[-1], "losses": losses,
+        "tiers": tiers, "restores": restores,
+        "compactions": sum(r["compacted"] for r in flushes),
+        "restart_after_crash": TRAIN_CRASH_AT, "restart_after_node_loss": TRAIN_COMMIT,
+        "bit_equal_to_uninterrupted": equal, "card": smi,
+    }
+
+
+RECSYS_LOSS = {"xdeepfm": "xdeepfm_loss", "wide-deep": "widedeep_loss",
+               "two-tower-retrieval": "twotower_loss", "bert4rec": "bert4rec_loss_masked"}
+RECSYS_INIT = {"xdeepfm": "init_xdeepfm_params", "wide-deep": "init_widedeep_params",
+               "two-tower-retrieval": "init_twotower_params",
+               "bert4rec": "init_bert4rec_params"}
+
+
+def recsys_batches(arch: str, cfg, batch: int, n: int, seed: int) -> list:
+    from repro_torch.data import recsys_data as rd
+
+    if arch in ("xdeepfm", "wide-deep"):
+        it = rd.ctr_batches(batch, cfg.n_sparse, cfg.rows_per_field, seed=seed)
+    elif arch == "two-tower-retrieval":
+        it = rd.twotower_batches(batch, cfg.n_items, cfg.n_user_feats, cfg.user_hist_len,
+                                 cfg.item_n_feats, seed=seed)
+    else:
+        it = rd.bert4rec_batches(batch, cfg.n_items, cfg.seq_len, seed=seed)
+    return [next(it) for _ in range(n)]
+
+
+def stable_top_ids(scores, k: int):
+    """The ids of a stable descending sort's first k, on the CPU."""
+    import torch
+
+    return torch.sort(scores.float().cpu(), dim=-1, descending=True, stable=True)[1][..., :k]
+
+
+def recsys_phase(arch: str, smi: str) -> dict:
+    """One recommender at its published widths: RECSYS_STEPS Trainer steps
+    at ``train_batch``'s micro-batch, a ``serve_p99`` forward, and its
+    retrieval or next-item top-k held to a stable sort on the CPU."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import recsys as R
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.loop import Trainer, to_device
+
+    spec = get_config(arch)
+    cfg = spec.config
+    shapes = spec.shapes
+    micro = shapes["train_batch"]["global_batch"] // shapes["train_batch"]["n_micro"]
+    serve_b = shapes["serve_p99"]["global_batch"]
+    loss_fn, init = getattr(R, RECSYS_LOSS[arch]), getattr(R, RECSYS_INIT[arch])
+    t = time.perf_counter()
+    batches = recsys_batches(arch, cfg, micro, RECSYS_STEPS, RECSYS_SEED)
+    serve = recsys_batches(arch, cfg, serve_b, 1, RECSYS_SEED + 1)[0]
+    data_s = time.perf_counter() - t
+    free_card()
+    t = time.perf_counter()
+    tr = Trainer(lambda p, b: loss_fn(p, b, cfg), lambda g: init(g, cfg),
+                 lambda step: batches[step],
+                 AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=RECSYS_STEPS), seed=RECSYS_SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    serve = to_device(serve, tr.device)
+    ms = trainer_steps(tr, RECSYS_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [r["loss"] for r in tr.metrics_log]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{arch}: losses {losses}")
+    params = tr.state.params
+    out = {"arch": arch, "source": spec.source, "params": cfg.n_params(), "micro_batch": micro,
+           "data_s": data_s, "init_s": init_s, "step_ms": ms,
+           "step_ms_median": float(np.median(ms)), "losses": losses,
+           "max_memory_allocated": peak, "serve_batch": serve_b, "card": smi}
+    with torch.no_grad():
+        if arch == "xdeepfm":
+            serve_fn = lambda: R.xdeepfm_forward(params, serve["ids"], cfg)
+        elif arch == "wide-deep":
+            serve_fn = lambda: R.widedeep_forward(params, serve["ids"], cfg)
+        elif arch == "two-tower-retrieval":
+            serve_fn = lambda: R.twotower_score(params, serve, cfg)
+        else:
+            serve_fn = lambda: R.bert4rec_serve(params, serve["seq"], cfg, k=SERVE_TOP_K)
+        y = serve_fn()
+        y = y[1] if isinstance(y, tuple) else y
+        if not (torch.isfinite(y.float()).all() and y.shape[0] == serve_b):
+            raise AssertionError(f"{arch}: serve_p99 output {tuple(y.shape)}")
+        out["serve_ms"] = cuda_ms(serve_fn, 10)[0]
+        if arch == "two-tower-retrieval":
+            n = shapes["retrieval_cand"]["n_candidates"]
+            gen = torch.Generator(device=tr.device).manual_seed(RECSYS_SEED)
+            cands = torch.randn((n, cfg.embed_dim), generator=gen, device=tr.device)
+            hist = serve["user_hist"][:1]
+            q = R.user_tower(params, hist, cfg)[0]
+            scores = (cands @ q).float() / cfg.temperature
+            vals, ids = R.twotower_retrieve(params, {"user_hist": hist, "cand_embeds": cands},
+                                            cfg, k=RETRIEVE_K)
+            if not torch.equal(ids.cpu(), stable_top_ids(scores, RETRIEVE_K)):
+                raise AssertionError("two-tower: retrieve ids differ from a stable sort's")
+            out.update(candidates=n, retrieve_k=RETRIEVE_K, retrieve_ms=cuda_ms(
+                lambda: R.twotower_retrieve(params, {"user_hist": hist, "cand_embeds": cands},
+                                            cfg, k=RETRIEVE_K), 10)[0])
+            del cands
+        if arch == "bert4rec":
+            x = R.bert4rec_hidden(params, serve["seq"], cfg)
+            logits = (x[:, -1] @ params["embed"].T)[:, : cfg.n_items + 2]
+            _, ids = R.bert4rec_serve(params, serve["seq"], cfg, k=SERVE_TOP_K)
+            if not torch.equal(ids.cpu(), stable_top_ids(logits, SERVE_TOP_K)):
+                raise AssertionError("bert4rec: serve ids differ from a stable sort's")
+            out["serve_k"] = SERVE_TOP_K
+    del tr, params
+    free_card()
+    return out
+
+
+def nequip_phase(smi: str) -> dict:
+    """NequIP at its published widths on two shapes (see the module
+    docstring): 5 Trainer steps on molecule batches, rotation invariance on
+    the card, then 5 on subgraphs sampled from a Reddit-sized host graph."""
+    import torch
+    from scipy.spatial.transform import Rotation
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import graph
+    from repro_torch.models import nequip as N
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.loop import Trainer, to_device
+
+    spec = get_config("nequip")
+    out = {"source": spec.source, "card": smi}
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=NEQUIP_STEPS)
+
+    def train(name, cfg, batches):
+        free_card()
+        tr = Trainer(lambda p, b: N.nequip_loss(p, b, cfg), lambda g: N.init_nequip_params(g, cfg),
+                     lambda step: batches[step], opt, seed=NEQUIP_SEED)
+        ms = trainer_steps(tr, NEQUIP_STEPS)
+        losses = [r["loss"] for r in tr.metrics_log]
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"nequip {name}: losses {losses}")
+        out[name] = {"layers": cfg.n_layers, "channels": cfg.channels, "d_feat": cfg.d_feat,
+                     "n_out": cfg.n_out, "task": cfg.task, "params": cfg.n_params(),
+                     "nodes": int(batches[0]["node_feats"].shape[0]),
+                     "edges": int(batches[0]["edge_index"].shape[1]),
+                     "step_ms": ms, "step_ms_median": float(np.median(ms)), "losses": losses,
+                     "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        return tr
+
+    mol = spec.shapes["molecule"]
+    cfg = dataclasses.replace(spec.config, d_feat=mol["d_feat"], n_out=mol["n_out"],
+                              task=mol["task"])
+    per = mol["n_nodes"] // mol["n_graphs"], mol["n_edges"] // mol["n_graphs"]
+    batches = [graph.molecule_batch(mol["n_graphs"], per[0], per[1], mol["d_feat"],
+                                    seed=NEQUIP_SEED + i) for i in range(NEQUIP_STEPS)]
+    tr = train("molecule", cfg, batches)
+    rng = np.random.default_rng(NEQUIP_SEED)
+    b = to_device(batches[0], tr.device)
+    rot = torch.from_numpy(Rotation.random(random_state=NEQUIP_SEED).as_matrix()
+                           .astype(np.float32)).to(tr.device)
+    moved = dict(b, positions=b["positions"] @ rot.T
+                 + torch.from_numpy(rng.standard_normal(3).astype(np.float32)).to(tr.device))
+    with torch.no_grad():
+        diff = float((N.nequip_forward(tr.state.params, b, cfg)
+                      - N.nequip_forward(tr.state.params, moved, cfg)).abs().max())
+    if not diff <= ROTATION_ATOL:
+        raise AssertionError(f"nequip: rotated outputs differ by {diff}")
+    out["molecule"]["rotation_max_abs_diff"] = diff
+    del tr, b, moved
+
+    lg = spec.shapes["minibatch_lg"]
+    src = lg["source_graph"]
+    t = time.perf_counter()
+    g = graph.synthetic_graph(src["n_nodes"], round(src["n_edges"] / src["n_nodes"]),
+                              lg["d_feat"], lg["n_out"], seed=NEQUIP_SEED)
+    graph_s = time.perf_counter() - t
+    sampler = graph.NeighborSampler(g, lg["fanout"], seed=NEQUIP_SEED)
+    it = sampler.batches(lg["seed_nodes"], seed=NEQUIP_SEED)
+    batches, sample_ms = [], []
+    for _ in range(NEQUIP_STEPS):
+        t = time.perf_counter()
+        batches.append(next(it))
+        sample_ms.append((time.perf_counter() - t) * 1e3)
+    cfg = dataclasses.replace(spec.config, d_feat=lg["d_feat"], n_out=lg["n_out"], task=lg["task"])
+    train("minibatch_lg", cfg, batches)
+    if (out["minibatch_lg"]["nodes"], out["minibatch_lg"]["edges"]) != (lg["n_nodes"], lg["n_edges"]):
+        raise AssertionError(f"nequip: sampled {out['minibatch_lg']['nodes']} nodes and "
+                             f"{out['minibatch_lg']['edges']} edges")
+    out["minibatch_lg"].update(
+        host_graph={"nodes": g.n_nodes, "edges": g.n_edges, "d_feat": lg["d_feat"],
+                    "classes": lg["n_out"], "build_s": graph_s},
+        sampler_ms=sample_ms, sampler_ms_median=float(np.median(sample_ms)))
+    del g, sampler, batches
+    free_card()
+    return out
+
+
 def public(record: dict) -> dict:
     """A kernel record as the kernels line prints it: without its shape and
     queue notes, nested records likewise."""
@@ -3446,6 +3906,17 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     log("serve", dict(serve_phase(served, cfg.n_docs - deleted), card=smi,
                       seconds=time.perf_counter() - t, run_s=time.perf_counter() - t_start))
+
+    # 11. training: smollm-360m, the recommenders, NequIP ----------------
+    t = time.perf_counter()
+    log("train", dict(train_lm_phase(smi), seconds=time.perf_counter() - t,
+                      run_s=time.perf_counter() - t_start))
+    for arch in RECSYS_ARCHS:
+        t_arch = time.perf_counter()
+        log("train_recsys", dict(recsys_phase(arch, smi), seconds=time.perf_counter() - t_arch))
+    t_nq = time.perf_counter()
+    log("train_nequip", dict(nequip_phase(smi), seconds=time.perf_counter() - t_nq))
+    log("train_phase", {"seconds": time.perf_counter() - t, "run_s": time.perf_counter() - t_start})
     for r in records:
         log("kernel", r)
     print(json.dumps({"kernels": [public(r) for r in records]}), flush=True)

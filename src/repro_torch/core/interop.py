@@ -6,8 +6,10 @@ arrays and metadata of a reference ``repro.core.segment.Segment`` (what
 ``Segment``, checked against the layout both packages share.  An index
 built by the JAX package can then be searched by the port.
 ``lm_params_from_arrays`` does the same for a language model's parameter
-tree, so both packages compute with the same weights.  Nothing here
-imports the reference: the caller hands over plain arrays.
+tree, so both packages compute with the same weights, and
+``tree_from_arrays`` for any other tree of arrays: the recsys and NequIP
+parameters and the AdamW state.  Nothing here imports the reference: the
+caller hands over plain arrays.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 from repro_torch.core.segment import Segment
 from repro_torch.core.writer import VECTOR_FIELD
 from repro_torch.kernels.runtime import resolve_device
+from repro_torch.train.tree import tree_flatten, tree_unflatten
 
 #: array -> (dtype, rank) of the shared segment layout
 LAYOUT = {
@@ -134,3 +137,25 @@ def lm_params_from_arrays(tree: Dict[str, Any], cfg, device=None) -> Dict[str, A
         else:
             out[key] = t
     return out
+
+
+def tree_from_arrays(tree, like=None, device=None):
+    """The port's tree of tensors from a reference pytree of numpy arrays
+    (dicts, lists, tuples; ``np.asarray`` of each JAX leaf): the recsys and
+    NequIP parameters, or an AdamW state (``step`` stays a 0-d int32
+    tensor).  With ``like``, a port tree of the same structure (e.g. from
+    ``init_*_params`` or ``adamw_init``), every leaf must have its
+    counterpart's shape and is cast to its dtype; the leaves are placed on
+    ``device`` (None: the card)."""
+    dev = resolve_device(device)
+    leaves, treedef = tree_flatten(tree)
+    out = [_tensor(a).to(dev) for a in leaves]
+    if like is not None:
+        like_leaves, like_def = tree_flatten(like)
+        if like_def != treedef:
+            raise ValueError("the arrays' tree has another structure than the port's")
+        for i, (t, ll) in enumerate(zip(out, like_leaves)):
+            if tuple(t.shape) != tuple(ll.shape):
+                raise ValueError(f"leaf {i} is {tuple(t.shape)}, want {tuple(ll.shape)}")
+            out[i] = t.to(ll.dtype)
+    return tree_unflatten(treedef, out)

@@ -1,2 +1,3 @@
-"""Models of the port: the decoder-only transformer's decode path
-(``transformer.py``) and its building blocks (``common.py``)."""
+"""Models of the port: the decoder-only transformer (``transformer.py``),
+the recommenders (``recsys.py``), NequIP (``nequip.py``) and their building
+blocks (``common.py``)."""

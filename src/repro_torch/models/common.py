@@ -1,6 +1,5 @@
-"""Shared building blocks: RMS norm, RoPE, initializers (port of
-``repro/models/common.py``; ``layer_norm`` and the small MLPs come with
-the recsys slice).
+"""Shared building blocks: norms, RoPE, initializers, small MLPs (port of
+``repro/models/common.py``).
 
 Initializers take an explicit ``torch.Generator`` and draw on its device;
 the numbers differ from ``jax.random``'s for the same seed, so the tests
@@ -10,7 +9,7 @@ carry the reference's weights across (``core/interop.py``) instead.
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Callable, Dict, List, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -25,6 +24,24 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.T
     dtype, then ``* gamma`` (PyTorch's ``rms_norm`` over float32 computes
     the reference's statistics; the scale stays outside it, in x's dtype)."""
     return F.rms_norm(x.float(), x.shape[-1:], eps=eps).to(x.dtype) * gamma
+
+
+def top_k(x: torch.Tensor, k: int):
+    """(values, indices) of the k largest along the last axis, ties to the
+    lower index (``jax.lax.top_k``; ``torch.topk`` promises no order): a
+    stable descending sort."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """``(x - mean) * rsqrt(var + eps)`` in float32 (the biased variance),
+    cast back to ``x``'s dtype, then ``* gamma + beta``."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * gamma + beta
 
 
 def dense_init(generator: torch.Generator, shape: Sequence[int], in_axis: int = -2,
@@ -71,3 +88,25 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     """x: (..., S, H, D) with D even; positions: broadcastable to (..., S).
     In float32 on split halves, cast back to ``x``'s dtype."""
     return rotate(x, *rope_cos_sin(positions, x.shape[-1], theta))
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+
+def mlp_init(generator: torch.Generator, sizes: Sequence[int],
+             dtype=torch.float32) -> List[Dict[str, torch.Tensor]]:
+    """One ``{"w": (a, b) LeCun-normal, "b": (b,) zeros}`` per layer."""
+    return [{"w": dense_init(generator, (a, b), dtype=dtype),
+             "b": torch.zeros(b, dtype=dtype, device=generator.device)}
+            for a, b in zip(sizes[:-1], sizes[1:])]
+
+
+def mlp_apply(layers, x: torch.Tensor, act: Callable = F.relu,
+              final_act: bool = False) -> torch.Tensor:
+    for i, lp in enumerate(layers):
+        x = x @ lp["w"] + lp["b"]
+        if i < len(layers) - 1 or final_act:
+            x = act(x)
+    return x

@@ -17,8 +17,11 @@ with a Python loop.  Weights are (in, out) matrices used as ``x @ W``; the
 large products are ``torch.matmul`` (the reference leaves them to XLA; none
 of them is a Pallas kernel).  The decode attention of every GQA layer is
 ``kernels.ops.decode_attention``: kernel ``decode_attn`` on the card, its
-plain version on the CPU.  ``jax.checkpoint`` has no counterpart in a
-forward pass; gradient checkpointing comes with the training loop.
+plain version on the CPU.  The reference's ``jax.checkpoint`` is
+``torch.utils.checkpoint``: with ``cfg.remat`` each layer keeps only its
+input for the backward pass, and each attention query chunk always
+recomputes its scores (the reference's ``nothing_saveable`` chunks), so
+the backward pass never holds the S^2 softmax of a whole sequence.
 
 Where the reference mixes dtypes in one product (a bf16 query against the
 float32 cache) or asks for ``preferred_element_type=float32``, jnp
@@ -47,6 +50,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.runtime import resolve_device
@@ -57,6 +61,7 @@ from repro_torch.models.common import (
     rope_cos_sin,
     rotate,
     round_up,
+    top_k,
 )
 
 
@@ -294,16 +299,20 @@ def _chunked_causal_attention(q, k, v, q_chunk: int, skip: bool = False):
     chunk of C queries scores against all S keys, masked (the reference's
     baseline), or with ``skip`` (``cfg.causal_skip``, the reference's
     ``_chunked_causal_attention_skip``) only against keys [0, (i+1)*C), so
-    fully masked key blocks are never computed."""
+    fully masked key blocks are never computed.  Under autograd each chunk
+    is recomputed in the backward pass instead of keeping its scores."""
     b, s, kv, g, dq = q.shape
     c = min(q_chunk, s)
     assert s % c == 0, (s, c)
     scale = 1.0 / math.sqrt(dq)
     kt, vt = k.permute(0, 2, 3, 1).float(), v.permute(0, 2, 1, 3)
+    recompute = torch.is_grad_enabled()
     outs = []
     for i in range(0, s, c):
         n = i + c if skip else s
-        outs.append(_attend_chunk(q[:, i:i + c], kt[..., :n], vt[:, :, :n], i, scale))
+        args = (q[:, i:i + c], kt[..., :n], vt[:, :, :n], i, scale)
+        outs.append(checkpoint(_attend_chunk, *args, use_reentrant=False)
+                    if recompute else _attend_chunk(*args))
     return torch.cat(outs, dim=1)
 
 
@@ -360,8 +369,7 @@ def _route(x, router, k: int):
     softmax over experts, the top k of each token by a stable descending
     sort (ties to the lower expert, as ``jax.lax.top_k``), renormalised."""
     probs = torch.softmax(x.float() @ router, dim=-1)
-    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gate_vals, gate_idx = vals[..., :k], idx[..., :k]
+    gate_vals, gate_idx = top_k(probs, k)
     return probs, gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9), gate_idx
 
 
@@ -518,14 +526,19 @@ def _layer_fwd(x, lp, cfg: LMConfig, rope):
 
 def lm_forward(params, tokens, cfg: LMConfig):
     """tokens (B, S) -> (logits (B, S, vocab_pad) in ``cfg.dtype``, the
-    MoE load-balance loss summed over layers, float32)."""
+    MoE load-balance loss summed over layers, float32).  Under autograd
+    with ``cfg.remat`` each layer is recomputed in the backward pass."""
     b, s = tokens.shape
     x = params["embed"][tokens.long()].to(cfg.dtype)
     positions = torch.arange(s, device=x.device).expand(b, s)
     rope = rope_cos_sin(positions, _rope_dim(cfg), cfg.rope_theta)  # (B, S, 1, D/2)
+    remat = cfg.remat and torch.is_grad_enabled()
     auxes = []
     for lp in _layers(params):
-        x, aux = _layer_fwd(x, lp, cfg, rope)
+        if remat:
+            x, aux = checkpoint(_layer_fwd, x, lp, cfg, rope, use_reentrant=False)
+        else:
+            x, aux = _layer_fwd(x, lp, cfg, rope)
         auxes.append(aux)
     return _unembed(params, x, cfg), torch.stack(auxes).sum()
 

@@ -1265,3 +1265,113 @@ def test_frontend_waves_match_oracles_on_card(card, tmp_path):
             np.testing.assert_array_equal(r.result(0).doc_ids, want.doc_ids)
     finally:
         eng.close()
+
+
+# ---------------------------------------------------------------------------
+# training on the card
+# ---------------------------------------------------------------------------
+
+
+def _tiny_lm_trainer(device, ckpt=None, batches=None, **ck):
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.checkpoint import CheckpointConfig
+    from repro_torch.train.loop import Trainer
+
+    cfg = tf.LMConfig("tiny", n_layers=2, d_model=32, n_heads=2, n_kv_heads=2, head_dim=16,
+                      d_ff=64, vocab=128, q_chunk=8, dtype=torch.float32,
+                      param_dtype=torch.float32)
+    if batches is None:
+        toks = np.random.default_rng(0).integers(0, cfg.vocab, (40, 4, 17)).astype(np.int32)
+        batches = [{"tokens": t[:, :-1], "labels": t[:, 1:]} for t in toks]
+    return Trainer(
+        loss_fn=lambda p, b: tf.lm_loss(p, b, cfg),
+        # drawn on the CPU, so the card's and the CPU's runs start equal
+        init_params=lambda g: tf.init_lm_params(cfg, torch.Generator().manual_seed(3),
+                                                device="cpu"),
+        batch_fn=lambda step: batches[step % len(batches)],
+        opt_cfg=AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=100),
+        ckpt_cfg=CheckpointConfig(str(ckpt), **ck) if ckpt else None,
+        seed=3, device=device)
+
+
+@pytest.mark.gpu
+def test_train_steps_on_card_match_cpu(card):
+    """Three Trainer steps of a 2-layer float32 LM on the card and on the
+    CPU from the same parameters: losses within 1e-5, parameters within
+    1e-4 relative (cuBLAS and the CPU sum in other orders; TF32 off)."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    runs = {}
+    for dev in (card, "cpu"):
+        tr = _tiny_lm_trainer(dev)
+        tr.run(3, log_every=1)
+        runs[str(dev)] = tr
+    got, want = runs[str(card)], runs["cpu"]
+    assert got.state.params["embed"].device.type == "cuda"
+    for a, b in zip(got.metrics_log, want.metrics_log):
+        np.testing.assert_allclose(a["loss"], b["loss"], rtol=1e-5)
+    from repro_torch.train.tree import tree_leaves
+
+    for a, b in zip(tree_leaves(got.state.params), tree_leaves(want.state.params)):
+        np.testing.assert_allclose(a.detach().cpu().numpy(), b.detach().numpy(),
+                                   rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("failure", ["process_crash", "node_loss"])
+def test_crash_restart_bit_exact_on_card(card, tmp_path, failure):
+    """The fault-tolerance contract on the card (deterministic steps): a run
+    interrupted at 13 and restarted ends bit-equal to an uninterrupted 16."""
+    from repro_torch.train.tree import tree_leaves
+
+    full = _tiny_lm_trainer(card)
+    full.run(16)
+    a = _tiny_lm_trainer(card, tmp_path / "ck", flush_every=2, commit_every=8)
+    a.run(13)
+    getattr(a.ckpt, f"simulate_{failure}")()
+    b = _tiny_lm_trainer(card, tmp_path / "ck", flush_every=2, commit_every=8)
+    assert b.state.step == (12 if failure == "process_crash" else 8)
+    b.run(16)
+    for x, y in zip(tree_leaves(full.state.params), tree_leaves(b.state.params)):
+        assert torch.equal(x, y)
+
+
+def _small_model(name, card):
+    """A small recsys or NequIP model whose backward scatters (gathers,
+    ``index_add_``), with its batch on the card."""
+    from repro_torch.data import graph, recsys_data
+    from repro_torch.models import nequip as PN
+    from repro_torch.models import recsys as P
+
+    if name == "xdeepfm":
+        cfg = P.XDeepFMConfig(rows_per_field=1000, cin_layers=(16, 16), mlp_layers=(32,))
+        batch = next(recsys_data.ctr_batches(256, cfg.n_sparse, 1000, seed=0))
+        return cfg, P.init_xdeepfm_params, P.xdeepfm_loss, batch
+    if name == "bert4rec":
+        cfg = P.Bert4RecConfig(n_items=500, seq_len=16)
+        batch = next(recsys_data.bert4rec_batches(64, 500, 16, seed=0))
+        return cfg, P.init_bert4rec_params, P.bert4rec_loss_masked, batch
+    cfg = PN.NequIPConfig("m", n_layers=2, channels=8, n_rbf=4, d_feat=16)
+    batch = graph.molecule_batch(8, 16, 64, 16)
+    return cfg, PN.init_nequip_params, PN.nequip_loss, batch
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["xdeepfm", "bert4rec", "nequip"])
+def test_scatter_backward_is_deterministic_on_card(card, name):
+    """Two Trainer runs of 3 steps on the card end bit-equal: the gathers'
+    and ``index_add_``'s backward passes add in a fixed order."""
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.loop import Trainer
+    from repro_torch.train.tree import tree_leaves
+
+    cfg, init, loss, batch = _small_model(name, card)
+    runs = []
+    for _ in range(2):
+        tr = Trainer(lambda p, b: loss(p, b, cfg), lambda g: init(g, cfg),
+                     lambda step: batch, AdamWConfig(lr=1e-3, warmup_steps=1), seed=0,
+                     device=card)
+        tr.run(3, log_every=1)
+        assert all(np.isfinite(r["loss"]) for r in tr.metrics_log)
+        runs.append(tree_leaves(tr.state.params))
+    assert all(torch.equal(x, y) for x, y in zip(*runs))

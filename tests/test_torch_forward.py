@@ -10,8 +10,8 @@ and softmax, and sum the matrix products in another order.  bf16 logits:
 2^-5 of the largest reference value (8 bf16 ulps there), since XLA and
 PyTorch round bf16 products and sums at different points.  ``causal_skip``
 computes only the unmasked key blocks: equal to the masked baseline within
-1e-5.  The gradients of the port's ``lm_loss`` are finite (parity with
-``jax.grad`` comes with the training slice).  Last, on the port alone, the
+1e-5.  The gradients of the port's ``lm_loss`` are finite (their parity with
+``jax.grad`` is ``tests/test_torch_train.py``'s).  Last, on the port alone, the
 decode path fed a prompt token by token gives ``lm_forward``'s logits at
 every position, over two query chunks of 16 (MoE capacity raised so that
 no pair drops).

@@ -71,6 +71,27 @@ def test_lm_modules_are_checked():
     assert all(hasattr(tf, n) for n in tf.__all__)
 
 
+def test_training_modules_are_checked():
+    """The training, recsys and NequIP modules are among the files checked
+    above, and their packages export what the reference's do (the optimizer
+    package without the mesh-bound ``compressed_pod_mean``)."""
+    checked = {p.relative_to(PORT).as_posix() for p in _port_files() if PORT in p.parents}
+    assert {"optim/adamw.py", "train/checkpoint.py", "train/loop.py", "train/tree.py",
+            "data/lm.py", "data/prefetch.py", "data/graph.py", "data/recsys_data.py",
+            "launch/train.py", "models/recsys.py", "models/nequip.py", "configs/nequip.py",
+            "configs/xdeepfm.py", "configs/wide_deep.py", "configs/bert4rec.py",
+            "configs/two_tower_retrieval.py", "configs/recsys_shapes.py"} <= checked
+    import repro_torch.data as data
+    import repro_torch.optim as optim
+    import repro_torch.train as train
+
+    assert {"AdamWConfig", "adamw_init", "adamw_update", "cosine_lr"} <= set(optim.__all__)
+    assert set(train.__all__) == {"CheckpointManager", "CheckpointConfig"}
+    assert set(data.__all__) == {"synthetic_corpus", "CorpusConfig", "Prefetcher"}
+    for pkg in (data, optim, train):
+        assert all(hasattr(pkg, n) for n in pkg.__all__)
+
+
 def test_serve_exports_what_the_reference_exports():
     """``repro_torch.serve`` exports the serving front end's six names beside
     the LM serving ones."""
