@@ -76,12 +76,12 @@ Phases (any failure raises and the script exits non-zero):
   7. lm       LM serving at Qwen2-1.5B's full width (28 layers, d 1536, 12
               query over 2 KV heads, vocab 151,936; bf16 weights seeded on
               the card, float32 cache): ``ServeEngine(batch_slots=8,
-              max_len=512)`` serves 12 requests, each a shared 128-token
-              prefix plus its own 64-token tail, 32 new tokens each.  Prints
+              max_len=512)`` serves 12 requests, each a shared 64-token
+              prefix plus its own 4-token tail, 8 new tokens each.  Prints
               requests, tokens, decode steps, wall s, tok/s, the median ms
               of a batched decode step, the KV store's stats, device bytes
               (weights, cache) and the device idle share over 5 batched
-              steps.  Checks: 32 tokens per request; sealed blocks; kernel
+              steps.  Checks: 8 tokens per request; sealed blocks; kernel
               ``decode_attn`` launched 28 times per decode step; one batched
               step at ragged lengths on the card against the same step on
               the CPU (logits within LM_LOGIT_BOUND, argmax equal wherever
@@ -93,9 +93,9 @@ Phases (any failure raises and the script exits non-zero):
               one launch a call in the trace.
               Then the MLA and MoE models at their published widths, one
               at a time (each built after the previous one is freed):
-              minicpm3-4b (MLA, 62 layers), moonshot-v1-16b-a3b (64 experts,
-              top 6, 48 layers) and phi3.5-moe-42b-a6.6b (16 experts, top 2)
-              at 24 of its 32 layers, bf16 weights seeded on the card.  For
+              minicpm3-4b (MLA) at 12 of its 62 layers, moonshot-v1-16b-a3b
+              (64 experts, top 6) at 8 of 48 and phi3.5-moe-42b-a6.6b (16
+              experts, top 2) at 8 of 32, bf16 weights seeded on the card.  For
               each: the decode path against ``lm_forward`` at 2 layers in
               float32 with TF32 off (its own weights, 64 tokens, MoE capacity
               raised so no pair drops; within LM_FWD_BOUND); ``lm_prefill``
@@ -117,11 +117,15 @@ Phases (any failure raises and the script exits non-zero):
               ``other_shapes``, layer 0 of moonshot's (G 1) and phi3.5's (G
               4) serving caches.
 
-  8. persist the paper's loop on the file path and the byte path: for each of
+  8. persist the paper's loop on the file path and the byte path, at a
+              fifth of the main path's scale (PERSIST_CUT: the corpus's
+              first 100,000 docs, a flush every 10,000; cut to keep the
+              script within its time limit), each engine held
+              to a ``ram`` engine of the same docs: for each of
               ``fs-ssd`` and ``byte-pmem``, ``SearchEngine(kind, path=<a fresh
-              temporary directory>)`` on the card (fused) ingests the main
-              path's corpus through ``add_documents`` -- the same 500,000
-              docs, flushes, NRT reopens and delete, without the ``_vec``
+              temporary directory>)`` on the card (fused) ingests those docs
+              through ``add_documents`` -- the same flushes, NRT reopens
+              and delete as the ``ram`` engine, without the ``_vec``
               column -- then commits, reopens, runs the main path's term
               batches (the paper's Fig 5 loop; the ``ram`` engine runs each
               batch too, in turns, so the two QPS share one host window; the
@@ -171,7 +175,7 @@ Phases (any failure raises and the script exits non-zero):
               ``ram``'s flush-then-search results bit for bit before the
               crash and after recovery, K1 and K3-K6 launched on the tail,
               the flushed segments equal ``ram``'s.
-              Last, the ``ram`` engine acks ``flush_every`` more seeded docs
+              Last, the main path's ``ram`` engine acks 50,000 more seeded docs
               with 768-dim vectors and serves them live: one batch of each
               vector task (and two at k VECTOR_WIDE_K) equals the eager
               executors' combined pass on the card, K7/K8 and their scores
@@ -180,8 +184,8 @@ Phases (any failure raises and the script exits non-zero):
 
   9. sharded  sharded indexing and fan-out search: ``ShardedEngine("byte-pmem",
               n_shards=4, backend="processes", use_wal=True)`` (four writer
-              processes, the card the coordinator's alone) takes the main
-              path's corpus without ``_vec`` in acked batches of ACK_BULK
+              processes, the card the coordinator's alone) takes phase 8's
+              docs without ``_vec`` in acked batches of ACK_BULK
               docs, and of ACK_BATCH in the tail, flushing every
               ``flush_every`` docs but the last
               ``flush_every`` (a live tail on every shard), with a cross-shard
@@ -243,25 +247,25 @@ Phases (any failure raises and the script exits non-zero):
 
  11. train    training on the card, through ``repro_torch.train.loop.Trainer``
               (AdamW, deterministic steps).  smollm-360m at its published
-              width and depth (32 layers, d 960, 15/5 heads, d_ff 2,560,
-              vocab 49,152, tied embeddings) in float32 with ``remat``,
+              width (d 960, 15/5 heads, d_ff 2,560, vocab 49,152, tied
+              embeddings) and 16 of its 32 layers in float32 with ``remat``,
               seeded weights, ``lm_batches`` of the corpus at B 8 x S 1,024,
-              AdamW lr 3e-4 with 5 warmup steps: run B takes 16 steps with
-              no checkpoint (3 of them profiled); run A takes 12 with the
+              AdamW lr 3e-4 with 5 warmup steps: run B takes 8 steps with
+              no checkpoint (3 of them profiled); run A takes 6 with the
               tiered checkpoint in a fresh temporary directory (flush every
-              4, commit every 8, one commit kept, a heap of the power of two
+              2, commit every 4, one commit kept, a heap of the power of two
               at or above 2.5x the state's bytes), then
               ``simulate_process_crash()``; a new Trainer resumes; a node
               loss (``simulate_node_loss()``) then strikes A's directory and
               another new Trainer resumes from the commit; the resumed run
-              goes on to 16.  Prints ``df -T`` and the free bytes of the
+              goes on to 8.  Prints ``df -T`` and the free bytes of the
               directory first, then the median step ms and tokens/s beside
               the step's float32 FLOP bound (matrix products counted from
               the shapes, at 67 TFLOP/s), the device idle share of 3 steps,
               peak device bytes, the first and last loss, every flush and
               commit (seconds, bytes, barriers, compactions) and restore
               (tier, seconds).  Checks: the resumed run's parameters equal
-              run B's bit for bit; the restarts resume at 12 and at 8; one
+              run B's bit for bit; the restarts resume at 6 and at 4; one
               heap barrier a flush (a compaction's apart); the losses finite
               and the last below the first.
               Then xdeepfm, wide-deep, two-tower-retrieval and bert4rec
@@ -283,6 +287,33 @@ Phases (any failure raises and the script exits non-zero):
               the molecule outputs invariant under a rotation and
               translation on the card (ROTATION_ATOL); the sampled shapes.
 
+ 12. dryrun   the fit-and-FLOP dry run of all 40 reference cells
+              (``python -m repro_torch.launch.dryrun --all`` on ``meta``,
+              started after the build in a process that does not see the
+              card, told its memory; it overlaps phases 3-11): per cell the
+              bytes one card holds against the card's memory, whether it
+              fits, the smallest (data, model) mesh of H100s otherwise,
+              counted and model FLOPs, bytes moved, the roofline terms.  Then
+              one step of each cell estimated under 90% of the card's memory
+              (``launch/dryrun.py::run_fitting_cells``: seeded arguments at
+              the cell's global shapes): first long_500k decode (524,288 positions, B 1)
+              of smollm-360m, qwen2-1.5b (through K10) and minicpm3-4b, and
+              the four recommenders' train_batch (65,536 rows in 16
+              micro-batches through ``microbatched_train_step``), then the
+              others within CELL_TIME_CAP_S.  Prints each step's ms, its
+              peak device bytes above what was resident beside the
+              estimate, and the roofline share.  Then K10 against its plain
+              version at 524,288 positions for smollm-360m's and qwen2-1.5b's
+              caches (with SDPA), and ``compressed_pod_mean`` over
+              smollm-360m's gradient tree on a one-rank NCCL group: ms and
+              wire bytes.  Checks: the dry run exits 0 with 40 records; every
+              step's outputs finite; an out-of-memory error of a cell
+              estimated to fit fails the script; K10 launched n_layers times
+              a step in the GQA long_500k decodes (0 for MLA); K10 within
+              DECODE_TOL, and DECODE_TOL of its largest output, at 524,288
+              positions, one launch a call; the
+              compressed mean equals quantise-dequantise bit for bit.
+
 The line before the last is the ``{"kernels": [...]}`` record of all ten
 kernels; the last is ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the repository beside it, the script fails before printing a
@@ -292,6 +323,8 @@ result.
 from __future__ import annotations
 
 import argparse
+import atexit
+import concurrent.futures
 import contextlib
 import dataclasses
 import itertools
@@ -300,6 +333,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -377,7 +411,10 @@ BITSET_ROTATE = 4  # input sets timed in turn (67 MB, over the 50 MB L2)
 # lm phase: Qwen2-1.5B at full width, random weights from LM_SEED
 LM_ARCH = "qwen2-1.5b"
 LM_SLOTS, LM_MAX_LEN = 8, 512
-LM_PREFIX, LM_TAIL, LM_NEW, LM_REQUESTS = 128, 64, 32, 12
+# cut from 128 / 64 / 32 (2,368 decode steps) to 64 / 4 / 8 to make room
+# for phase 12; the prefix stays one 64-token KV block, which the
+# sealed-and-shared check needs
+LM_PREFIX, LM_TAIL, LM_NEW, LM_REQUESTS = 64, 4, 8, 12
 LM_SEED = SEED + 6
 LM_DEVICE = "cuda"
 LM_PROFILE_FROM = 8  # profile batched steps LM_PROFILE_FROM .. + LM_PROFILE_STEPS - 1
@@ -387,10 +424,12 @@ LM_PROFILE_STEPS = 5
 # the CPU at 28 layers (d 768: 0.050); the logits' spread is ~0.8
 LM_LOGIT_BOUND = 0.125
 DECODE_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # the reference's K10 tolerances
-# lm phase, then: the MLA and MoE models at full width, one at a time (phi3.5
-# at 24 of its 32 layers: 83.7 GB of bf16 weights do not fit the card)
-LM_MODELS = (("minicpm3-4b", None), ("moonshot-v1-16b-a3b", None),
-             ("phi3.5-moe-42b-a6.6b", 24))
+# lm phase, then: the MLA and MoE models at full width, one at a time, cut
+# in depth to keep the script within its time limit (from 62, 48 and 24 --
+# phi3.5's 32 layers of bf16 weights, 83.7 GB, do not fit the card -- to 12,
+# 8 and 8: serving costs ~1 s a layer)
+LM_MODELS = (("minicpm3-4b", 12), ("moonshot-v1-16b-a3b", 8),
+             ("phi3.5-moe-42b-a6.6b", 8))
 # cut from 64 / 16 / 16 (656 decode steps a model) to 64 / 4 / 8 (552) to
 # make room for phase 11; the prefix stays one 64-token KV block, which the
 # sealed-and-shared check needs
@@ -409,6 +448,10 @@ LM_PREFILL_TOKENS, LM_PREFILL_RUNS = 2048, 3
 # persist phase: the paper's two persistence paths, the file path through
 # the page cache and fsync, the byte path through the persistent heap
 PERSIST_KINDS = ("fs-ssd", "byte-pmem")
+# phases 8-10 ingest the main path's first --docs / PERSIST_CUT docs with a
+# flush every --flush-every / PERSIST_CUT (cut to keep the script within its
+# time limit on a slow host)
+PERSIST_CUT = 5
 ACK_BATCH = 100  # docs per acked batch (the reference's benchmarks/commit_bench.py:40)
 # docs per acked batch before the live tail (phases 8 and 9): acks of
 # ACK_BATCH there cost ~140 s and ~100 s of the script's time limit; the
@@ -436,19 +479,31 @@ OVERLOAD_WATERMARK = 16
 OVERLOAD_MAX_WAVE = 8
 STAGED_WAVE = 16  # queries of one family staged into one wave
 SERVE_WAIT_S = 120.0  # every blocking wait of the phase is bounded by this
-# train phase: smollm-360m at full width and depth in float32 (the reference's
-# training drivers' dtype: its checkpoint holds no bfloat16), B 8 x S 1,024,
-# AdamW lr 3e-4 with 5 warmup steps, the tiered checkpoint flushing every 4
-# steps and committing every 8; run A crashes after step 12
+# train phase: smollm-360m at full width in float32 (the reference's training
+# drivers' dtype: its checkpoint holds no bfloat16), 16 of its 32 layers and
+# 8 steps (cut from 32 and 16 to keep the script within its time limit),
+# B 8 x S 1,024, AdamW lr 3e-4 with 5 warmup steps, the tiered checkpoint
+# flushing every 2 steps and committing every 4; run A crashes after step 6
 TRAIN_ARCH = "smollm-360m"
+TRAIN_LAYERS = 16
 TRAIN_BATCH, TRAIN_SEQ = 8, 1024
 TRAIN_LR, TRAIN_WARMUP = 3e-4, 5
-TRAIN_STEPS, TRAIN_CRASH_AT = 16, 12
-TRAIN_FLUSH, TRAIN_COMMIT = 4, 8
+TRAIN_STEPS, TRAIN_CRASH_AT = 8, 6
+TRAIN_FLUSH, TRAIN_COMMIT = 2, 4
 TRAIN_PROFILE_STEPS = 3
 TRAIN_SEED = SEED + 8
 # then the recommenders at train_batch's micro-batch (65,536 / 16) and NequIP
 RECSYS_ARCHS = ("xdeepfm", "wide-deep", "two-tower-retrieval", "bert4rec")
+# phase 12: the dry run's wait past phase 11, the cells' time cap, and the
+# cells run first (long contexts through K10, the recommenders' full
+# train_batch in 16 micro-batches); the rest of the cells that fit follow
+DRYRUN_WAIT_S = 300
+CELL_TIME_CAP_S = 100.0
+FIRST_CELLS = (("smollm-360m", "long_500k"), ("qwen2-1.5b", "long_500k"),
+               ("minicpm3-4b", "long_500k"), ("xdeepfm", "train_batch"),
+               ("wide-deep", "train_batch"), ("two-tower-retrieval", "train_batch"),
+               ("bert4rec", "train_batch"))
+COMPRESS_ARCH, COMPRESS_ITERS = "smollm-360m", 5
 RECSYS_STEPS = 5
 RECSYS_SEED = SEED + 9
 RETRIEVE_K, SERVE_TOP_K = 100, 10
@@ -648,6 +703,26 @@ def busy_share(prof, wall_ms: float) -> dict:
     }
 
 
+_CORPUS: dict = {}
+
+
+def corpus(cfg, n=None) -> list:
+    """The first ``n`` (default ``cfg.n_docs``) documents of ``cfg``'s seeded
+    synthetic corpus, made once and shared by every phase that ingests it
+    (nothing mutates a document): one generator per seed, whose stream a
+    longer request extends, so each prefix is what ``synthetic_corpus``
+    yields for it."""
+    from repro_torch.data.corpus import synthetic_corpus
+
+    n = cfg.n_docs if n is None else n
+    key = dataclasses.replace(cfg, n_docs=0)
+    if key not in _CORPUS:
+        _CORPUS[key] = (synthetic_corpus(dataclasses.replace(cfg, n_docs=sys.maxsize)), [])
+    gen, docs = _CORPUS[key]
+    docs.extend(itertools.islice(gen, max(0, n - len(docs))))
+    return docs[:n]
+
+
 def ingest(eng, cfg, words, flush_every: int, vecs=None, has_vec=None) -> dict:
     """Add ``cfg``'s synthetic corpus to ``eng`` in chunks of 1,000 docs
     (doc j carries ``vecs[j]`` where ``has_vec[j]``), with a flush and an
@@ -655,21 +730,21 @@ def ingest(eng, cfg, words, flush_every: int, vecs=None, has_vec=None) -> dict:
     first term from vocabulary id RARE_FROM up that the flushed segments
     hold, so the delete swaps live bitmaps of segments already on the card,
     then flush.  Returns the term, its doc frequency before the delete, the
-    docs deleted and the seconds spent making and adding docs."""
+    docs deleted and the seconds spent making (``corpus``: only its first
+    call makes the documents) and adding docs."""
     from repro_torch.core.query.types import TermQuery
     from repro_torch.core.writer import VECTOR_FIELD
-    from repro_torch.data.corpus import synthetic_corpus
 
-    gen = synthetic_corpus(cfg)
-    out = {"gen_s": 0.0, "ingest_s": 0.0}
+    t = time.perf_counter()
+    docs = corpus(cfg)
+    out = {"gen_s": time.perf_counter() - t, "ingest_s": 0.0}
     added = 0
     while added < cfg.n_docs:
         t = time.perf_counter()
-        chunk = list(itertools.islice(gen, min(1000, cfg.n_docs - added)))
+        chunk = docs[added:added + 1000]
         if vecs is not None:
-            for j, (_, dv) in enumerate(chunk, start=added):
-                if has_vec[j]:
-                    dv[VECTOR_FIELD] = vecs[j]
+            chunk = [(f, dict(dv, **{VECTOR_FIELD: vecs[j]}) if has_vec[j] else dv)
+                     for j, (f, dv) in enumerate(chunk, start=added)]
         out["gen_s"] += time.perf_counter() - t
         t = time.perf_counter()
         eng.add_documents(chunk)
@@ -738,11 +813,9 @@ def draw_batches(bands: dict, words, n_batches: int, batch: int, seed: int):
 def phrase_pairs(cfg, bands: dict, words, deleted: str):
     """Adjacent body-token pairs of the first PHRASE_DOCS documents whose
     tokens are both in the med band, so every phrase has hits."""
-    from repro_torch.data.corpus import synthetic_corpus
-
     med = {words[i] for i in bands["med"]}
     pairs = set()
-    for fields, _ in itertools.islice(synthetic_corpus(cfg), PHRASE_DOCS):
+    for fields, _ in corpus(cfg, PHRASE_DOCS):
         toks = fields["body"].split()
         pairs.update((a, b) for a, b in zip(toks, toks[1:])
                      if a in med and b in med and deleted not in (a, b))
@@ -1756,7 +1829,6 @@ def wal_phase(ram_eng, cfg, words, flush_every: int, queries, n_warm: int, want,
 
     from repro_torch.core.engine import SearchEngine
     from repro_torch.core.query.types import FacetQuery
-    from repro_torch.data.corpus import synthetic_corpus
 
     tmp = tempfile.mkdtemp(prefix="chip-smoke-wal-")
     try:
@@ -1765,7 +1837,7 @@ def wal_phase(ram_eng, cfg, words, flush_every: int, queries, n_warm: int, want,
         if not eng.wal_enabled:
             raise AssertionError("byte-pmem with use_wal=True does not ack durably")
         d = eng.directory
-        gen = synthetic_corpus(cfg)
+        gen = iter(corpus(cfg))
         tail_from = cfg.n_docs - flush_every  # the last flush_every docs stay a live tail
         commit_at = tail_from + flush_every // 2
         sample_every = flush_every // ACK_VISIBLE_SAMPLES
@@ -2054,7 +2126,6 @@ def sharded_phase(ram_eng, cfg, flush_every: int, queries, n_warm: int, want,
     from repro_torch.core import ShardedEngine
     from repro_torch.core.query.plan import plan_batch
     from repro_torch.core.query.types import TopDocs
-    from repro_torch.data.corpus import synthetic_corpus
 
     tmp = tempfile.mkdtemp(prefix="chip-smoke-sharded-")
     eng = None
@@ -2106,7 +2177,7 @@ def sharded_phase(ram_eng, cfg, flush_every: int, queries, n_warm: int, want,
         # ingest: acks (ack_size), a flush every flush_every docs but
         # the last flush_every (a live tail), a commit halfway through it; the
         # stream runs SERVE_STREAM_DOCS past the corpus for phase 10
-        gen = synthetic_corpus(dataclasses.replace(cfg, n_docs=cfg.n_docs + SERVE_STREAM_DOCS))
+        gen = iter(corpus(cfg, cfg.n_docs + SERVE_STREAM_DOCS))
         keys = np.empty(cfg.n_docs, np.int64)
         tail_from = cfg.n_docs - flush_every
         commit_at = tail_from + flush_every // 2
@@ -3130,8 +3201,15 @@ def lm_model_phase(arch: str, n_layers):
 def decode_attn_row(q, k, v, kvl, launches: int, iters: int, plain_iters: int,
                     shape: dict) -> dict:
     """K10 against its plain version on the card (DECODE_TOL by the K/V
-    dtype), timed with its plain version and SDPA, one launch a call in the
-    trace.  q (B, Hkv, G, D); k, v (B, Hkv, S, D) views."""
+    dtype, as both rtol and atol, and as a share of the largest output),
+    timed with its plain version and SDPA, one launch a call in the trace.
+    q (B, Hkv, G, D); k, v (B, Hkv, S, D) views.
+
+    Over a long cache of seeded keys the softmax is flat and each output a
+    mean of S values, ~1e-3 at 524,288 positions: under the absolute
+    tolerance itself.  So the error is also held to DECODE_TOL times the
+    largest |output|, and that bound is shown to fail the output rolled by
+    one along D (a zeroed output fails it by construction)."""
     import torch
     import torch.nn.functional as F
 
@@ -3144,6 +3222,12 @@ def decode_attn_row(q, k, v, kvl, launches: int, iters: int, plain_iters: int,
     want = kd.decode_attn_plain(q, k, v, kvl, 1.0 / np.sqrt(d))
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
     err = float((got - want).abs().max())
+    want_max = float(want.abs().max())
+    scaled = tol * want_max
+    shifted_err = float((got.roll(1, dims=-1) - want).abs().max())
+    if not (want_max > 0 and err <= scaled < shifted_err):
+        raise AssertionError(f"decode_attn at S {s}: error {err} against {scaled} "
+                             f"({tol} of max |want| {want_max}); shifted {shifted_err}")
     ms, mq = cuda_ms(lambda: kd.decode_attn(q, k, v, kvl), iters)
     phases = kernel_phases(lambda: kd.decode_attn(q, k, v, kvl))
     if len(phases) != 1:  # one launch a call: the combine is folded in
@@ -3163,7 +3247,9 @@ def decode_attn_row(q, k, v, kvl, launches: int, iters: int, plain_iters: int,
     return {
         "name": "decode_attn", "route": "cuda", "source": DECODE_SOURCE,
         "replaces": REPLACES["decode_attn"], "launches": launches,
-        "max_abs_err": err, "tolerance": tol, "ms": ms, "plain_ms": plain_ms,
+        "max_abs_err": err, "tolerance": tol, "scaled_bound": scaled,
+        "want_max_abs": want_max, "want_mean_abs": float(want.abs().mean()),
+        "shifted_err": shifted_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": lib_ms, "queued_ahead": [mq, pq, lq], "phases_ms": phases,
@@ -3292,9 +3378,9 @@ def timed_restores(log: list):
 
     restore = CheckpointManager.restore
 
-    def timed(self, like, tier=None):
+    def timed(self, like, shardings=None, tier=None):
         t = time.perf_counter()
-        step, out = restore(self, like, tier)
+        step, out = restore(self, like, shardings=shardings, tier=tier)
         log.append({"step": step, "tier": tier or self.latest()[1], "s": time.perf_counter() - t})
         return step, out
 
@@ -3316,10 +3402,10 @@ def free_card() -> None:
 
 
 def train_lm_phase(smi: str) -> dict:
-    """Phase 11's smollm-360m run (see the module docstring): run B (16
-    steps, no checkpoint), run A (12 steps, a process crash, a restart at
-    12), a node loss on A's directory (a restart at 8), then A's restart on
-    to 16; A's parameters must equal B's bit for bit."""
+    """Phase 11's smollm-360m run (see the module docstring): run B (8
+    steps, no checkpoint), run A (6 steps, a process crash, a restart at
+    6), a node loss on A's directory (a restart at 4), then A's restart on
+    to 8; A's parameters must equal B's bit for bit."""
     import shutil
     import tempfile
 
@@ -3335,7 +3421,7 @@ def train_lm_phase(smi: str) -> dict:
 
     spec = get_config(TRAIN_ARCH)
     cfg = dataclasses.replace(spec.config, dtype=torch.float32, param_dtype=torch.float32,
-                              remat=True)
+                              remat=True, n_layers=TRAIN_LAYERS)
     state_bytes = 3 * 4 * sum(int(np.prod(s)) for s in
                               [(cfg.vocab_pad, cfg.d_model), (cfg.d_model,)]
                               + [(cfg.n_layers, *s) for s, _ in tf.layer_shapes(cfg).values()])
@@ -3410,6 +3496,7 @@ def train_lm_phase(smi: str) -> dict:
     step_ms = float(np.median(b_ms + a_ms))
     return {
         "arch": TRAIN_ARCH, "source": spec.source, "layers": cfg.n_layers,
+        "published_layers": spec.config.n_layers,
         "tf32": torch.backends.cuda.matmul.allow_tf32,
         "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads], "d_ff": cfg.d_ff,
         "vocab": cfg.vocab, "params": cfg.n_params(), "dtype": "float32", "remat": cfg.remat,
@@ -3631,14 +3718,205 @@ def public(record: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the fit-and-FLOP dry run, the cells that fit, compression
+# ---------------------------------------------------------------------------
+
+
+def start_dryrun(out_dir: str):
+    """``python -m repro_torch.launch.dryrun --all`` on ``meta`` in a
+    process of its own that does not see the card (told its memory), so it
+    overlaps phases 3-11 on one CPU core.  Returns (the process, its start
+    time)."""
+    import torch
+
+    props = torch.cuda.get_device_properties(0)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all", "--out", out_dir,
+         "--card-bytes", str(props.total_memory), "--card-name", props.name],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, time.perf_counter()
+
+
+def cell_summary(rec: dict) -> dict:
+    """What phase 12 prints of a dry-run record."""
+    mem, rl, mesh = rec["memory"], rec["roofline"], rec["smallest_mesh"]
+    return {"arch": rec["arch"], "shape": rec["shape"], "kind": rec["kind"],
+            "n_micro": rec["n_micro"], "bytes_one_card": mem["per_device_bytes"],
+            "argument_bytes": mem["argument_bytes"], "temp_bytes": mem["temp_bytes"],
+            "card_bytes": rec["card_memory"]["bytes"], "fits_one_card": mem["fits_one_card"],
+            "runs_on_card": mem["runs_on_card"],
+            "smallest_mesh": None if mesh is None else {
+                "data_x_model": mesh["mesh"], "devices": mesh["n_devices"],
+                "bytes_per_device": mesh["per_device_bytes"]},
+            "counted_flops": rl["counted_flops"], "model_flops": rl["model_flops"],
+            "bytes_moved": rl["bytes_moved"], "compute_s": rl["compute_s"],
+            "memory_s": rl["memory_s"], "dominant": rl["dominant"],
+            "roofline_step_s": rl["step_time_s"], "mfu_at_roofline": rl["mfu_at_roofline"],
+            "count_s": rec["count_s"]}
+
+
+def long_context_rows(cfgs, launches: dict) -> list:
+    """K10 against its plain version at long_500k's 524,288 positions (B 1,
+    the bf16 cache of each GQA model that ran the cell, seeded), timed with
+    SDPA, one launch a call."""
+    import torch
+
+    from repro_torch.configs.lm_shapes import LM_SHAPES
+
+    s = LM_SHAPES["long_500k"]["seq_len"]
+    rows = []
+    for arch, cfg in cfgs:
+        gen = torch.Generator(device=LM_DEVICE).manual_seed(LM_SEED + 3)
+        h, g, d = cfg.n_kv_heads, cfg.group_size, cfg.head_dim
+        k, v = (torch.randn((1, s, h, d), generator=gen, device=LM_DEVICE).to(torch.bfloat16)
+                for _ in range(2))
+        q = torch.randn((1, h, g, d), generator=gen, device=LM_DEVICE).to(torch.bfloat16)
+        kvl = torch.full((1,), s, dtype=torch.int32, device=LM_DEVICE)
+        rows.append(decode_attn_row(q, k.transpose(1, 2), v.transpose(1, 2), kvl,
+                                    launches[arch], 20, 3,
+                                    {"case": "long_500k", "arch": arch}))
+        del k, v
+    return rows
+
+
+def compression_check(smi: str) -> dict:
+    """``compressed_pod_mean`` over smollm-360m's gradient tree (seeded
+    float32 tensors of its parameters' shapes, a zero residual) on a
+    one-rank NCCL process group (a ``FileStore``): equal, bit for bit, to
+    the plain quantise-dequantise on the same tensors; its ms (CUDA events,
+    the mean of COMPRESS_ITERS calls) and the wire bytes (int8 and one
+    float32 scale a tensor, against float32)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import compressed_pod_mean
+    from repro_torch.optim.compression import _dequantize, _quantize
+    from repro_torch.train.tree import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(get_config(COMPRESS_ARCH).config, dtype=torch.float32,
+                              param_dtype=torch.float32)
+    grads = tf.init_lm_params(cfg, torch.Generator(device=LM_DEVICE).manual_seed(LM_SEED + 4))
+    residual = tree_map(torch.zeros_like, grads)
+    store_dir = tempfile.mkdtemp(prefix="pod_store_")
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(store_dir, "s"), 1),
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("pod",))
+        red, new_r = compressed_pod_mean(grads, residual, mesh)
+        for g, r, m, nr in zip(tree_leaves(grads), tree_leaves(residual), tree_leaves(red),
+                               tree_leaves(new_r)):
+            q, scale = _quantize(g.float() + r)
+            want = _dequantize(q, scale)
+            if not (torch.equal(m.view(torch.int32), want.view(torch.int32))
+                    and torch.equal(nr.view(torch.int32),
+                                    ((g.float() + r) - want).view(torch.int32))):
+                raise AssertionError("compressed_pod_mean differs from quantise-dequantise")
+        torch.cuda.synchronize()
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(COMPRESS_ITERS):
+            compressed_pod_mean(grads, residual, mesh)
+        t1.record()
+        t1.synchronize()
+        ms = t0.elapsed_time(t1) / COMPRESS_ITERS
+    finally:
+        dist.destroy_process_group()
+    leaves = tree_leaves(grads)
+    n = sum(g.numel() for g in leaves)
+    return {"arch": COMPRESS_ARCH, "tensors": len(leaves), "elements": n, "ranks": 1,
+            "backend": "nccl", "ms": ms, "iters": COMPRESS_ITERS,
+            "wire_bytes_int8": n + 4 * len(leaves), "wire_bytes_float32": 4 * n,
+            "equal_to_quantise_dequantise": True, "card": smi}
+
+
+def dryrun_phase(proc, started: float, out_dir: str, smi: str) -> dict:
+    """Phase 12 (see the module docstring): the dry run's 40 records, one
+    step of each cell under 90% of the card's memory (FIRST_CELLS first,
+    the rest in the reference's order, within CELL_TIME_CAP_S), K10 at
+    524,288 positions, compression on the card.  Returns the K10 rows and
+    the phase's record."""
+    from repro_torch.configs import all_cells, get_config
+    from repro_torch.kernels import decode_attn as kd
+    from repro_torch.launch.dryrun import cell_key, run_fitting_cells
+
+    t = time.perf_counter()
+    try:
+        out, _ = proc.communicate(timeout=DRYRUN_WAIT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise
+    dry_s = time.perf_counter() - started
+    if proc.returncode != 0:
+        raise AssertionError(f"the dry run failed:\n{out[-4000:]}")
+    recs = {}
+    for arch, shape in all_cells():
+        with open(os.path.join(out_dir, cell_key(arch, shape) + ".json")) as f:
+            recs[arch, shape] = json.load(f)
+        log("cell", cell_summary(recs[arch, shape]))
+    k10 = {}
+
+    def check_launches(rec, run):
+        """K10's count over the step just run, read, then set to 0 for the
+        next cell."""
+        launches = kd.launches["decode_attn"]
+        kd.reset_launches()
+        if rec["kind"] == "decode":
+            cfg = get_config(rec["arch"]).config
+            want = 0 if cfg.attn == "mla" else cfg.n_layers * (2 if run["warm"] else 1)
+            if launches != want:
+                raise AssertionError(f"{rec['arch']}/{rec['shape']}: decode_attn launched "
+                                     f"{launches} times, want {want}")
+            if launches:
+                k10[rec["arch"]] = launches
+        out = {"decode_attn_launches": launches, "card": smi}
+        log("cell_run", dict(run, **out))
+        return out
+
+    t_cells = time.perf_counter()
+    kd.reset_launches()
+    # an out-of-memory error of a cell estimated to fit fails the phase
+    runs, skipped = run_fitting_cells(recs, first=FIRST_CELLS, cap_s=CELL_TIME_CAP_S,
+                                      on_step=check_launches)
+    for need in ("smollm-360m", "qwen2-1.5b"):
+        if need not in k10:
+            raise AssertionError(f"long_500k decode of {need} did not run through K10")
+    rows = long_context_rows([(a, get_config(a).config) for a in ("smollm-360m", "qwen2-1.5b")],
+                             k10)
+    for row in rows:
+        log("k10_long_context", row)
+    comp = compression_check(smi)
+    log("compression", comp)
+    return rows, {"cells": len(recs), "fit_one_card": sum(r["memory"]["fits_one_card"]
+                                                          for r in recs.values()),
+                  "ran": [f"{r['arch']}/{r['shape']}" for r in runs],
+                  "skipped_by_time_cap": skipped, "dryrun_wall_s": dry_s,
+                  "dryrun_count_s": sum(r["count_s"] for r in recs.values()),
+                  "cells_s": time.perf_counter() - t_cells,
+                  "seconds": time.perf_counter() - t, "card": smi}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--docs", type=int, default=500_000)
     ap.add_argument("--flush-every", type=int, default=50_000)
     ap.add_argument("--batches", type=int, default=60, help="timed batches")
     args = ap.parse_args(argv)
+    persist_docs = args.docs // PERSIST_CUT
+    persist_flush = args.flush_every // PERSIST_CUT
 
     t_start = time.perf_counter()
+    # phase 12's steps allocate and free tens of GiB a micro-batch: segments
+    # that grow keep bert4rec's 62 GiB train_batch peak from failing on the
+    # fragments of a fixed-segment cache (it did once, with 17 GiB free)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
@@ -3663,26 +3941,38 @@ def main(argv=None) -> int:
     print(smi, flush=True)
     dev = runtime.resolve_device(None)
 
-    # 2. build -----------------------------------------------------------
+    # 2. build, while the host makes the corpus and its vectors ----------
     t0 = time.perf_counter()
-    runtime.library()
+    cfg = CorpusConfig(n_docs=args.docs, seed=SEED)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        built = pool.submit(runtime.library)
+        t = time.perf_counter()
+        corpus(cfg)
+        corpus_gen_s = time.perf_counter() - t
+        t = time.perf_counter()
+        vec_rng = np.random.default_rng(VECTOR_SEED)
+        vecs = vec_rng.standard_normal((cfg.n_docs, DIM), dtype=np.float32)
+        has_vec = vec_rng.random(cfg.n_docs) >= VECTORLESS
+        vector_gen_s = time.perf_counter() - t
+        t = time.perf_counter()
+        built.result()
+        build_wait_s = time.perf_counter() - t
     ptxas = [ln.strip() for ln in runtime.build_info["log"].splitlines()
              if "registers" in ln or "Compiling entry" in ln or "spill" in ln]
     log("build", {"seconds": time.perf_counter() - t0,
                   "nvcc_seconds": runtime.build_info["seconds"],
+                  "waited_s": build_wait_s,
                   "ptxas": ptxas})
+    # phase 12's dry run, in the background from here on
+    dry_dir = tempfile.mkdtemp(prefix="dryrun_")
+    dry_proc, dry_started = start_dryrun(dry_dir)
+    atexit.register(lambda: dry_proc.poll() is None and dry_proc.kill())
 
     # 3. main path -------------------------------------------------------
-    cfg = CorpusConfig(n_docs=args.docs, seed=SEED)
     table = words(cfg.vocab)
     kt.reset_launches()
     profile.reset()
     eng = SearchEngine("ram")  # default device (the card) and fused=True
-    t = time.perf_counter()
-    vec_rng = np.random.default_rng(VECTOR_SEED)
-    vecs = vec_rng.standard_normal((cfg.n_docs, DIM), dtype=np.float32)
-    has_vec = vec_rng.random(cfg.n_docs) >= VECTORLESS
-    vector_gen_s = time.perf_counter() - t
     ing = ingest(eng, cfg, table, args.flush_every, vecs, has_vec)
     rare, rare_df, deleted = ing["rare"], ing["rare_df"], ing["deleted"]
     refreshes = eng.device_cache.stats.live_refreshes
@@ -3745,7 +4035,7 @@ def main(argv=None) -> int:
         "segments": len(s.segments),
         "deleted": {"term": rare, "df_flushed": rare_df, "docs": deleted,
                     "live_refreshes": refreshes},
-        "corpus_gen_s": ing["gen_s"],
+        "corpus_gen_s": corpus_gen_s + ing["gen_s"],
         "vector_gen_s": vector_gen_s,
         "vectors": {"dim": DIM, "docs_with_vector": int(has_vec.sum())},
         "ingest_docs_per_s": cfg.n_docs / ing["ingest_s"],
@@ -3804,6 +4094,7 @@ def main(argv=None) -> int:
         log("task", dict(st_, task=name))
     log("vectors", dict(vec_checks, **{
         "seconds": time.perf_counter() - t,
+        "run_s": time.perf_counter() - t_start,
         "launches": vec_launches,
         "batch": BATCH,
         "bitset": bit_stats,
@@ -3867,7 +4158,8 @@ def main(argv=None) -> int:
     # 7. LM serving at Qwen2-1.5B's width, then K10 at its shapes ---------
     t = time.perf_counter()
     lm_stats, lm_launches, lm_eng = lm_phase()
-    log("lm", dict(lm_stats, seconds=time.perf_counter() - t))
+    log("lm", dict(lm_stats, seconds=time.perf_counter() - t,
+                   run_s=time.perf_counter() - t_start))
     records.append(decode_kernel_record(lm_launches, lm_eng))
     del lm_eng
     for arch, n_layers in LM_MODELS:
@@ -3879,32 +4171,44 @@ def main(argv=None) -> int:
             records[-1]["other_shapes"].append(k10_row)
 
     # 8. the paper's loop on the file path and the byte path -------------
+    # phases 8-10 ingest the corpus's first persist_docs docs (a flush every
+    # persist_flush), each held to a ram engine of the same docs and the
+    # main path's queries
     t = time.perf_counter()
-    persisted = persist_phase(eng, cfg, table, args.flush_every, queries, n_warm,
-                              fused_res, rare)
+    pcfg = dataclasses.replace(cfg, n_docs=persist_docs)
+    ram = SearchEngine("ram")
+    ram_ing = ingest(ram, pcfg, table, persist_flush)
+    ram.reopen()
+    ram_res = [ram.search_batch(qs, k=K) for qs in queries]
+    fam_want = {name: ram.search_batch(b[0], k=K) for name, b in tasks.items()}
+    p_rare, p_deleted = ram_ing["rare"], ram_ing["deleted"]
+    log("persist_ram", {"docs": persist_docs, "flush_every": persist_flush,
+                        "segments": len(segment_list(ram)), "deleted": p_deleted,
+                        "ingest_docs_per_s": persist_docs / ram_ing["ingest_s"],
+                        "seconds": time.perf_counter() - t})
+    persisted = persist_phase(ram, pcfg, table, persist_flush, queries, n_warm,
+                              ram_res, p_rare)
     for kind, rec in persisted.items():
         log("persist", dict(rec, kind=kind))
     t_wal = time.perf_counter()
-    log("wal", dict(wal_phase(eng, cfg, table, args.flush_every, queries, n_warm,
-                              fused_res, rare, tasks, smi),
+    log("wal", dict(wal_phase(ram, pcfg, table, persist_flush, queries, n_warm,
+                              ram_res, p_rare, tasks, smi),
                     seconds=time.perf_counter() - t_wal))
-    # the ram engine's results that phase 9 is held to, before the vector
-    # tail changes its statistics
-    fam_want = {name: eng.search_batch(b[0], k=K) for name, b in tasks.items()}
     log("vector_tail", vector_tail_phase(eng, vec_tasks, args.flush_every))
     log("persist_phase", {"seconds": time.perf_counter() - t,
                           "run_s": time.perf_counter() - t_start})
 
     # 9. sharded indexing and fan-out search over four writer processes --
     t = time.perf_counter()
-    sharded, served = sharded_phase(eng, cfg, args.flush_every, queries, n_warm,
-                                    fused_res, fam_want, rare, deleted, tasks)
+    sharded, served = sharded_phase(ram, pcfg, persist_flush, queries, n_warm,
+                                    ram_res, fam_want, p_rare, p_deleted, tasks)
     log("sharded", dict(sharded, card=smi, seconds=time.perf_counter() - t,
                         run_s=time.perf_counter() - t_start))
+    del ram, ram_res
 
     # 10. the serving front end over phase 9's engine, which it closes ----
     t = time.perf_counter()
-    log("serve", dict(serve_phase(served, cfg.n_docs - deleted), card=smi,
+    log("serve", dict(serve_phase(served, persist_docs - p_deleted), card=smi,
                       seconds=time.perf_counter() - t, run_s=time.perf_counter() - t_start))
 
     # 11. training: smollm-360m, the recommenders, NequIP ----------------
@@ -3917,6 +4221,11 @@ def main(argv=None) -> int:
     t_nq = time.perf_counter()
     log("train_nequip", dict(nequip_phase(smi), seconds=time.perf_counter() - t_nq))
     log("train_phase", {"seconds": time.perf_counter() - t, "run_s": time.perf_counter() - t_start})
+
+    # 12. the dry run of all 40 cells, the cells that fit, compression ----
+    k10_rows, dry = dryrun_phase(dry_proc, dry_started, dry_dir, smi)
+    records[-1]["other_shapes"] += k10_rows
+    log("dryrun", dict(dry, run_s=time.perf_counter() - t_start))
     for r in records:
         log("kernel", r)
     print(json.dumps({"kernels": [public(r) for r in records]}), flush=True)

@@ -31,4 +31,9 @@ def get_config(arch_id: str) -> ArchSpec:
     return import_module(_MODULES[arch_id]).config()
 
 
-__all__ = ["ArchSpec", "arch_ids", "get_config"]
+def all_cells() -> List[tuple]:
+    """Every (arch_id, shape_name) cell, in the reference's order: 40."""
+    return [(a, s) for a in arch_ids() for s in get_config(a).shapes]
+
+
+__all__ = ["ArchSpec", "all_cells", "arch_ids", "get_config"]

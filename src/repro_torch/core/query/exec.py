@@ -139,11 +139,12 @@ def _hybrid_core(docs, freqs, doc_lens, vmat, live, qvecs, idfs, avgdl, k1, b,
     runs hybrid batches of two or more rows (``bucket_batch_min2``), so its
     query norms are strict at 5-8 components."""
     avgdl, k1, b = scalars(docs.device, avgdl, k1, b)
-    dense = vk.hybrid_dense(docs, freqs, idfs, doc_lens, avgdl, k1, b,
-                            one_doc(doc_lens))
+    single = one_doc(doc_lens)
+    dense = vk.hybrid_dense(docs, freqs, idfs, doc_lens, avgdl, k1, b, single)
     sims = vk.similarity(vmat, qvecs, cosine,
                          strict_rows=vk.strict_norm_rows(vmat.shape[0]), strict_q=True)
-    score = torch.where(live, vk.hybrid_scores(dense, sims, alphas, cosine), -torch.inf)
+    score = torch.where(live, vk.hybrid_scores(dense, sims, alphas, cosine, single),
+                        -torch.inf)
     vals, ids = _topk_stable(score, k)
     return vals, ids, live.sum().expand(qvecs.shape[0])
 

@@ -317,15 +317,16 @@ def hybrid_segment(ctx, seg, starts, lengths, idfs, alphas, qvecs, k: int,
     ``starts``/``lengths`` (B,) are the rows' coordinates into the
     segment's tiled CSR ((0, 0) where the term is absent).  Where the
     reference takes its jnp cores, its hybrid batches have two or more rows
-    (strict query norms) and its BM25 runs strict over a one-document
-    segment (``term_topk.one_doc``)."""
+    (strict query norms), and over a one-document segment
+    (``term_topk.one_doc``) its BM25 runs strict and its cosine blend takes
+    the dot form's operand order."""
     st = _tiled(ctx, seg)
     args = (st["csr.docs"], st["csr.freqs"], st["tiled.dl_live"], starts, lengths,
             idfs, ctx.avgdl, ctx.k1, ctx.b, st[f"tiled.dv.{VECTOR_FIELD}"], qvecs,
             alphas)
     strict = _unfused_norms(seg, True, unfused, k)
     if strict:
-        strict["strict_bm25"] = one_doc(seg.doc_lens)
+        strict["strict_bm25"] = strict["one_doc_blend"] = one_doc(seg.doc_lens)
     if kernel_enabled(k):
         return _flat(*vk.hybrid_topk_tiles(*args, k, cosine, dim, **strict))
     return _ranked(*vk.hybrid_score_rows(*args, cosine, dim, **strict), k)

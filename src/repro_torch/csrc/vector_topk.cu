@@ -50,7 +50,8 @@
 //     unfused route ask for strict norms (each square rounded, then
 //     added): doc rows below strict_rows, and every query row under flag
 //     bit 0 -- what XLA:CPU computes there (repro_torch/kernels/
-//     vector_topk.py::strict_norm_rows).  Flag bit 1: strict BM25.
+//     vector_topk.py::strict_norm_rows).  Flag bit 1: strict BM25.  Flag
+//     bit 2: the cosine blend in the dot form's operand order.
 //   * Hybrid: two binary searches a row find its postings among the
 //     block's docs while the first copies fly; after the component loop
 //     the one-FMA BM25 of those postings goes into the freed ring (dense
@@ -312,9 +313,11 @@ __global__ void __launch_bounds__(VTHREADS, 3) vector_score_kernel(
         const float s_in = sc[(warp * RT + r) * VDOCS + doc];
         const float tn = __fdiv_rn(s_in, __fadd_rn(s_in, 1.0f));
         const float om = __fsub_rn(1.0f, a);
-        s = cosine
-            ? __fmaf_rn(om, __fmul_rn(__fadd_rn(sim, 1.0f), 0.5f), __fmul_rn(a, tn))
-            : __fmaf_rn(a, tn, __fmul_rn(om, __fdiv_rn(sim, __fadd_rn(1.0f, fabsf(sim)))));
+        // flag bit 2: the cosine blend in the dot form's operand order (the
+        // reference's jnp core over a one-document segment)
+        s = !cosine ? __fmaf_rn(a, tn, __fmul_rn(om, __fdiv_rn(sim, __fadd_rn(1.0f, fabsf(sim)))))
+            : (flags & 4) ? __fmaf_rn(a, tn, __fmul_rn(om, __fmul_rn(__fadd_rn(sim, 1.0f), 0.5f)))
+            : __fmaf_rn(om, __fmul_rn(__fadd_rn(sim, 1.0f), 0.5f), __fmul_rn(a, tn));
       }
       out_scores[row * nd_pad + base + doc] = alive[i] ? s : -CUDART_INF_F;
     }

@@ -21,8 +21,9 @@ The kernel's schedule (one wave of ``THREADS``-thread blocks, block x taking
 ``BLOCK``-word units x, x + grid, ...; thread j reading words j, j + 256, ...
 of a unit) is mirrored by ``work_schedule``.
 
-The wrappers take the plain versions for CPU tensors only; a CUDA tensor
-launches the kernel or raises.  ``launches`` counts kernel launches.
+The wrappers take the plain versions for CPU tensors (and ``meta`` ones,
+shapes only: ``runtime.takes_plain``); a CUDA tensor launches the kernel
+or raises.  ``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -155,7 +156,7 @@ def bitset_combine(bitmaps, mode: str = "and"):
     """bitmaps: (T, W) uint32, any W >= 1.  Returns (combined (W,) uint32,
     set bits of the result: 0-d int64), from one launch on the card."""
     _check(bitmaps, mode)
-    if bitmaps.device.type == "cpu":
+    if runtime.takes_plain(bitmaps):
         return bitset_combine_plain(bitmaps, mode)
     return _launch(bitmaps, mode, None)
 
@@ -168,7 +169,7 @@ def bitset_combine_blocks(bitmaps, mode: str = "and"):
     if w % BLOCK:
         raise ValueError(f"bitmaps {tuple(bitmaps.shape)}: want W a positive "
                          f"multiple of {BLOCK}")
-    if bitmaps.device.type == "cpu":
+    if runtime.takes_plain(bitmaps):
         return bitset_combine_blocks_plain(bitmaps, mode)
     counts = torch.empty(w // BLOCK, dtype=torch.int32, device=bitmaps.device)
     return _launch(bitmaps, mode, counts)[0], counts

@@ -36,9 +36,13 @@ NaN.  The kernel's online softmax adds the same terms in another order:
 the two agree within float32 rounding (the reference's 2e-5 for float32
 inputs, 2e-2 for bf16).
 
-The wrapper takes the plain version for CPU tensors only; a CUDA tensor
-launches the kernel or raises.  ``launches`` counts calls that launched it
-(one launch per call).  The ticket counters live per (device, stream).
+The wrapper takes the plain version for CPU tensors; a CUDA tensor
+launches the kernel or raises.  On ``meta`` tensors (the dry run's shapes)
+it is one shape-only operation, ``repro_torch::decode_attn``, that reads q,
+K and V and writes the output, as the kernel does: the plain version would
+show the dry run's counters float32 copies of K and V that the kernel never
+makes.  ``launches`` counts calls that launched it (one launch per call).
+The ticket counters live per (device, stream).
 """
 
 from __future__ import annotations
@@ -238,6 +242,28 @@ def _blocks_per_sm(lib, dev_index: int, bf16: bool, b: int, d: int, dv: int,
     return blocks
 
 
+_meta_ops = []  # the shape-only operation, registered on first use
+
+
+def meta_op():
+    """``torch.ops.repro_torch.decode_attn``: K10 on ``meta`` tensors, one
+    operation with q, K, V and the lengths as inputs and the float32 (B,
+    Hkv, G, Dv) output; it has no kernel for any real device."""
+    if not _meta_ops:
+        @torch.library.custom_op("repro_torch::decode_attn", mutates_args=())
+        def op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               kv_len: torch.Tensor) -> torch.Tensor:
+            raise RuntimeError("repro_torch::decode_attn is shape-only (meta tensors)")
+
+        @op.register_fake
+        def _(q, k, v, kv_len):
+            b, h, g, _ = q.shape
+            return q.new_empty((b, h, g, v.shape[-1]), dtype=torch.float32)
+
+        _meta_ops.append(torch.ops.repro_torch.decode_attn)
+    return _meta_ops[0]
+
+
 def decode_attn(q, k, v, kv_len=None, split: Optional[int] = None):
     """One token's GQA attention over a KV cache (shapes in the module
     docstring), scaled by 1/sqrt(D).  ``kv_len`` None means every position;
@@ -250,6 +276,8 @@ def decode_attn(q, k, v, kv_len=None, split: Optional[int] = None):
         kv_len = torch.full((b,), s, dtype=torch.int32, device=q.device)
     _check(q, k, v, kv_len)
     scale = 1.0 / math.sqrt(d)
+    if q.device.type == "meta":
+        return meta_op()(q, k, v, kv_len)
     if q.device.type == "cpu":
         return decode_attn_plain(q, k, v, kv_len, scale)
     for name, t in (("k", k), ("v", v)):

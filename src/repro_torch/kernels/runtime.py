@@ -16,8 +16,9 @@ runs on the card or not at all.
     fails.  Nothing here runs at import time.
 
 Kernel wrappers take their plain PyTorch version only for tensors that lie
-on the CPU; a CUDA tensor launches the kernel or raises.  There is no switch
-that turns the kernels off on the card.
+on the CPU (or on ``meta``, where nothing is computed); a CUDA tensor
+launches the kernel or raises.  There is no switch that turns the kernels
+off on the card.
 """
 
 from __future__ import annotations
@@ -57,9 +58,10 @@ build_info = {"log": "", "seconds": 0.0, "path": ""}
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` means the card.  A CUDA device must be a Hopper card."""
+    """``None`` means the card.  A CUDA device must be a Hopper card;
+    ``meta`` (shapes only, for the dry run) is taken as it is."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return dev
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
@@ -198,6 +200,13 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         msg = lib.cuda_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def takes_plain(t: torch.Tensor) -> bool:
+    """Does a kernel wrapper run its plain version on ``t``?  On a CPU
+    tensor it computes; on a ``meta`` tensor it only propagates shapes
+    (the dry run).  A CUDA tensor launches the kernel or raises."""
+    return t.device.type in ("cpu", "meta")
 
 
 @functools.lru_cache(maxsize=None)

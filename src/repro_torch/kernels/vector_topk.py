@@ -46,7 +46,10 @@ and the oracle share one definition:
     ``vnorm(c)``, with one
     fused multiply-add where XLA:CPU puts it in the reference's blend
     ``a*t + (1-a)*vnorm``: ``fma(a, t, (1-a) * (c/(1+|c|)))`` for dot and
-    ``fma(1-a, (c+1)*0.5, a*t)`` for cosine.
+    ``fma(1-a, (c+1)*0.5, a*t)`` for cosine -- except over a one-document
+    segment on the reference's jnp route, where its cosine blend takes the
+    dot form's operands, ``fma(a, t, (1-a) * ((c+1)*0.5))``
+    (``one_doc_blend``, flag bit 2).
 
 Layout: the vector column is ``(ND_pad, D_pad)`` float32 with ND_pad a
 TILE multiple (dead zero rows past the segment) and D_pad a multiple of
@@ -61,8 +64,9 @@ shared-memory stages by asynchronous 16-byte copies, and keeps an 8 x 4
 (rows x docs) tile of sequential FMA chains per thread.  Top-k mode adds a
 second launch that selects each tile's winners from the scores.
 
-Every wrapper takes the plain version for CPU tensors only; a CUDA tensor
-launches the kernel or raises.  ``launches`` counts calls that launched
+Every wrapper takes the plain version for CPU tensors (and ``meta`` ones,
+shapes only: ``runtime.takes_plain``); a CUDA tensor launches the kernel
+or raises.  ``launches`` counts calls that launched
 the kernels (one per call; top-k mode's two launches count once).
 """
 
@@ -185,11 +189,14 @@ def hybrid_dense(docs, freqs, idfs, doc_lens, avgdl, k1, b, strict: bool = False
     return dense[:, :nd]
 
 
-def hybrid_scores(dense, sims, alphas, cosine: bool):
+def hybrid_scores(dense, sims, alphas, cosine: bool, one_doc_blend: bool = False):
     """The blend per row (see the module docstring): ``dense`` and ``sims``
-    (B, ND) float32, ``alphas`` (B,) float32."""
+    (B, ND) float32, ``alphas`` (B,) float32; ``one_doc_blend``: the cosine
+    blend in the dot form's operand order (``term_topk.one_doc``)."""
     t = dense / (dense + 1.0)
     a = alphas[:, None].expand_as(t)
+    if cosine and one_doc_blend:
+        return fma_f32(a, t, (1.0 - a) * ((sims + 1.0) * 0.5))
     if cosine:
         return fma_f32(1.0 - a, (sims + 1.0) * 0.5, a * t)
     return fma_f32(a, t, (1.0 - a) * (sims / (1.0 + sims.abs())))
@@ -214,14 +221,14 @@ def vector_score_rows_plain(vmat, live, qvecs, cosine: bool, dim: int,
 def hybrid_score_rows_plain(csr_docs, csr_freqs, dl_live, starts, lengths, idfs,
                             avgdl, k1, b, vmat, qvecs, alphas, cosine: bool,
                             dim: int, strict_rows: int = 0, strict_q: bool = False,
-                            strict_bm25: bool = False):
+                            strict_bm25: bool = False, one_doc_blend: bool = False):
     p = max(int(lengths.max()), 1) if lengths.numel() else 1
     docs, freqs = csr_rows(csr_docs, csr_freqs, starts, lengths, p)
     avgdl, k1, b = scalars(csr_docs.device, avgdl, k1, b)
     dense = hybrid_dense(docs, freqs, idfs, dl_live >> 1, avgdl, k1, b, strict_bm25)
     sims = similarity(vmat, qvecs, cosine, dim, strict_rows, strict_q)
-    score = torch.where((dl_live & 1) > 0, hybrid_scores(dense, sims, alphas, cosine),
-                        -torch.inf)
+    score = torch.where((dl_live & 1) > 0,
+                        hybrid_scores(dense, sims, alphas, cosine, one_doc_blend), -torch.inf)
     return score, _live_tiles(dl_live & 1, qvecs.shape[0])
 
 
@@ -235,18 +242,19 @@ def vector_topk_tiles_plain(vmat, live, qvecs, k: int, cosine: bool, dim: int,
 def hybrid_topk_tiles_plain(csr_docs, csr_freqs, dl_live, starts, lengths, idfs,
                             avgdl, k1, b, vmat, qvecs, alphas, k: int,
                             cosine: bool, dim: int, strict_rows: int = 0,
-                            strict_q: bool = False, strict_bm25: bool = False):
+                            strict_q: bool = False, strict_bm25: bool = False,
+                            one_doc_blend: bool = False):
     score, cnt = hybrid_score_rows_plain(csr_docs, csr_freqs, dl_live, starts,
                                          lengths, idfs, avgdl, k1, b, vmat,
                                          qvecs, alphas, cosine, dim, strict_rows,
-                                         strict_q, strict_bm25)
+                                         strict_q, strict_bm25, one_doc_blend)
     return (*_doc_tiles_topk(score, k), cnt)
 
 
-def _flags(strict_q: bool, strict_bm25: bool = False) -> int:
+def _flags(strict_q: bool, strict_bm25: bool = False, one_doc_blend: bool = False) -> int:
     """The kernels' ``flags`` word: bit 0 strict query norms, bit 1 strict
-    BM25."""
-    return int(strict_q) | int(strict_bm25) << 1
+    BM25, bit 2 the one-document cosine blend."""
+    return int(strict_q) | int(strict_bm25) << 1 | int(one_doc_blend) << 2
 
 
 # ---------------------------------------------------------------------------
@@ -340,7 +348,7 @@ def vector_topk_tiles(vmat, live, qvecs, k: int, cosine: bool, dim: int,
     segment-local doc ids, cnt (B, ND_pad/TILE) live docs per tile)."""
     n_tiles = _check_vector_args(vmat, live, qvecs, dim)
     check_k(k)
-    if vmat.device.type == "cpu":
+    if runtime.takes_plain(vmat):
         return vector_topk_tiles_plain(vmat, live, qvecs, k, cosine, dim,
                                        strict_rows, strict_q)
     rows = qvecs.shape[0]
@@ -358,7 +366,7 @@ def vector_score_rows(vmat, live, qvecs, cosine: bool, dim: int,
     -inf for dead and padded docs; cnt (B, ND_pad/TILE) live docs per
     tile)."""
     n_tiles = _check_vector_args(vmat, live, qvecs, dim)
-    if vmat.device.type == "cpu":
+    if runtime.takes_plain(vmat):
         return vector_score_rows_plain(vmat, live, qvecs, cosine, dim,
                                        strict_rows, strict_q)
     rows = qvecs.shape[0]
@@ -373,7 +381,8 @@ def vector_score_rows(vmat, live, qvecs, cosine: bool, dim: int,
 def hybrid_topk_tiles(csr_docs, csr_freqs, dl_live, starts, lengths, idfs,
                       avgdl: float, k1: float, b: float, vmat, qvecs, alphas,
                       k: int, cosine: bool, dim: int, strict_rows: int = 0,
-                      strict_q: bool = False, strict_bm25: bool = False):
+                      strict_q: bool = False, strict_bm25: bool = False,
+                      one_doc_blend: bool = False):
     """Per-tile top-k of B hybrid queries (one term + one vector each).
 
     csr_docs/csr_freqs: (nnz_pad,) int32 CSR postings, doc-sorted per row;
@@ -381,21 +390,22 @@ def hybrid_topk_tiles(csr_docs, csr_freqs, dl_live, starts, lengths, idfs,
     lengths: (B,) int32 row coordinates ((0, 0) where the term is absent);
     idfs/alphas: (B,) float32; vmat/qvecs/dim/strict_rows/strict_q as
     ``vector_topk_tiles``; ``strict_bm25``: BM25 without its fused
-    multiply-add (``term_topk.one_doc``).  Returns (vals (B, ND_pad/TILE,
+    multiply-add and ``one_doc_blend``: the cosine blend in the dot form's
+    operand order (both ``term_topk.one_doc``).  Returns (vals (B, ND_pad/TILE,
     k) float32 blended scores, ids, cnt live docs per tile)."""
     n_tiles = _check_hybrid_args(csr_docs, csr_freqs, dl_live, starts, lengths,
                                  idfs, vmat, qvecs, alphas, dim)
     check_k(k)
-    if vmat.device.type == "cpu":
+    if runtime.takes_plain(vmat):
         return hybrid_topk_tiles_plain(csr_docs, csr_freqs, dl_live, starts,
                                        lengths, idfs, avgdl, k1, b, vmat,
                                        qvecs, alphas, k, cosine, dim, strict_rows,
-                                       strict_q, strict_bm25)
+                                       strict_q, strict_bm25, one_doc_blend)
     rows = qvecs.shape[0]
     scratch, vals, ids, cnt = _winners(rows, n_tiles, k, vmat.device)
     _launch("hybrid_topk", vals, vmat.data_ptr(), vmat.shape[1], dim,
             qvecs.data_ptr(), dl_live.data_ptr(), int(cosine), strict_rows,
-            _flags(strict_q, strict_bm25), csr_docs.data_ptr(), csr_freqs.data_ptr(),
+            _flags(strict_q, strict_bm25, one_doc_blend), csr_docs.data_ptr(), csr_freqs.data_ptr(),
             starts.data_ptr(), lengths.data_ptr(), idfs.data_ptr(), alphas.data_ptr(),
             avgdl, k1, b, rows, n_tiles, k, scratch.data_ptr(), vals.data_ptr(),
             ids.data_ptr(), cnt.data_ptr())
@@ -405,23 +415,24 @@ def hybrid_topk_tiles(csr_docs, csr_freqs, dl_live, starts, lengths, idfs,
 def hybrid_score_rows(csr_docs, csr_freqs, dl_live, starts, lengths, idfs,
                       avgdl: float, k1: float, b: float, vmat, qvecs, alphas,
                       cosine: bool, dim: int, strict_rows: int = 0,
-                      strict_q: bool = False, strict_bm25: bool = False):
+                      strict_q: bool = False, strict_bm25: bool = False,
+                      one_doc_blend: bool = False):
     """Scores mode of ``hybrid_topk_tiles``: (scores (B, ND_pad) float32
     blended scores, -inf for dead and padded docs; cnt live docs per
     tile)."""
     n_tiles = _check_hybrid_args(csr_docs, csr_freqs, dl_live, starts, lengths,
                                  idfs, vmat, qvecs, alphas, dim)
-    if vmat.device.type == "cpu":
+    if runtime.takes_plain(vmat):
         return hybrid_score_rows_plain(csr_docs, csr_freqs, dl_live, starts,
                                        lengths, idfs, avgdl, k1, b, vmat,
                                        qvecs, alphas, cosine, dim, strict_rows,
-                                       strict_q, strict_bm25)
+                                       strict_q, strict_bm25, one_doc_blend)
     rows = qvecs.shape[0]
     scores = torch.empty((rows, vmat.shape[0]), dtype=torch.float32, device=vmat.device)
     cnt = torch.empty((rows, n_tiles), dtype=torch.int32, device=vmat.device)
     _launch("hybrid_score_rows", scores, vmat.data_ptr(), vmat.shape[1], dim,
             qvecs.data_ptr(), dl_live.data_ptr(), int(cosine), strict_rows,
-            _flags(strict_q, strict_bm25), csr_docs.data_ptr(), csr_freqs.data_ptr(),
+            _flags(strict_q, strict_bm25, one_doc_blend), csr_docs.data_ptr(), csr_freqs.data_ptr(),
             starts.data_ptr(), lengths.data_ptr(), idfs.data_ptr(), alphas.data_ptr(),
             avgdl, k1, b, rows, n_tiles, scores.data_ptr(), cnt.data_ptr())
     return scores, cnt

@@ -1,8 +1,10 @@
 """Shared building blocks: norms, RoPE, initializers, small MLPs (port of
 ``repro/models/common.py``).
 
-Initializers take an explicit ``torch.Generator`` and draw on its device;
-the numbers differ from ``jax.random``'s for the same seed, so the tests
+Initializers take an explicit ``torch.Generator`` and draw on its device,
+or on ``device`` where one is given: ``device="meta"`` builds a tree of
+shapes only, from a CPU generator (a generator on ``meta`` cannot be made).
+The numbers differ from ``jax.random``'s for the same seed, so the tests
 carry the reference's weights across (``core/interop.py``) instead.
 """
 
@@ -44,16 +46,21 @@ def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * gamma + beta
 
 
+def init_device(generator: torch.Generator, device=None) -> torch.device:
+    """Where an initializer draws: ``device``, else the generator's."""
+    return generator.device if device is None else torch.device(device)
+
+
 def dense_init(generator: torch.Generator, shape: Sequence[int], in_axis: int = -2,
-               dtype=torch.float32) -> torch.Tensor:
+               dtype=torch.float32, device=None) -> torch.Tensor:
     """LeCun-normal over the fan-in axis."""
-    w = torch.randn(tuple(shape), generator=generator, device=generator.device)
+    w = torch.randn(tuple(shape), generator=generator, device=init_device(generator, device))
     return (w / math.sqrt(shape[in_axis])).to(dtype)
 
 
 def embed_init(generator: torch.Generator, shape: Sequence[int],
-               dtype=torch.float32) -> torch.Tensor:
-    w = torch.randn(tuple(shape), generator=generator, device=generator.device)
+               dtype=torch.float32, device=None) -> torch.Tensor:
+    w = torch.randn(tuple(shape), generator=generator, device=init_device(generator, device))
     return (w * 0.02).to(dtype)
 
 
@@ -96,10 +103,11 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def mlp_init(generator: torch.Generator, sizes: Sequence[int],
-             dtype=torch.float32) -> List[Dict[str, torch.Tensor]]:
+             dtype=torch.float32, device=None) -> List[Dict[str, torch.Tensor]]:
     """One ``{"w": (a, b) LeCun-normal, "b": (b,) zeros}`` per layer."""
-    return [{"w": dense_init(generator, (a, b), dtype=dtype),
-             "b": torch.zeros(b, dtype=dtype, device=generator.device)}
+    dev = init_device(generator, device)
+    return [{"w": dense_init(generator, (a, b), dtype=dtype, device=dev),
+             "b": torch.zeros(b, dtype=dtype, device=dev)}
             for a, b in zip(sizes[:-1], sizes[1:])]
 
 

@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.common import dense_init, mlp_apply, mlp_init
+from repro_torch.models.common import dense_init, init_device, mlp_apply, mlp_init
 from repro_torch.train.tree import tree_map
 
 N_PATHS = 10
@@ -68,20 +68,38 @@ class NequIPConfig:
         )
 
 
-def init_nequip_params(generator: torch.Generator, cfg: NequIPConfig) -> Dict[str, Any]:
+def init_nequip_params(generator: torch.Generator, cfg: NequIPConfig,
+                       device=None) -> Dict[str, Any]:
     """Every layer's weights stacked on a leading n_layers axis, as the
-    reference's (its ``radial`` MLP a list of stacked ``{"w", "b"}``)."""
-    c, dt = cfg.channels, cfg.dtype
+    reference's (its ``radial`` MLP a list of stacked ``{"w", "b"}``);
+    drawn on ``device`` where given (``"meta"``: shapes only)."""
+    c, dt, dev = cfg.channels, cfg.dtype, init_device(generator, device)
     layers = []
     for _ in range(cfg.n_layers):
-        lp = {"radial": mlp_init(generator, [cfg.n_rbf, cfg.radial_hidden, N_PATHS * c], dt)}
-        lp.update({n: dense_init(generator, (c, c), dtype=dt) for n in LAYER_MATRICES})
-        lp["bias0"] = torch.zeros(c, dtype=dt, device=generator.device)
+        lp = {"radial": mlp_init(generator, [cfg.n_rbf, cfg.radial_hidden, N_PATHS * c], dt,
+                                 dev)}
+        lp.update({n: dense_init(generator, (c, c), dtype=dt, device=dev)
+                   for n in LAYER_MATRICES})
+        lp["bias0"] = torch.zeros(c, dtype=dt, device=dev)
         layers.append(lp)
     return {
-        "embed": dense_init(generator, (cfg.d_feat, c), dtype=dt),
+        "embed": dense_init(generator, (cfg.d_feat, c), dtype=dt, device=dev),
         "layers": tree_map(lambda *xs: torch.stack(xs), *layers),
-        "head": mlp_init(generator, [c, c, cfg.n_out], dt),
+        "head": mlp_init(generator, [c, c, cfg.n_out], dt, dev),
+    }
+
+
+def nequip_param_specs(cfg: NequIPConfig) -> Dict[str, Any]:
+    """NequIP's weights are small (32 channels): replicated everywhere."""
+    layer = {
+        "radial": [{"w": (None,), "b": (None,)}] * 2,
+        "self0": (None,), "self1": (None,), "self2": (None,),
+        "gate1": (None,), "gate2": (None,), "bias0": (None,),
+    }
+    return {
+        "embed": (None,),
+        "layers": layer,
+        "head": [{"w": (None,), "b": (None,)}] * 2,
     }
 
 

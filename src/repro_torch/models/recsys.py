@@ -9,11 +9,14 @@ leaves them to XLA; none of this is a Pallas kernel.
 
 On one device the reference's sharding constraints (``shard``) are no-ops
 and its ``rowwise_topk`` and ``sharded_topk_1d`` are ``jax.lax.top_k``;
-the port keeps no mesh code; the top k is ``common.top_k`` (ties to the
-lower index).  ``jax.nn.gelu`` is the tanh form.
+the port's models call no ``shard``; the top k is ``common.top_k`` (ties
+to the lower index).  ``jax.nn.gelu`` is the tanh form.  The
+``*_param_specs`` are the reference's logical sharding specs, trees shaped
+like the parameters (``distributed/api.py::named_sharding`` resolves them).
 
-Initializers take an explicit ``torch.Generator`` and draw on its device;
-the tests carry the reference's weights across (``core/interop.py``).
+Initializers take an explicit ``torch.Generator`` and draw on its device,
+or on ``device`` (``"meta"``: shapes only); the tests carry the
+reference's weights across (``core/interop.py``).
 """
 
 from __future__ import annotations
@@ -25,9 +28,11 @@ from typing import Any, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.api import MODEL
 from repro_torch.models.common import (
     dense_init,
     embed_init,
+    init_device,
     layer_norm,
     mlp_apply,
     mlp_init,
@@ -107,23 +112,37 @@ class XDeepFMConfig:
         return n
 
 
-def init_xdeepfm_params(generator: torch.Generator, cfg: XDeepFMConfig):
-    dev, dt = generator.device, cfg.dtype
+def init_xdeepfm_params(generator: torch.Generator, cfg: XDeepFMConfig, device=None):
+    dev, dt = init_device(generator, device), cfg.dtype
     p = {
-        "embed": embed_init(generator, (cfg.table_rows, cfg.embed_dim), dt),
+        "embed": embed_init(generator, (cfg.table_rows, cfg.embed_dim), dt, dev),
         "linear": torch.zeros(cfg.table_rows, dtype=dt, device=dev),
-        "mlp": mlp_init(generator, [cfg.n_sparse * cfg.embed_dim, *cfg.mlp_layers, 1], dt),
+        "mlp": mlp_init(generator, [cfg.n_sparse * cfg.embed_dim, *cfg.mlp_layers, 1], dt,
+                        dev),
         "cin": [],
         "bias": torch.zeros((), dtype=dt, device=dev),
     }
     h_prev = cfg.n_sparse
     for h in cfg.cin_layers:
-        w = dense_init(generator, (h, h_prev, cfg.n_sparse), in_axis=-1, dtype=dt)
+        w = dense_init(generator, (h, h_prev, cfg.n_sparse), in_axis=-1, dtype=dt,
+                       device=dev)
         p["cin"].append({"w": w / math.sqrt(h_prev),
                          "b": torch.zeros(h, dtype=dt, device=dev)})
         h_prev = h
-    p["cin_out"] = dense_init(generator, (sum(cfg.cin_layers), 1), dtype=dt)
+    p["cin_out"] = dense_init(generator, (sum(cfg.cin_layers), 1), dtype=dt, device=dev)
     return p
+
+
+def xdeepfm_param_specs(cfg: XDeepFMConfig):
+    """The tables shard their rows on ``model``; the rest is replicated."""
+    return {
+        "embed": (MODEL, None),
+        "linear": (MODEL,),
+        "mlp": [{"w": (None,), "b": (None,)}] * (len(cfg.mlp_layers) + 1),
+        "cin": [{"w": (None,), "b": (None,)}] * len(cfg.cin_layers),
+        "cin_out": (None,),
+        "bias": (),
+    }
 
 
 def xdeepfm_forward(params, ids, cfg: XDeepFMConfig):
@@ -175,13 +194,23 @@ class WideDeepConfig:
         return n
 
 
-def init_widedeep_params(generator: torch.Generator, cfg: WideDeepConfig):
-    dev, dt = generator.device, cfg.dtype
+def init_widedeep_params(generator: torch.Generator, cfg: WideDeepConfig, device=None):
+    dev, dt = init_device(generator, device), cfg.dtype
     return {
-        "embed": embed_init(generator, (cfg.table_rows, cfg.embed_dim), dt),
+        "embed": embed_init(generator, (cfg.table_rows, cfg.embed_dim), dt, dev),
         "wide": torch.zeros(cfg.table_rows, dtype=dt, device=dev),
-        "mlp": mlp_init(generator, [cfg.n_sparse * cfg.embed_dim, *cfg.mlp_layers, 1], dt),
+        "mlp": mlp_init(generator, [cfg.n_sparse * cfg.embed_dim, *cfg.mlp_layers, 1], dt,
+                        dev),
         "bias": torch.zeros((), dtype=dt, device=dev),
+    }
+
+
+def widedeep_param_specs(cfg: WideDeepConfig):
+    return {
+        "embed": (MODEL, None),
+        "wide": (MODEL,),
+        "mlp": [{"w": (None,), "b": (None,)}] * (len(cfg.mlp_layers) + 1),
+        "bias": (),
     }
 
 
@@ -236,13 +265,23 @@ class TwoTowerConfig:
         return n
 
 
-def init_twotower_params(generator: torch.Generator, cfg: TwoTowerConfig):
-    dt = cfg.dtype
+def init_twotower_params(generator: torch.Generator, cfg: TwoTowerConfig, device=None):
+    dt, dev = cfg.dtype, init_device(generator, device)
     return {
-        "item_embed": embed_init(generator, (cfg.items_pad, cfg.feat_dim), dt),
-        "user_embed": embed_init(generator, (cfg.ufeats_pad, cfg.feat_dim), dt),
-        "user_tower": mlp_init(generator, [cfg.feat_dim, *cfg.tower_mlp], dt),
-        "item_tower": mlp_init(generator, [cfg.feat_dim, *cfg.tower_mlp], dt),
+        "item_embed": embed_init(generator, (cfg.items_pad, cfg.feat_dim), dt, dev),
+        "user_embed": embed_init(generator, (cfg.ufeats_pad, cfg.feat_dim), dt, dev),
+        "user_tower": mlp_init(generator, [cfg.feat_dim, *cfg.tower_mlp], dt, dev),
+        "item_tower": mlp_init(generator, [cfg.feat_dim, *cfg.tower_mlp], dt, dev),
+    }
+
+
+def twotower_param_specs(cfg: TwoTowerConfig):
+    n_mlp = len(cfg.tower_mlp)
+    return {
+        "item_embed": (MODEL, None),
+        "user_embed": (MODEL, None),
+        "user_tower": [{"w": (None,), "b": (None,)}] * n_mlp,
+        "item_tower": [{"w": (None,), "b": (None,)}] * n_mlp,
     }
 
 
@@ -324,28 +363,43 @@ BLOCK_NAMES = ("wq", "wk", "wv", "wo", "w1", "b1", "w2", "b2",
                "ln1_g", "ln1_b", "ln2_g", "ln2_b")
 
 
-def init_bert4rec_params(generator: torch.Generator, cfg: Bert4RecConfig):
+def init_bert4rec_params(generator: torch.Generator, cfg: Bert4RecConfig, device=None):
     """Blocks stacked on a leading n_blocks axis, as the reference's."""
-    d, f, dt, dev = cfg.embed_dim, cfg.ffn_mult * cfg.embed_dim, cfg.dtype, generator.device
+    d, f, dt = cfg.embed_dim, cfg.ffn_mult * cfg.embed_dim, cfg.dtype
+    dev = init_device(generator, device)
     ones = lambda n: torch.ones(n, dtype=dt, device=dev)
     zeros = lambda n: torch.zeros(n, dtype=dt, device=dev)
     blocks = []
     for _ in range(cfg.n_blocks):
         blocks.append({
-            "wq": dense_init(generator, (d, d), dtype=dt),
-            "wk": dense_init(generator, (d, d), dtype=dt),
-            "wv": dense_init(generator, (d, d), dtype=dt),
-            "wo": dense_init(generator, (d, d), dtype=dt),
-            "w1": dense_init(generator, (d, f), dtype=dt), "b1": zeros(f),
-            "w2": dense_init(generator, (f, d), dtype=dt), "b2": zeros(d),
+            "wq": dense_init(generator, (d, d), dtype=dt, device=dev),
+            "wk": dense_init(generator, (d, d), dtype=dt, device=dev),
+            "wv": dense_init(generator, (d, d), dtype=dt, device=dev),
+            "wo": dense_init(generator, (d, d), dtype=dt, device=dev),
+            "w1": dense_init(generator, (d, f), dtype=dt, device=dev), "b1": zeros(f),
+            "w2": dense_init(generator, (f, d), dtype=dt, device=dev), "b2": zeros(d),
             "ln1_g": ones(d), "ln1_b": zeros(d), "ln2_g": ones(d), "ln2_b": zeros(d),
         })
     return {
-        "embed": embed_init(generator, (cfg.vocab_pad, d), dt),
-        "pos": embed_init(generator, (cfg.seq_len, d), dt),
+        "embed": embed_init(generator, (cfg.vocab_pad, d), dt, dev),
+        "pos": embed_init(generator, (cfg.seq_len, d), dt, dev),
         "blocks": {n: torch.stack([b[n] for b in blocks]) for n in BLOCK_NAMES},
         "out_g": ones(d),
         "out_b": zeros(d),
+    }
+
+
+def bert4rec_param_specs(cfg: Bert4RecConfig):
+    """Replicated: the model is small, and the reference spends the whole
+    mesh on batch parallelism (a table sharded on ``model`` would force a
+    (B, V) logits replication at ``serve_bulk``)."""
+    block = {k: (None,) for k in BLOCK_NAMES}
+    return {
+        "embed": (None, None),
+        "pos": (None,),
+        "blocks": block,
+        "out_g": (None,),
+        "out_b": (None,),
     }
 
 

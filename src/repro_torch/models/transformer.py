@@ -8,9 +8,9 @@ phi3.5-moe-42b-a6.6b).  It has the parameters and caches
 (``layer_shapes``, ``init_lm_params``, ``init_kv_cache``), the decode step
 (``lm_decode_step`` over ``_gqa_decode`` or the absorbed ``_mla_decode``),
 the MoE FFNs (``moe_ffn`` and its ``hier`` and ``grouped`` dispatches) and
-the forward pass (``lm_forward``, ``lm_loss``, ``lm_prefill``).  The
-reference's sharding specs (``param_specs``, ``cache_specs``) come with the
-distribution slice.
+the forward pass (``lm_forward``, ``lm_loss``, ``lm_prefill``), and the
+reference's logical sharding specs (``param_specs``, ``cache_specs``),
+which ``distributed/api.py::named_sharding`` resolves on a mesh.
 
 Layers are stacked on a leading L axis, as in the reference, and iterated
 with a Python loop.  Weights are (in, out) matrices used as ``x @ W``; the
@@ -52,6 +52,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.api import DATA, MODEL
 from repro_torch.kernels import ops
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models.common import (
@@ -207,8 +208,10 @@ def init_lm_params(cfg: LMConfig, generator: torch.Generator, device=None) -> Di
     stacked on a leading L axis.  Each stack is allocated on ``device``
     (None: the card) in its dtype and filled one layer at a time, drawn on
     ``generator``'s device, so the largest float32 temporary is one layer's
-    weight, not a whole stack."""
+    weight, not a whole stack.  On ``device="meta"`` the tree holds shapes
+    only, drawn there from any generator (the dry run)."""
     dev = resolve_device(device)
+    draw = dev if dev.type == "meta" else None
     pd, L = cfg.param_dtype, cfg.n_layers
     shapes = layer_shapes(cfg)
     layers = {}
@@ -222,16 +225,48 @@ def init_lm_params(cfg: LMConfig, generator: torch.Generator, device=None) -> Di
     for i in range(L):
         for name, (shape, dt) in shapes.items():
             if not _is_norm(name) and name[0] != "b":
-                layers[name][i].copy_(dense_init(generator, shape, dtype=dt))
+                layers[name][i].copy_(dense_init(generator, shape, dtype=dt, device=draw))
     params = {
-        "embed": embed_init(generator, (cfg.vocab_pad, cfg.d_model), pd).to(dev),
+        "embed": embed_init(generator, (cfg.vocab_pad, cfg.d_model), pd, draw).to(dev),
         "layers": layers,
         "final_norm": torch.ones(cfg.d_model, dtype=pd, device=dev),
     }
     if not cfg.tie_embeddings:
         params["unembed"] = dense_init(generator, (cfg.d_model, cfg.vocab_pad),
-                                       dtype=pd).to(dev)
+                                       dtype=pd, device=draw).to(dev)
     return params
+
+
+def param_specs(cfg: LMConfig) -> Dict[str, Any]:
+    """Logical sharding specs shaped like ``init_lm_params``' tree (the
+    reference's 2D scheme): weights shard their fan-in on ``data`` (FSDP)
+    and their fan-out on ``model`` (tensor parallelism), the expert axis on
+    ``model``; the stacked layer axis is never split.  Dimensions that do
+    not divide are dropped by ``named_sharding``."""
+    L = (None,)
+    layer: Dict[str, Any] = {"ln1": L, "ln2": L}
+    if cfg.attn == "mla":
+        layer.update(
+            wq_a=(None, DATA, MODEL), q_norm=L, wq_b=(None, DATA, MODEL),
+            wkv_a=(None, DATA, MODEL), kv_norm=L, wk_nope=(None, DATA, MODEL),
+            wv=(None, DATA, MODEL), wk_rope=(None, DATA, None), wo=(None, MODEL, DATA))
+    else:
+        layer.update(wq=(None, DATA, MODEL), wk=(None, DATA, MODEL),
+                     wv=(None, DATA, MODEL), wo=(None, MODEL, DATA))
+        if cfg.qkv_bias:
+            layer.update(bq=(None, MODEL), bk=(None, MODEL), bv=(None, MODEL))
+    if cfg.is_moe:
+        layer.update(router=(None, DATA, None), w1=(None, MODEL, DATA, None),
+                     w3=(None, MODEL, DATA, None), w2=(None, MODEL, None, DATA))
+        if cfg.n_shared_experts:
+            layer.update(sw1=(None, DATA, MODEL), sw3=(None, DATA, MODEL),
+                         sw2=(None, MODEL, DATA))
+    else:
+        layer.update(w1=(None, DATA, MODEL), w3=(None, DATA, MODEL), w2=(None, MODEL, DATA))
+    specs = {"embed": (MODEL, DATA), "layers": layer, "final_norm": (None,)}
+    if not cfg.tie_embeddings:
+        specs["unembed"] = (DATA, MODEL)
+    return specs
 
 
 def init_kv_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None, device=None):
@@ -247,6 +282,14 @@ def init_kv_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None, device=No
     shape = (*lead, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dt, device=dev),
             "v": torch.zeros(shape, dtype=dt, device=dev)}
+
+
+def cache_specs(cfg: LMConfig, s_axis=MODEL):
+    """Logical specs of ``init_kv_cache``' tree: rows on ``data``, positions
+    on ``s_axis`` (the whole mesh for one long-context request)."""
+    if cfg.attn == "mla":
+        return {"c_kv": (None, DATA, s_axis, None), "k_rope": (None, DATA, s_axis, None)}
+    return {"k": (None, DATA, s_axis, None, None), "v": (None, DATA, s_axis, None, None)}
 
 
 def _cache_names(cfg: LMConfig) -> Tuple[str, str]:
@@ -658,6 +701,7 @@ def lm_decode_step(params, cache, tokens, kv_len, cfg: LMConfig):
 
 __all__ = [
     "LMConfig",
+    "cache_specs",
     "init_kv_cache",
     "init_lm_params",
     "layer_shapes",
@@ -668,4 +712,5 @@ __all__ = [
     "moe_ffn",
     "moe_ffn_grouped",
     "moe_ffn_hier",
+    "param_specs",
 ]

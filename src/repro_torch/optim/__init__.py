@@ -1,6 +1,5 @@
-"""Optimizers (port of ``repro/optim``).  The reference's
-``compression.compressed_pod_mean`` is a ``shard_map`` over a ``pod`` mesh
-axis and comes with the distribution slice."""
+"""Optimizers and distributed-optimization tricks (port of
+``repro/optim``): AdamW and the int8 error-feedback pod mean."""
 
 from repro_torch.optim.adamw import (
     AdamWConfig,
@@ -9,5 +8,13 @@ from repro_torch.optim.adamw import (
     cosine_lr,
     global_norm,
 )
+from repro_torch.optim.compression import compressed_pod_mean
 
-__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "cosine_lr", "global_norm"]
+__all__ = [
+    "AdamWConfig",
+    "adamw_init",
+    "adamw_update",
+    "cosine_lr",
+    "global_norm",
+    "compressed_pod_mean",
+]

@@ -20,8 +20,13 @@ for bfloat16, and neither has the reference's: a bfloat16 leaf raises
 ``TypeError`` naming it, on both tiers.
 
 ``restore`` takes the structure of ``like`` and places each leaf on the
-device and in the dtype of ``like``'s leaf; it has no mesh argument (the
-reference's elastic re-shard comes with the distribution slice).
+device and in the dtype of ``like``'s leaf; with ``shardings`` (a tree of
+``distributed/api.py::NamedSharding`` s or None, shaped like ``like``) a
+leaf with a sharding is placed on its mesh by ``distribute_tensor``: the
+reference's elastic re-shard, a state committed under one mesh restored
+under another (or none).  A DTensor leaf is written whole
+(``full_tensor``, a collective: every rank of its mesh calls ``flush`` or
+``commit``).
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.distributed.api import sharding_leaves
 from repro_torch.storage.heap import PersistentHeap
 from repro_torch.train.tree import tree_flatten, tree_leaves, tree_unflatten
 
@@ -50,6 +56,10 @@ class CheckpointConfig:
 
 def _host(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
+        from torch.distributed.tensor import DTensor
+
+        if isinstance(leaf, DTensor):
+            leaf = leaf.full_tensor()
         if leaf.dtype == torch.bfloat16:
             raise TypeError("a checkpoint cannot hold a bfloat16 leaf: the "
                             "persistent heap has no wire code for bfloat16")
@@ -176,9 +186,12 @@ class CheckpointManager:
             return flush_step, "flush"
         return commit_step, "commit"
 
-    def restore(self, like: Any, tier: Optional[str] = None) -> Tuple[Optional[int], Any]:
+    def restore(self, like: Any, shardings: Any = None,
+                tier: Optional[str] = None) -> Tuple[Optional[int], Any]:
         """Restore into the structure of ``like``: each tensor leaf in the
-        shape, dtype and device of ``like``'s leaf (a numpy leaf stays numpy).
+        shape, dtype and device of ``like``'s leaf (a numpy leaf stays numpy),
+        then, where ``shardings`` gives the leaf a sharding, distributed on
+        its mesh (elastic re-shard).
         The heap stores a 0-d array as shape (1,) (``np.ascontiguousarray``,
         in both packages); the reference's flush tier gives its step back
         so, the port reshapes it to the state's 0-d step."""
@@ -201,11 +214,17 @@ class CheckpointManager:
         if len(leaves) != len(like_leaves):
             raise ValueError(f"checkpoint at step {step} holds {len(leaves)} leaves, "
                              f"the state {len(like_leaves)}")
+        shard_leaves = (sharding_leaves(shardings) if shardings is not None
+                        else [None] * len(like_leaves))
         out = []
-        for l, ll in zip(leaves, like_leaves):
+        for l, ll, sh in zip(leaves, like_leaves, shard_leaves):
             if isinstance(ll, torch.Tensor):
-                out.append(torch.from_numpy(l).reshape(ll.shape).to(
-                    device=ll.device, dtype=ll.dtype))
+                t = torch.from_numpy(l).reshape(ll.shape).to(device=ll.device, dtype=ll.dtype)
+                if sh is not None:
+                    from torch.distributed.tensor import distribute_tensor
+
+                    t = distribute_tensor(t, sh.mesh, sh.placements)
+                out.append(t)
             elif hasattr(ll, "dtype"):
                 out.append(np.asarray(l).astype(ll.dtype))
             else:

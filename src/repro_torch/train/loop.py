@@ -14,7 +14,9 @@ checkpoint covers the parameters, the optimizer state and, through the
 step, the position in the batch stream.
 
 A step is ``loss.backward()`` then ``adamw_update`` in place (no
-``torch.compile``, no mesh).  Every step runs under
+``torch.compile``).  ``mesh`` and ``in_shardings`` are kept, as the
+reference's Trainer keeps them, and used for nothing more: a step runs on
+one device.  Every step runs under
 ``torch.use_deterministic_algorithms(True)``: the backward passes of a
 gather (``table[ids]``: ``index_put_`` with accumulate), ``index_add_`` and
 ``scatter_add_`` then add in a fixed order -- on the card instead of with
@@ -77,8 +79,12 @@ class Trainer:
         ckpt_cfg: Optional[CheckpointConfig] = None,
         seed: int = 0,
         device=None,
+        mesh=None,
+        in_shardings=None,
     ) -> None:
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.in_shardings = in_shardings
         self.loss_fn = loss_fn
         self.batch_fn = batch_fn
         self.opt_cfg = opt_cfg

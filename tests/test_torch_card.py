@@ -1022,6 +1022,41 @@ def test_one_document_segment_kernels_on_card(card, k):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dim", [4, 16, 32])
+def test_one_document_cosine_blend_on_card(card, dim):
+    """K8 with flag bit 2 (``one_doc_blend``: the cosine blend in the dot
+    form's operand order, F3) and without, over a one-document segment at
+    alpha 0.2/0.3/0.6/0.7, both modes: 0 ULP against the plain versions,
+    and the two forms differ on some row (the bit is exercised)."""
+    rng = np.random.default_rng(30 + dim)
+    dl, live, cd, cf, vmat = _one_doc_segment(rng, dim)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(card)
+
+    rows = 64
+    starts = dev(np.asarray([i % 2 for i in range(rows)], np.int32))
+    lengths = dev(np.ones(rows, np.int32))
+    idfs = dev(np.full(rows, 1.7917594909667969, np.float32))
+    qvecs = np.zeros((rows, vmat.shape[1]), np.float32)
+    qvecs[:, :dim] = rng.standard_normal((rows, dim))
+    alphas = dev(np.asarray([(0.2, 0.3, 0.6, 0.7)[i % 4] for i in range(rows)], np.float32))
+    base = (dev(cd), dev(cf), dev((dl << 1) | live), starts, lengths, idfs,
+            3.6666667461395264, K1, B, dev(vmat), dev(qvecs), alphas)
+    forms = []
+    for blend in (False, True):
+        for cosine in (False, True):
+            kw = dict(strict_rows=1, strict_q=True, strict_bm25=True, one_doc_blend=blend)
+            _equal(vk.hybrid_topk_tiles(*base, 10, cosine, dim, **kw),
+                   vk.hybrid_topk_tiles_plain(*base, 10, cosine, dim, **kw))
+            scores = vk.hybrid_score_rows(*base, cosine, dim, **kw)
+            _equal(scores, vk.hybrid_score_rows_plain(*base, cosine, dim, **kw))
+            if cosine:
+                forms.append(scores[0][:, 0].cpu())
+    assert not torch.equal(forms[0].view(torch.int32), forms[1].view(torch.int32))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dim", [5, 6, 7, 8])
 def test_vector_strict_norms_on_card(card, dim):
     """K7 and K8, top-k and scores modes, at 5-8 components: the FMA norm
@@ -1375,3 +1410,106 @@ def test_scatter_backward_is_deterministic_on_card(card, name):
         assert all(np.isfinite(r["loss"]) for r in tr.metrics_log)
         runs.append(tree_leaves(tr.state.params))
     assert all(torch.equal(x, y) for x, y in zip(*runs))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["smollm-360m", "qwen2-1.5b"])
+def test_decode_attn_at_long_500k_on_card(card, arch):
+    """K10 at long_500k's 524,288 positions (B 1, the model's heads, a
+    bf16 cache laid out as the model passes it): within K10's bf16
+    tolerance, 2e-2, of its plain version, one launch.  The softmax over
+    seeded keys is flat, so each output is a mean of 524,288 values
+    (~1e-3) and under 2e-2 itself: the error is also held to 2e-2 of the
+    largest |output|, a bound the output rolled by one along D fails."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.lm_shapes import LM_SHAPES
+
+    cfg = get_config(arch).config
+    s, h, g, d = LM_SHAPES["long_500k"]["seq_len"], cfg.n_kv_heads, cfg.group_size, cfg.head_dim
+    gen = torch.Generator(device=card).manual_seed(5)
+    k, v = (torch.randn((1, s, h, d), generator=gen, device=card).to(torch.bfloat16)
+            for _ in range(2))
+    q = torch.randn((1, h, g, d), generator=gen, device=card).to(torch.bfloat16)
+    kvl = torch.full((1,), s, dtype=torch.int32, device=card)
+    n0 = kd.launches["decode_attn"]
+    got = kd.decode_attn(q, k.transpose(1, 2), v.transpose(1, 2), kvl)
+    assert kd.launches["decode_attn"] == n0 + 1
+    want = kd.decode_attn_plain(q, k.transpose(1, 2), v.transpose(1, 2), kvl, 1.0 / d ** 0.5)
+    torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
+    bound = 2e-2 * float(want.abs().max())
+    assert bound > 0
+    assert float((got - want).abs().max()) <= bound
+    assert float((got.roll(1, dims=-1) - want).abs().max()) > bound
+
+
+@pytest.mark.gpu
+def test_microbatched_recsys_step_on_card_matches_cpu(card):
+    """One ``microbatched_train_step`` of a small xdeepfm over 4 micro-batches
+    on the card and on the CPU from the same parameters.  The bounds of
+    ``tests/test_torch_cells.py``: metrics within 1e-5 relative; AdamW's
+    ``m`` and ``v`` (the accumulated gradient, scaled) within 1e-4 of each
+    leaf's largest magnitude (cuBLAS and the CPU sum in other orders); the
+    parameters within AdamW's pinned 2^-20 of each leaf's largest magnitude
+    plus that gradient tolerance carried through the direction
+    ``m / (sqrt(v) + eps)``: lr * min(2, 2e-4 * max|m| / |m|) an entry."""
+    from repro_torch.launch.steps import microbatched_train_step
+    from repro_torch.models import recsys as P
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.train.tree import tree_leaves, tree_map
+
+    cfg = P.XDeepFMConfig(rows_per_field=1000, cin_layers=(16, 16), mlp_layers=(32,))
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2)
+    rng = np.random.default_rng(0)
+    batch = {"ids": rng.integers(0, cfg.n_sparse * 1000, (4, 64, cfg.n_sparse)).astype(np.int32),
+             "label": rng.integers(0, 2, (4, 64)).astype(np.int32)}
+    base = P.init_xdeepfm_params(torch.Generator().manual_seed(1), cfg)
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        params = tree_map(lambda t: t.to(dev), base)
+        state = adamw_init(params)
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        _, _, m = microbatched_train_step(lambda p, x: P.xdeepfm_loss(p, x, cfg), params,
+                                          state, b, opt)
+        out[dev.type] = (params, state, {k: float(v) for k, v in m.items()})
+    (pc, sc, mc), (pp, sp, mp) = out["cuda"], out["cpu"]
+    for k in mp:
+        np.testing.assert_allclose(mc[k], mp[k], rtol=1e-5)
+    for name in ("m", "v"):
+        for a, b in zip(tree_leaves(sc[name]), tree_leaves(sp[name])):
+            want = b.numpy()
+            np.testing.assert_allclose(a.cpu().numpy(), want, rtol=0,
+                                       atol=1e-4 * max(float(np.abs(want).max()), 1e-30))
+    for a, b, m in zip(tree_leaves(pc), tree_leaves(pp), tree_leaves(sp["m"])):
+        want, m = b.numpy().astype(np.float64), np.abs(m.numpy().astype(np.float64))
+        eps_g = 1e-4 * m.max() / np.maximum(m, 1e-300)
+        atol = 2.0 ** -20 * max(float(np.abs(want).max()), 1e-30) \
+            + mp["lr"] * np.minimum(2.0, 2.0 * eps_g)
+        assert (np.abs(a.cpu().numpy() - want) <= atol).all()
+
+
+@pytest.mark.gpu
+def test_dryrun_run_steps_a_fitting_cell_on_card(card, tmp_path):
+    """``python -m repro_torch.launch.dryrun --run`` on the card for nequip
+    ``molecule``: the record, then one real step through
+    ``run_fitting_cells``, its ``__run.json`` with finite outputs and its
+    peak beside the estimate."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "PYTHONPATH": os.path.join(root, "src")}
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                          "nequip", "--shape", "molecule", "--run", "--out", str(tmp_path)],
+                         env=env, capture_output=True, text=True, timeout=600, cwd=root)
+    assert out.returncode == 0, out.stdout + out.stderr
+    with open(tmp_path / "nequip__molecule.json") as f:
+        rec = json.load(f)
+    assert rec["memory"]["runs_on_card"]
+    with open(tmp_path / "nequip__molecule__run.json") as f:
+        run = json.load(f)
+    assert (run["arch"], run["shape"], run["finite"]) == ("nequip", "molecule", True)
+    assert run["step_ms"] > 0 and run["peak_above_base"] > 0
+    assert run["estimate_bytes"] == rec["memory"]["per_device_bytes"]
+    assert "nequip__molecule: ran step=" in out.stdout

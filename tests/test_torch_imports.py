@@ -74,7 +74,7 @@ def test_lm_modules_are_checked():
 def test_training_modules_are_checked():
     """The training, recsys and NequIP modules are among the files checked
     above, and their packages export what the reference's do (the optimizer
-    package without the mesh-bound ``compressed_pod_mean``)."""
+    package with ``compressed_pod_mean``)."""
     checked = {p.relative_to(PORT).as_posix() for p in _port_files() if PORT in p.parents}
     assert {"optim/adamw.py", "train/checkpoint.py", "train/loop.py", "train/tree.py",
             "data/lm.py", "data/prefetch.py", "data/graph.py", "data/recsys_data.py",
@@ -85,11 +85,42 @@ def test_training_modules_are_checked():
     import repro_torch.optim as optim
     import repro_torch.train as train
 
-    assert {"AdamWConfig", "adamw_init", "adamw_update", "cosine_lr"} <= set(optim.__all__)
+    assert {"AdamWConfig", "adamw_init", "adamw_update", "cosine_lr",
+            "compressed_pod_mean"} <= set(optim.__all__)
     assert set(train.__all__) == {"CheckpointManager", "CheckpointConfig"}
     assert set(data.__all__) == {"synthetic_corpus", "CorpusConfig", "Prefetcher"}
     for pkg in (data, optim, train):
         assert all(hasattr(pkg, n) for n in pkg.__all__)
+
+
+def test_distribution_modules_are_checked():
+    """The distribution slice's modules are among the files checked above,
+    ``repro_torch.distributed`` exports what ``repro.distributed`` does, and
+    importing the slice loads no ``jax``, ``repro`` or ``triton`` and builds
+    nothing."""
+    checked = {p.relative_to(PORT).as_posix() for p in _port_files() if PORT in p.parents}
+    new = {"distributed/api.py", "distributed/cost.py", "launch/mesh.py",
+           "launch/steps.py", "launch/dryrun.py", "optim/compression.py"}
+    assert new <= checked
+    import repro_torch.distributed as distributed
+
+    assert set(distributed.__all__) == {"set_mesh", "get_mesh", "set_batch_axes", "shard",
+                                        "named_sharding", "POD", "DATA", "MODEL", "BATCH"}
+    assert all(hasattr(distributed, n) for n in distributed.__all__)
+    mods = sorted("repro_torch." + m[:-3].replace("/", ".") for m in new)
+    code = (
+        "import sys, importlib\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "from repro_torch.kernels import runtime\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+        "assert runtime._lib is None\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
 def test_serve_exports_what_the_reference_exports():
@@ -175,6 +206,21 @@ def test_cpu_tensors_take_the_plain_version():
     z = torch.zeros(kt.TILE, dtype=torch.int32)
     kt.bm25_topk_blocks(z, z + 3, z, 1.0, 1.0, 0.9, 0.4, 10)
     assert kt.launches == before
+
+
+def test_meta_tensors_take_the_plain_version():
+    """A ``meta`` tensor (the dry run's shapes) takes the plain version: K10
+    gives its output's shape and dtype, launches nothing and is not
+    counted."""
+    from repro_torch.kernels import decode_attn as kd
+
+    before = dict(kd.launches)
+    q = torch.empty((2, 5, 3, 64), device="meta", dtype=torch.bfloat16)
+    kv = torch.empty((2, 5, 4096, 64), device="meta", dtype=torch.bfloat16)
+    out = kd.decode_attn(q, kv, kv, torch.empty(2, dtype=torch.int32, device="meta"))
+    assert (out.device.type, tuple(out.shape), out.dtype) == ("meta", (2, 5, 3, 64),
+                                                              torch.float32)
+    assert kd.launches == before
 
 
 def test_header_edit_changes_library_path(tmp_path, monkeypatch):
