@@ -176,20 +176,22 @@ def merge_topk(vals: torch.Tensor, ids: torch.Tensor, k: int):
 def _finalize_scored(vals, ids, totals, n: int) -> List[TopDocs]:
     """Trim -inf padding and box per-query TopDocs (rows beyond ``n`` are
     batch padding).  The one device-to-host copy of a group."""
-    vals_h = vals.cpu().numpy()
-    ids_h = ids.cpu().numpy()
-    totals_h = totals.cpu().numpy()
-    out = []
-    for i in range(n):
-        m = np.isfinite(vals_h[i])
-        out.append(
-            TopDocs(
-                int(totals_h[i]),
-                ids_h[i][m].astype(np.int64),
-                vals_h[i][m].astype(np.float32),
+    with profile.span("results"):
+        with profile.span("device_wait"):
+            vals_h = vals.cpu().numpy()
+        ids_h = ids.cpu().numpy()
+        totals_h = totals.cpu().numpy()
+        out = []
+        for i in range(n):
+            m = np.isfinite(vals_h[i])
+            out.append(
+                TopDocs(
+                    int(totals_h[i]),
+                    ids_h[i][m].astype(np.int64),
+                    vals_h[i][m].astype(np.float32),
+                )
             )
-        )
-    return out
+        return out
 
 
 def _finalize_facets(counts: np.ndarray, totals: np.ndarray, k: int) -> List[TopDocs]:
@@ -205,13 +207,15 @@ def _finalize_facets(counts: np.ndarray, totals: np.ndarray, k: int) -> List[Top
 
 def _concat_merge(vals_t: Sequence, ids_t: Sequence, hits_t: Sequence, k: int):
     """Whole cross-segment merge: concat + stable top-k + hit totals."""
-    vals = torch.cat(list(vals_t), dim=1)
-    ids = torch.cat(list(ids_t), dim=1)
-    totals = hits_t[0]
-    for h in hits_t[1:]:
-        totals = totals + h
-    v, i = merge_topk(vals, ids, k)
-    return v, i, totals
+    with profile.span("merge") as sp:
+        vals = torch.cat(list(vals_t), dim=1)
+        ids = torch.cat(list(ids_t), dim=1)
+        sp.count(candidates=vals.shape[1])
+        totals = hits_t[0]
+        for h in hits_t[1:]:
+            totals = totals + h
+        v, i = merge_topk(vals, ids, k)
+        return v, i, totals
 
 
 def _merge_segment_candidates(
@@ -378,7 +382,8 @@ def _exec_facet(ctx, group: FamilyGroup, k: int) -> List[TopDocs]:
         profile.record("eager.facet")
         counts += c.astype(np.float64)[:n]
         totals += t.astype(np.int64)[:n]
-    return _finalize_facets(counts, totals, k)
+    with profile.span("results"):
+        return _finalize_facets(counts, totals, k)
 
 
 def _exec_phrase(ctx, group: FamilyGroup, k: int) -> List[TopDocs]:
@@ -494,11 +499,12 @@ def _exec_phrase(ctx, group: FamilyGroup, k: int) -> List[TopDocs]:
                 (sq[order].astype(np.float32), dq[order].astype(np.int64))
             )
     profile.record("host.phrase")
-    out = []
-    for qi in range(n):
-        ids, scores = ctx._merge(per_seg_q[qi], k)
-        out.append(TopDocs(int(totals[qi]), ids, scores))
-    return out
+    with profile.span("results"):  # each query's segments merged on the host
+        out = []
+        for qi in range(n):
+            ids, scores = ctx._merge(per_seg_q[qi], k)
+            out.append(TopDocs(int(totals[qi]), ids, scores))
+        return out
 
 
 def _seg_vector(ctx, seg):

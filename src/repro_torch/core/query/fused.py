@@ -37,6 +37,9 @@ groups score there with their kernels in scores mode
 (``vector_score_rows``/``hybrid_score_rows``: the same FMA chains, whole
 rows out) and rank the rows with the same stable sort.  Facet has no k and
 always takes its kernel.
+
+Each executor's query-side staging runs in a ``stage`` span and its
+segment loop in a ``segments`` span (``profile.span``).
 """
 
 from __future__ import annotations
@@ -134,28 +137,30 @@ def exec_term_fused(ctx, group: FamilyGroup, k: int) -> List[TopDocs]:
     n = len(group.queries)
     pad = bucket_batch(n) - n
     use_kernel = kernel_enabled(k)
-    staged = _term_metas(ctx, group.queries, pad, use_kernel)
-    if not staged:
-        return _merge_segment_candidates([], n, k)
-    idfs = torch.tensor(
-        [ctx.idf(q) for q in group.queries] + [0.0] * pad,
-        dtype=torch.float32, device=ctx.device,
-    )
-    coords = _staged(ctx, [m for _, m in staged])
+    with profile.span("stage"):
+        staged = _term_metas(ctx, group.queries, pad, use_kernel)
+        if not staged:
+            return _merge_segment_candidates([], n, k)
+        idfs = torch.tensor(
+            [ctx.idf(q) for q in group.queries] + [0.0] * pad,
+            dtype=torch.float32, device=ctx.device,
+        )
+        coords = _staged(ctx, [m for _, m in staged])
     per_seg = []
-    for i, (seg, meta) in enumerate(staged):
-        st = _tiled(ctx, seg)
-        starts, lengths = coords[i, 0], coords[i, 1]
-        if use_kernel:
-            vals, ids, hits = _flat(*term_topk_tiles(
-                st["csr.docs"], st["csr.freqs"], st["tiled.dl_live"],
-                starts, lengths, idfs, ctx.avgdl, ctx.k1, ctx.b, meta.p, k,
-            ))
-        else:
-            vals, ids, hits = _select_term(
-                st, starts, lengths, idfs, ctx.avgdl, ctx.k1, ctx.b, meta.p, k
-            )
-        per_seg.append((vals, ids.long() + seg.base_doc, hits))
+    with profile.span("segments"):
+        for i, (seg, meta) in enumerate(staged):
+            st = _tiled(ctx, seg)
+            starts, lengths = coords[i, 0], coords[i, 1]
+            if use_kernel:
+                vals, ids, hits = _flat(*term_topk_tiles(
+                    st["csr.docs"], st["csr.freqs"], st["tiled.dl_live"],
+                    starts, lengths, idfs, ctx.avgdl, ctx.k1, ctx.b, meta.p, k,
+                ))
+            else:
+                vals, ids, hits = _select_term(
+                    st, starts, lengths, idfs, ctx.avgdl, ctx.k1, ctx.b, meta.p, k
+                )
+            per_seg.append((vals, ids.long() + seg.base_doc, hits))
     profile.record(_tag("term", use_kernel))
     return _merge_segment_candidates(per_seg, n, k)
 
@@ -165,32 +170,34 @@ def exec_bool_fused(ctx, group: FamilyGroup, k: int) -> List[TopDocs]:
     pad = bucket_batch(n) - n
     conj, n_terms = group.key[1] == "and", group.key[2]
     use_kernel = kernel_enabled(k)
-    staged = []
-    for seg in ctx.segments:
-        meta = stage_bool_meta(seg, group.queries, pad_rows=pad, tile=use_kernel)
-        if meta is not None:
-            staged.append((seg, meta))
-    if not staged:
-        return _merge_segment_candidates([], n, k)
-    idfs = bool_idfs(ctx, group, n + pad)
-    coords = _staged(ctx, [m for _, m in staged])
+    with profile.span("stage"):
+        staged = []
+        for seg in ctx.segments:
+            meta = stage_bool_meta(seg, group.queries, pad_rows=pad, tile=use_kernel)
+            if meta is not None:
+                staged.append((seg, meta))
+        if not staged:
+            return _merge_segment_candidates([], n, k)
+        idfs = bool_idfs(ctx, group, n + pad)
+        coords = _staged(ctx, [m for _, m in staged])
     per_seg = []
-    for i, (seg, meta) in enumerate(staged):
-        st = _tiled(ctx, seg)
-        starts, lengths = coords[i, 0], coords[i, 1]
-        if use_kernel:
-            vals, ids, hits = _flat(*dk.bool_topk_tiles(
-                st["csr.docs"], st["csr.freqs"], st["tiled.dl_live"],
-                starts, lengths, idfs, ctx.avgdl, ctx.k1, ctx.b, conj, k,
-            ))
-        else:
-            docs, freqs = csr_rows(st["csr.docs"], st["csr.freqs"], starts,
-                                   lengths, meta.p)
-            vals, ids, hits = _bool_core(
-                docs, freqs, idfs, st["doc_lens"], st["live"],
-                ctx.avgdl, ctx.k1, ctx.b, k, conj, n_terms,
-            )
-        per_seg.append((vals, ids.long() + seg.base_doc, hits))
+    with profile.span("segments"):
+        for i, (seg, meta) in enumerate(staged):
+            st = _tiled(ctx, seg)
+            starts, lengths = coords[i, 0], coords[i, 1]
+            if use_kernel:
+                vals, ids, hits = _flat(*dk.bool_topk_tiles(
+                    st["csr.docs"], st["csr.freqs"], st["tiled.dl_live"],
+                    starts, lengths, idfs, ctx.avgdl, ctx.k1, ctx.b, conj, k,
+                ))
+            else:
+                docs, freqs = csr_rows(st["csr.docs"], st["csr.freqs"], starts,
+                                       lengths, meta.p)
+                vals, ids, hits = _bool_core(
+                    docs, freqs, idfs, st["doc_lens"], st["live"],
+                    ctx.avgdl, ctx.k1, ctx.b, k, conj, n_terms,
+                )
+            per_seg.append((vals, ids.long() + seg.base_doc, hits))
     profile.record(_tag("bool", use_kernel))
     return _merge_segment_candidates(per_seg, n, k)
 
@@ -200,26 +207,28 @@ def exec_sort_fused(ctx, group: FamilyGroup, k: int) -> List[TopDocs]:
     pad = bucket_batch(n) - n
     dv_field = group.key[1]
     use_kernel = kernel_enabled(k)
-    staged = _term_metas(ctx, [q.term for q in group.queries], pad, use_kernel)
-    if not staged:
-        return _merge_segment_candidates([], n, k)
-    coords = _staged(ctx, [m for _, m in staged])
+    with profile.span("stage"):
+        staged = _term_metas(ctx, [q.term for q in group.queries], pad, use_kernel)
+        if not staged:
+            return _merge_segment_candidates([], n, k)
+        coords = _staged(ctx, [m for _, m in staged])
     per_seg = []
-    for i, (seg, meta) in enumerate(staged):
-        st = _tiled(ctx, seg)
-        starts, lengths = coords[i, 0], coords[i, 1]
-        if use_kernel:
-            vals, ids, hits = _flat(*dk.sort_topk_tiles(
-                st["csr.docs"], st["csr.freqs"], st["tiled.live"],
-                st[f"tiled.dv.{dv_field}"], starts, lengths, k,
-            ))
-        else:
-            docs, freqs = csr_rows(st["csr.docs"], st["csr.freqs"], starts,
-                                   lengths, meta.p)
-            vals, ids, hits = _sort_core(
-                docs, freqs, st[f"dv.{dv_field}"], st["live"], k
-            )
-        per_seg.append((vals, ids.long() + seg.base_doc, hits))
+    with profile.span("segments"):
+        for i, (seg, meta) in enumerate(staged):
+            st = _tiled(ctx, seg)
+            starts, lengths = coords[i, 0], coords[i, 1]
+            if use_kernel:
+                vals, ids, hits = _flat(*dk.sort_topk_tiles(
+                    st["csr.docs"], st["csr.freqs"], st["tiled.live"],
+                    st[f"tiled.dv.{dv_field}"], starts, lengths, k,
+                ))
+            else:
+                docs, freqs = csr_rows(st["csr.docs"], st["csr.freqs"], starts,
+                                       lengths, meta.p)
+                vals, ids, hits = _sort_core(
+                    docs, freqs, st[f"dv.{dv_field}"], st["live"], k
+                )
+            per_seg.append((vals, ids.long() + seg.base_doc, hits))
     profile.record(_tag("sort", use_kernel))
     return _merge_segment_candidates(per_seg, n, k)
 
@@ -228,19 +237,21 @@ def exec_range_fused(ctx, group: FamilyGroup, k: int) -> List[TopDocs]:
     n = len(group.queries)
     dv_field = group.key[1]
     use_kernel = kernel_enabled(k)
-    los, his = range_bounds(ctx, group, bucket_batch(n) - n)
+    with profile.span("stage"):
+        los, his = range_bounds(ctx, group, bucket_batch(n) - n)
     per_seg = []
-    for seg in ctx.segments:
-        st = _tiled(ctx, seg)
-        if use_kernel:
-            vals, ids, hits = _flat(*dk.range_topk_tiles(
-                st[f"tiled.dv.{dv_field}"], st["tiled.live"], los, his, k,
-            ))
-        else:
-            vals, ids, hits = _range_core(
-                st[f"dv.{dv_field}"], st["live"], los, his, k
-            )
-        per_seg.append((vals, ids.long() + seg.base_doc, hits))
+    with profile.span("segments"):
+        for seg in ctx.segments:
+            st = _tiled(ctx, seg)
+            if use_kernel:
+                vals, ids, hits = _flat(*dk.range_topk_tiles(
+                    st[f"tiled.dv.{dv_field}"], st["tiled.live"], los, his, k,
+                ))
+            else:
+                vals, ids, hits = _range_core(
+                    st[f"dv.{dv_field}"], st["live"], los, his, k
+                )
+            per_seg.append((vals, ids.long() + seg.base_doc, hits))
     profile.record(_tag("range", use_kernel))
     return _merge_segment_candidates(per_seg, n, k)
 
@@ -248,16 +259,16 @@ def exec_range_fused(ctx, group: FamilyGroup, k: int) -> List[TopDocs]:
 def exec_facet_fused(ctx, group: FamilyGroup, k: int) -> List[TopDocs]:
     n = len(group.queries)
     dv_field, n_bins, match_all = group.key[1], group.key[2], group.key[3]
-    if match_all:  # one row for the group, replicated on the host
-        staged = [(seg, None) for seg in ctx.segments]
-    else:
-        terms = [q.term for q in group.queries]
-        staged = _term_metas(ctx, terms, bucket_batch(n) - n, True)
-    counts = np.zeros((n, n_bins), dtype=np.float64)
-    totals = np.zeros(n, dtype=np.int64)
-    if staged:
-        coords = None if match_all else _staged(ctx, [m for _, m in staged])
-        hist_dev = totals_dev = None
+    with profile.span("stage"):
+        if match_all:  # one row for the group, replicated on the host
+            staged = [(seg, None) for seg in ctx.segments]
+            coords = None
+        else:
+            terms = [q.term for q in group.queries]
+            staged = _term_metas(ctx, terms, bucket_batch(n) - n, True)
+            coords = _staged(ctx, [m for _, m in staged]) if staged else None
+    hist_dev = totals_dev = None
+    with profile.span("segments"):
         for i, (seg, _) in enumerate(staged):
             st = _tiled(ctx, seg)
             starts, lengths = (None, None) if match_all else (coords[i, 0], coords[i, 1])
@@ -268,10 +279,16 @@ def exec_facet_fused(ctx, group: FamilyGroup, k: int) -> List[TopDocs]:
             hits = cnt.sum(-1)
             hist_dev = hist if hist_dev is None else hist_dev + hist
             totals_dev = hits if totals_dev is None else totals_dev + hits
-        counts += hist_dev.cpu().numpy().astype(np.float64)[:n]
-        totals += totals_dev.cpu().numpy().astype(np.int64)[:n]
     profile.record("fused.facet")
-    return _finalize_facets(counts, totals, k)
+    with profile.span("results"):
+        counts = np.zeros((n, n_bins), dtype=np.float64)
+        totals = np.zeros(n, dtype=np.int64)
+        if staged:
+            with profile.span("device_wait"):
+                hist_h = hist_dev.cpu().numpy()
+            counts += hist_h.astype(np.float64)[:n]
+            totals += totals_dev.cpu().numpy().astype(np.int64)[:n]
+        return _finalize_facets(counts, totals, k)
 
 
 def vector_segments(ctx):
@@ -343,16 +360,18 @@ def hybrid_coords(ctx, segs, terms, pad: int):
 def exec_vector_fused(ctx, group: FamilyGroup, k: int) -> List[TopDocs]:
     n = len(group.queries)
     dim, cosine = group.key[1], group.key[2] == "cosine"
-    segs = vector_segments(ctx)
-    if not segs:
-        return _merge_segment_candidates([], n, k)
-    qvecs = query_vectors(ctx, [q.vector for q in group.queries], bucket_batch(n),
-                          vk.pad_dim(dim))
+    with profile.span("stage"):
+        segs = vector_segments(ctx)
+        if not segs:
+            return _merge_segment_candidates([], n, k)
+        qvecs = query_vectors(ctx, [q.vector for q in group.queries], bucket_batch(n),
+                              vk.pad_dim(dim))
     per_seg = []
-    for seg in segs:
-        vals, ids, hits = vector_segment(ctx, seg, qvecs, k, cosine, dim,
-                                         ctx.unfused_rounding)
-        per_seg.append((vals, ids.long() + seg.base_doc, hits))
+    with profile.span("segments"):
+        for seg in segs:
+            vals, ids, hits = vector_segment(ctx, seg, qvecs, k, cosine, dim,
+                                             ctx.unfused_rounding)
+            per_seg.append((vals, ids.long() + seg.base_doc, hits))
     profile.record(_tag("vector", kernel_enabled(k)))
     return _merge_segment_candidates(per_seg, n, k)
 
@@ -361,18 +380,20 @@ def exec_hybrid_fused(ctx, group: FamilyGroup, k: int) -> List[TopDocs]:
     n = len(group.queries)
     rows = bucket_batch(n)
     dim, cosine = group.key[1], group.key[2] == "cosine"
-    segs = vector_segments(ctx)
-    if not segs:
-        return _merge_segment_candidates([], n, k)
-    coords = hybrid_coords(ctx, segs, [q.term for q in group.queries], rows - n)
-    qvecs = query_vectors(ctx, [q.vector.vector for q in group.queries], rows,
-                          vk.pad_dim(dim))
-    idfs, alphas = hybrid_params(ctx, group, rows)
+    with profile.span("stage"):
+        segs = vector_segments(ctx)
+        if not segs:
+            return _merge_segment_candidates([], n, k)
+        coords = hybrid_coords(ctx, segs, [q.term for q in group.queries], rows - n)
+        qvecs = query_vectors(ctx, [q.vector.vector for q in group.queries], rows,
+                              vk.pad_dim(dim))
+        idfs, alphas = hybrid_params(ctx, group, rows)
     per_seg = []
-    for i, seg in enumerate(segs):
-        vals, ids, hits = hybrid_segment(ctx, seg, coords[i, 0], coords[i, 1], idfs,
-                                         alphas, qvecs, k, cosine, dim,
-                                         ctx.unfused_rounding)
-        per_seg.append((vals, ids.long() + seg.base_doc, hits))
+    with profile.span("segments"):
+        for i, seg in enumerate(segs):
+            vals, ids, hits = hybrid_segment(ctx, seg, coords[i, 0], coords[i, 1], idfs,
+                                             alphas, qvecs, k, cosine, dim,
+                                             ctx.unfused_rounding)
+            per_seg.append((vals, ids.long() + seg.base_doc, hits))
     profile.record(_tag("hybrid", kernel_enabled(k)))
     return _merge_segment_candidates(per_seg, n, k)

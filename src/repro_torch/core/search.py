@@ -42,6 +42,7 @@ import torch
 from repro_torch.core.analyzer import Analyzer, term_hash
 from repro_torch.core.lifecycle.infos import SegmentInfos
 from repro_torch.core.query import live as live_mod
+from repro_torch.core.query import profile
 from repro_torch.core.query.cache import SegmentDeviceCache
 from repro_torch.core.query.exec import (
     _bool_core,
@@ -221,19 +222,22 @@ class Searcher:
 
     def search_batch(self, queries: Sequence[Query], k: int = 10) -> List[TopDocs]:
         """Score a batch: group by family, one executor call per group."""
-        plan = plan_batch(queries)
-        results: List[Optional[TopDocs]] = [None] * plan.n_queries
-        for group in plan.groups:
-            for qi, td in zip(group.indices, self.execute_group(group, k)):
-                results[qi] = td
-        return results  # type: ignore[return-value]
+        with profile.span(profile.ROOT):
+            with profile.span("plan"):
+                plan = plan_batch(queries)
+            results: List[Optional[TopDocs]] = [None] * plan.n_queries
+            for group in plan.groups:
+                for qi, td in zip(group.indices, self.execute_group(group, k)):
+                    results[qi] = td
+            return results  # type: ignore[return-value]
 
     def execute_group(self, group, k: int) -> List[TopDocs]:
         """One planned family group: committed segments, plus the live tail
         when this view holds one (``query.live.run_group``)."""
-        if self._live is None:
-            return execute_group(self, group, k)
-        return live_mod.run_group(self, group, k)
+        with profile.span("group"):
+            if self._live is None:
+                return execute_group(self, group, k)
+            return live_mod.run_group(self, group, k)
 
     def search_single(self, query: Query, k: int = 10) -> TopDocs:
         """The sequential per-query path (one call per segment, heapq merge
