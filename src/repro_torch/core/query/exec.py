@@ -44,6 +44,7 @@ from repro_torch.core.query.plan import (
 from repro_torch.core.query.types import TermQuery, TopDocs, empty_topdocs
 from repro_torch.core.writer import VECTOR_FIELD
 from repro_torch.kernels import doc_topk as dk
+from repro_torch.kernels import runtime
 from repro_torch.kernels import vector_topk as vk
 from repro_torch.kernels.term_topk import bm25, one_doc, scalars
 
@@ -515,13 +516,33 @@ def _seg_vector(ctx, seg):
     return ctx._seg_dev(seg)[f"dv.{VECTOR_FIELD}"]
 
 
-def query_vectors(ctx, vectors, rows: int, width: int) -> torch.Tensor:
+def query_vectors(ctx, vectors, rows: int, width: int, sp=None) -> torch.Tensor:
     """(rows, width) float32 query vectors on the device; padding rows and
-    components are zeros."""
-    q = np.zeros((rows, width), dtype=np.float32)
-    for i, v in enumerate(vectors):
+    components are zeros.  ``sp``, the caller's span, counts ``rows`` (the
+    vectors given) and ``direct_rows`` (those the card's route converted).
+
+    On the CPU (and ``meta``) each row is a numpy assignment.  On the card
+    the library's host routine ``stage_rows`` writes every row that is a
+    tuple or list of Python floats straight into a pinned buffer, as numpy's
+    cast rounds it, and the other rows (arrays, ints, numpy scalars, a row
+    longer than ``width``, which raises) take the numpy assignment there;
+    then one asynchronous upload.  The buffer comes from PyTorch's caching
+    host allocator, which reuses it only after its copy has run."""
+    taken = np.zeros(len(vectors), dtype=np.uint8)
+    if ctx.device.type == "cuda":
+        buf = torch.empty((rows, width), dtype=torch.float32, pin_memory=True)
+        q = buf.numpy()
+        direct = runtime.python_library().stage_rows(
+            vectors, buf.data_ptr(), rows, width, taken.ctypes.data)
+    else:
+        q = np.zeros((rows, width), dtype=np.float32)
+        buf, direct = torch.from_numpy(q), 0
+    for i in np.flatnonzero(taken == 0):
+        v = vectors[i]
         q[i, : len(v)] = v
-    return torch.from_numpy(q).to(ctx.device)
+    if sp is not None:
+        sp.count(rows=len(vectors), direct_rows=direct)
+    return buf.to(ctx.device, non_blocking=True)
 
 
 def hybrid_params(ctx, group: FamilyGroup, rows: int):

@@ -360,12 +360,12 @@ def hybrid_coords(ctx, segs, terms, pad: int):
 def exec_vector_fused(ctx, group: FamilyGroup, k: int) -> List[TopDocs]:
     n = len(group.queries)
     dim, cosine = group.key[1], group.key[2] == "cosine"
-    with profile.span("stage"):
+    with profile.span("stage") as sp:
         segs = vector_segments(ctx)
         if not segs:
             return _merge_segment_candidates([], n, k)
         qvecs = query_vectors(ctx, [q.vector for q in group.queries], bucket_batch(n),
-                              vk.pad_dim(dim))
+                              vk.pad_dim(dim), sp)
     per_seg = []
     with profile.span("segments"):
         for seg in segs:
@@ -380,13 +380,13 @@ def exec_hybrid_fused(ctx, group: FamilyGroup, k: int) -> List[TopDocs]:
     n = len(group.queries)
     rows = bucket_batch(n)
     dim, cosine = group.key[1], group.key[2] == "cosine"
-    with profile.span("stage"):
+    with profile.span("stage") as sp:
         segs = vector_segments(ctx)
         if not segs:
             return _merge_segment_candidates([], n, k)
         coords = hybrid_coords(ctx, segs, [q.term for q in group.queries], rows - n)
         qvecs = query_vectors(ctx, [q.vector.vector for q in group.queries], rows,
-                              vk.pad_dim(dim))
+                              vk.pad_dim(dim), sp)
         idfs, alphas = hybrid_params(ctx, group, rows)
     per_seg = []
     with profile.span("segments"):

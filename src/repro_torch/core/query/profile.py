@@ -23,7 +23,9 @@ reads them with ``spans()``.  The search path's spans:
   plan          ``plan_batch``
   group         one family group
   stage         a fused executor's query-side staging, before its segment
-                loop
+                loop (a vector or hybrid group's counts ``rows``, its query
+                vectors, and ``direct_rows``, those staged on the card's
+                direct route: ``exec.query_vectors``)
   segments      a fused executor's segment loop: per segment the cache
                 lookup, the kernel wrapper and its launches
   merge         the cross-segment merge (count ``candidates``: the merged

@@ -14,6 +14,10 @@ runs on the card or not at all.
     ``*.cu`` sources and the ``*.cuh``/``*.h`` headers they include), lands
     in ``_build/`` beside this package, and raises with nvcc's stderr if it
     fails.  Nothing here runs at import time.
+  * ``python_library()`` is the same library through a ``ctypes.PyDLL``
+    handle, whose calls keep the GIL: for its host routines that read
+    Python objects (``csrc/stage_rows.cu``, built against the running
+    interpreter's headers).
 
 Kernel wrappers take their plain PyTorch version only for tensors that lie
 on the CPU (or on ``meta``, where nothing is computed); a CUDA tensor
@@ -29,6 +33,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sysconfig
 import tempfile
 import threading
 import time
@@ -45,12 +50,15 @@ NVCC_FLAGS = (
     "-O3", "-fmad=false", "-std=c++17",
     "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
+    # Python.h, for the host routines that read Python objects
+    "-I", sysconfig.get_paths()["include"],
 )
 #: what the build digest covers: the sources and the headers they include
 SOURCE_GLOBS = ("*.cu", "*.cuh", "*.h")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_pylib: Optional[ctypes.PyDLL] = None
 #: what the last build printed (``-Xptxas -v``: registers, shared memory,
 #: spills per kernel) and how long it took; empty when the library came
 #: from an earlier build with the same sources
@@ -193,6 +201,21 @@ def library() -> ctypes.CDLL:
             lib.cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+def python_library() -> ctypes.PyDLL:
+    """The kernels' library through a handle that keeps the GIL across a
+    call, for its host routines that read Python objects."""
+    global _pylib
+    library()  # builds
+    with _lock:
+        if _pylib is None:
+            lib = ctypes.PyDLL(build_info["path"])
+            lib.stage_rows.argtypes = [ctypes.py_object, ctypes.c_void_p, ctypes.c_int,
+                                       ctypes.c_int, ctypes.c_void_p]
+            lib.stage_rows.restype = ctypes.c_int
+            _pylib = lib
+        return _pylib
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

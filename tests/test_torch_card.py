@@ -1513,3 +1513,125 @@ def test_dryrun_run_steps_a_fitting_cell_on_card(card, tmp_path):
     assert run["step_ms"] > 0 and run["peak_above_base"] > 0
     assert run["estimate_bytes"] == rec["memory"]["per_device_bytes"]
     assert "nequip__molecule: ran step=" in out.stdout
+
+
+# ---------------------------------------------------------------------------
+# query-side staging: the direct route against the plain one
+# ---------------------------------------------------------------------------
+
+
+def _staged_on(device, vectors, rows, width):
+    """(bits of ``query_vectors``' rows, what it counted) on ``device``."""
+    from types import SimpleNamespace
+
+    from repro_torch.core.query.exec import query_vectors
+    from test_torch_stage import Counts
+
+    sp = Counts()
+    got = query_vectors(SimpleNamespace(device=torch.device(device)), vectors, rows,
+                        width, sp)
+    return got.cpu().numpy().view(np.uint32), sp.counts
+
+
+@pytest.mark.gpu
+def test_direct_staging_matches_plain_on_card(card):
+    """The card's direct route (``csrc/stage_rows.cu`` into a pinned
+    buffer, one upload) against the CPU's numpy route, bit for bit: the
+    roundings of ``test_torch_stage``, random double bit patterns, every row
+    form, empty and padding rows; rows of Python floats go direct, the
+    rest through numpy."""
+    import math
+
+    from test_torch_stage import ROUNDINGS, ROW_FORMS
+
+    rng = np.random.default_rng(30)
+    doubles = rng.integers(0, 2**64, size=(4, 40), dtype=np.uint64).view(np.float64)
+    vectors = ([tuple(x for x, _ in ROUNDINGS) + (math.nan,)]
+               + [tuple(r.tolist()) for r in doubles]
+               + [ROW_FORMS[f] for f in sorted(ROW_FORMS)] + [(), [2.5, -0.0]])
+    direct = sum(type(v) in (tuple, list) and all(type(x) is float for x in v)
+                 for v in vectors)
+    assert 0 < direct < len(vectors)
+    rows, width = len(vectors) + 3, 48
+    got, got_counts = _staged_on(card, vectors, rows, width)
+    want, want_counts = _staged_on("cpu", vectors, rows, width)
+    np.testing.assert_array_equal(got, want)
+    assert got_counts == {"rows": len(vectors), "direct_rows": direct}
+    assert want_counts == {"rows": len(vectors), "direct_rows": 0}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["tuple", "list", "float64_array", "float32_array", "ints",
+                                  "numpy_scalars", "mixed"])
+def test_staging_route_by_row_form_on_card(card, form):
+    """Each row form alone: the route the count names, the plain bits."""
+    from test_torch_stage import ROW_FORMS
+
+    got, counts = _staged_on(card, [ROW_FORMS[form]], 2, 4)
+    want, _ = _staged_on("cpu", [ROW_FORMS[form]], 2, 4)
+    np.testing.assert_array_equal(got, want)
+    assert counts == {"rows": 1, "direct_rows": int(form in ("tuple", "list"))}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("row", [(1.0,) * 5, [1.0] * 5, np.ones(5)],
+                         ids=["tuple", "list", "array"])
+def test_direct_staging_row_longer_than_width_raises_on_card(card, row):
+    with pytest.raises(ValueError):
+        _staged_on(card, [(1.0,), row], 2, 4)
+
+
+@pytest.mark.gpu
+def test_pinned_buffers_are_not_reused_before_their_copy_on_card(card):
+    """Twelve groups staged back to back while the stream is held busy, so
+    that none of their copies has run when the next buffer is taken: each
+    device tensor holds its own group's rows."""
+    from types import SimpleNamespace
+
+    from repro_torch.core.query.exec import query_vectors
+
+    rng = np.random.default_rng(3031)
+    groups = [[tuple(float(x) for x in rng.standard_normal(64)) for _ in range(8)]
+              for _ in range(12)]
+    ctx = SimpleNamespace(device=card)
+    torch.cuda._sleep(200_000_000)  # ~0.1 s of the stream's time before the copies
+    staged = [query_vectors(ctx, g, 8, 64) for g in groups]
+    for g, t in zip(groups, staged):
+        np.testing.assert_array_equal(t.cpu().numpy(), np.asarray(g, np.float32))
+
+
+@pytest.mark.gpu
+def test_vector_groups_in_one_batch_match_single_on_card(card):
+    """A batch holding VectorDot, VectorCosine and HybridDot groups with
+    distinct vectors, each group staged through its own pinned buffer,
+    equals ``search_single`` of each query on the card, bit for bit, over
+    three waves in a row."""
+    from repro_torch.core import SearchEngine
+    from repro_torch.core.query.types import HybridQuery, TermQuery, VectorQuery
+
+    dim = 96
+    rng = np.random.default_rng(3030)
+    eng = SearchEngine("ram")
+    for n in (300, 200, 250):
+        for _ in range(n):
+            body = " ".join(f"w{int(x)}" for x in rng.integers(0, 8, rng.integers(1, 9)))
+            eng.add({"body": body}, {"_vec": rng.standard_normal(dim).astype(np.float32)})
+        eng.flush()
+    eng.reopen()
+
+    def vec():
+        return tuple(float(x) for x in rng.standard_normal(dim))
+
+    for _ in range(3):
+        batch = []
+        for i in range(6):
+            batch += [VectorQuery(vec(), "dot"), VectorQuery(vec(), "cosine"),
+                      HybridQuery(TermQuery("body", f"w{i}"), VectorQuery(vec(), "dot"), 0.3)]
+        got = eng.search_batch(batch, k=10)
+        for q, g in zip(batch, got):
+            want = eng.searcher.search_single(q, k=10)
+            assert g.total_hits == want.total_hits, q
+            np.testing.assert_array_equal(g.doc_ids, want.doc_ids, err_msg=repr(q))
+            np.testing.assert_array_equal(np.asarray(g.scores).view(np.int32),
+                                          np.asarray(want.scores).view(np.int32),
+                                          err_msg=repr(q))

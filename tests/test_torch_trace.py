@@ -156,11 +156,17 @@ def test_traced_batch_builds_one_tree_a_call(engine, calls):
                 assert by_index[r.parent].name == "results"
             if r.name == "merge":
                 assert r.counts["candidates"] > 0
-            else:
+            elif r.name != "stage":
                 assert r.counts == {}
         assert names.count("results") == len(FAMILIES)
         assert names.count("merge") == len(FAMILIES) - 1  # facet counts bins
         if engine.searcher.fused:
+            # the vector and hybrid groups' staging counts its query rows,
+            # none of them direct on the CPU; the other groups' counts none
+            want = [{"rows": n, "direct_rows": 0} if family in ("vector", "hybrid") else {}
+                    for family, n in FAMILIES.items()]
+            got = [r.counts for r in tree if r.name == "stage"]
+            assert sorted(got, key=repr) == sorted(want, key=repr)
             assert names.count("stage") == len(FAMILIES)
             assert names.count("segments") == len(FAMILIES)
             assert names.count("device_wait") == len(FAMILIES)
