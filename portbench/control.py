@@ -3,14 +3,17 @@
 program's place, computed in the nearest precisions below the
 configuration's (``SearchReference(control=True)``: TF32-rounded
 similarities, bfloat16 BM25, sort keys and facet counts), judged by the
-same comparison and limits as a run.  It has to come out not correct.
+same comparison and limits of its answers as a run (the durable and
+visibility checks judge a program's engine and front end, which the
+control has none of).  It has to come out not correct.
 
     python3 portbench/control.py --workload <cell> --seeds <n> [<n> ...]
 
 prints one JSON line a seed with the control's numbers beside the limits.
 It makes the cell's corpus and traffic as a run does, with no program and
-no window: the sampled waves are drawn from the traffic's pools, and the
-visible docs are the index's plus half of a window's ingest stream.
+no window: the sampled waves (served traffic: ``check_queries_per_task``
+queries a task) are drawn from the traffic's pools, and the visible docs
+are the index's plus half of a window's ingest stream.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ def control_verdict(cell_name: str, seed: int, device, seconds: float = 10.0,
     from portbench import compare
     from portbench.corpus import Corpus
     from portbench.harness import (
-        Run, delete_term, deleted_docs, load, load_benchmark, make_pools,
+        Run, delete_term, deleted_docs, flat, load, load_benchmark, make_pools,
     )
     from portbench.reference import SearchReference
 
@@ -50,6 +53,13 @@ def control_verdict(cell_name: str, seed: int, device, seconds: float = 10.0,
     rng = np.random.default_rng([int(seed), 3])
     samples = []
     for task in traffic["tasks"]:
+        if run.served:
+            pool = flat(run.plain[task])
+            picks = rng.choice(len(pool), size=traffic["check_queries_per_task"], replace=False)
+            qs = [pool[i] for i in picks.tolist()]
+            samples.append({"queries": qs, "k": run.k[task], "n_vis": n_vis,
+                            "results": compare.answers(control.wave(qs, n_vis), run.k[task])})
+            continue
         for j in rng.choice(traffic["pool_waves"], size=traffic["check_waves_per_task"],
                             replace=False).tolist():
             qs = run.plain[task][j]
@@ -57,8 +67,9 @@ def control_verdict(cell_name: str, seed: int, device, seconds: float = 10.0,
                             "results": compare.answers(control.wave(qs, n_vis), run.k[task])})
     del control
     reference = SearchReference(corpus, deleted, device)
-    extra = {"lost_acked": 0} if cfg["durable"] else None
-    return compare.judge(samples, reference, load("limits", cell_name), extra)
+    limits = {k: v for k, v in load("limits", cell_name).items()
+              if k in ("exact_mismatch", "score_err", "rank_gap")}
+    return compare.judge(samples, reference, limits)
 
 
 def main(argv=None) -> int:

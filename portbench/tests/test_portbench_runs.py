@@ -57,11 +57,17 @@ class Broken:
 
 def bench_with_later_cells():
     """BENCHMARK.json plus the entries of the cells it leaves out until
-    their runs hold a bound (``later_cells.json``, PERF.md §7)."""
+    their runs hold a bound (``later_cells.json``, PERF.md §7), with the
+    later cells named in the ``workloads`` lists of the per-layer metrics
+    they report (its ``workloads_lists``)."""
     bench = harness.load_benchmark()
     later = json.loads((Path(__file__).parent / "later_cells.json").read_text())
+    lists = later.pop("workloads_lists")
     for key, entries in later.items():
         bench[key] += entries
+    for m in bench["per_layer"]:
+        if m["name"] in lists:
+            m["workloads"] = m["workloads"] + lists[m["name"]]
     return bench
 
 
